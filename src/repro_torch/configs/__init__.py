@@ -1,0 +1,23 @@
+"""Config registry of the port. Only the dense family's first model is
+ported; the reference's other architectures come with their families
+(ROADMAP queue 1, item 9)."""
+
+from __future__ import annotations
+
+import importlib
+
+from .base import ModelConfig, reduce_for_smoke  # noqa: F401
+
+_MODULES = {
+    "qwen1.5-0.5b": "qwen15_05b",
+}
+ARCHS = tuple(_MODULES)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _MODULES:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet (ported: {', '.join(ARCHS)}); "
+            "other families follow ROADMAP queue 1, item 9")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    return mod.CONFIG

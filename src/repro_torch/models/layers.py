@@ -1,0 +1,240 @@
+"""Transformer building blocks of the dense family, in torch.
+
+The port's counterpart of ``repro/models/layers.py``: ``dense`` (plain or
+packed-serving dispatch), RMSNorm, RoPE, the attention math (the same
+masked softmax as the reference: an online softmax over key chunks for
+prefill, a dense masked softmax for one-token decode), the int8 KV codec,
+the attention layer's no-cache prefill branch and single-pass paged branch,
+and the swiglu MLP.
+
+No attention kernel lies on this path: the reference engine attends
+through jnp (layers.py:574-607), so the port attends in plain torch.
+``scaled_dot_product_attention`` is not used. The ring-paged and split-KV
+branches wait (ROADMAP queue 1, item 6); QAT waits for the training slice.
+
+Paged cache updates happen in place: ``attn_apply`` scatters the new K/V
+rows into the shared pool tensors instead of returning a new pool.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.qlinear import QuantizedWeight, dense_serve
+from repro_torch.core.qplan import plan_backend
+
+_NEG = -1e30
+
+
+def dense(p: dict, x: torch.Tensor, *, policy) -> torch.Tensor:
+    """x: (..., in) -> (..., out). A packed leaf ({"qw": QuantizedWeight})
+    runs through its plan's kernel route; a plain leaf ({"w": (in, out)})
+    is a matmul in x's dtype."""
+    if "qw" in p:
+        qw: QuantizedWeight = p["qw"]
+        if qw.kernel is None:
+            raise NotImplementedError(
+                "legacy (kernel=None) dequant-einsum leaves are not ported; "
+                "pack under a QuantPlan")
+        return dense_serve(qw, x, bias=p.get("b"), backend=plan_backend(policy))
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def norm_apply(p: dict, x: torch.Tensor, kind: str, eps: float = 1e-6) -> torch.Tensor:
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+def _rope_freqs(hd: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd // 2, dtype=torch.float32,
+                                         device=device) / (hd // 2)))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, N, hd); positions: (B, S) or (1, S)."""
+    hd = x.shape[-1]
+    freqs = _rope_freqs(hd, theta, x.device)
+    ang = positions[..., None].float() * freqs                  # (B, S, hd/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _attn_chunk_size(sk: int) -> int:
+    kc = min(1024, sk)
+    while sk % kc:
+        kc //= 2
+    return max(kc, 1)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset=0) -> torch.Tensor:
+    """Online-softmax attention over key chunks. q (B, Sq, KV, G, hd), k/v
+    (B, Sk, KV, hd) -> (B, Sq, KV, G, hd). ``q_offset`` is the absolute
+    position of query row 0: an int, or a (B,) tensor per row."""
+    B, Sq, KV, G, hd = q.shape
+    Sk = k.shape[1]
+    scale = hd ** -0.5
+    kc = _attn_chunk_size(Sk)
+    dev = q.device
+    qf = q.float()
+    per_row = torch.is_tensor(q_offset) and q_offset.ndim == 1
+    qpos = (q_offset[:, None] if per_row else q_offset) \
+        + torch.arange(Sq, device=dev)                   # (B, Sq) or (Sq,)
+    m = torch.full((B, KV, G, Sq), _NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KV, G, Sq, hd), dtype=torch.float32, device=dev)
+    for k0 in range(0, Sk, kc):
+        kb = k[:, k0:k0 + kc].float()
+        vb = v[:, k0:k0 + kc].float()
+        s = torch.einsum("bqegh,bseh->begqs", qf, kb) * scale
+        kpos = k0 + torch.arange(kb.shape[1], device=dev)
+        mask = torch.ones(qpos.shape + kpos.shape, dtype=torch.bool, device=dev)
+        if causal:
+            mask &= qpos[..., None] >= kpos
+        mask = mask[:, None, None] if per_row else mask
+        s = torch.where(mask, s, _NEG)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("begqs,bseh->begqh", p, vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]     # (B, KV, G, Sq, hd)
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Single-query masked softmax. q (B, 1, KV, G, hd), caches (B, S, KV,
+    hd), valid (B, S) bool."""
+    hd = q.shape[-1]
+    s = torch.einsum("bqegh,bseh->begqs", q.float(), k_cache.float()) * hd ** -0.5
+    s = torch.where(valid[:, None, None, None, :], s, _NEG)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("begqs,bseh->bqegh", p, v_cache.float())
+    return out.to(q.dtype)
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, KV, hd) -> (int8 codes, per-(token, head) f32 scales)."""
+    xf = x.float()
+    sc = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / sc[..., None]), -127, 127).to(torch.int8)
+    return q, sc
+
+
+def dequantize_kv(q: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
+    return q.float() * sc[..., None]
+
+
+KV_QUANT = {"int8": (quantize_kv, dequantize_kv)}
+
+
+def _cache_update(view: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Write new (B, S, ...) into view (B, S_view, ...) at rows [pos,
+    pos+S) of each batch row; the start clamps to [0, S_view - S] like the
+    reference's dynamic_update_slice."""
+    B, S = new.shape[:2]
+    start = torch.clamp(pos, 0, view.shape[1] - S)
+    rows = start[:, None] + torch.arange(S, device=view.device)
+    view[torch.arange(B, device=view.device)[:, None], rows] = new.to(view.dtype)
+    return view
+
+
+def _scatter_pool_rows(pool: torch.Tensor, new: torch.Tensor, blk: torch.Tensor,
+                       offs: torch.Tensor) -> None:
+    """In place: scatter per-token rows new (B, S, ...) into the pool at
+    (block, offset) coordinates blk / offs (both (B, S))."""
+    B, S = blk.shape
+    pool[blk.reshape(-1), offs.reshape(-1)] = new.reshape(
+        B * S, *new.shape[2:]).to(pool.dtype)
+
+
+def attn_apply(p: dict, x: torch.Tensor, *, cfg, cache: Optional[dict] = None,
+               pos: Optional[torch.Tensor] = None,
+               block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Self-attention layer. x (B, S, D). Without a cache: causal prefill
+    over the whole sequence. With a paged cache (pool dict) and block
+    tables (B, nb): gather each row's blocks into a dense view, update rows
+    [pos, pos+S), attend (decode when S == 1, chunked prefill otherwise),
+    then scatter the new rows into the pool in place."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    G = H // KV
+    pol = cfg.quant
+    q = dense(p["wq"], x, policy=pol).reshape(B, S, KV, G, hd)
+    k = dense(p["wk"], x, policy=pol).reshape(B, S, KV, hd)
+    v = dense(p["wv"], x, policy=pol).reshape(B, S, KV, hd)
+    ar = torch.arange(S, device=x.device)
+    positions = ar[None, :] if pos is None else pos[:, None] + ar[None, :]
+    q = apply_rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta
+                   ).reshape(B, S, KV, G, hd)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is None:
+        out = flash_attention(q, k, v, causal=True)
+    else:
+        if block_tables is None:
+            raise NotImplementedError("dense slot caches are not ported; "
+                                      "the port serves through the paged pool")
+        bs_tok = cache["k"].shape[1]
+        int8_cache = cfg.kv_cache_dtype in KV_QUANT and "k_sc" in cache
+        if int8_cache:
+            qf, dqf = KV_QUANT[cfg.kv_cache_dtype]
+            k, k_sc = qf(k)
+            v, v_sc = qf(v)
+        nb = block_tables.shape[1]
+        S_view = nb * bs_tok
+        rows = pos[:, None] + ar[None, :]                        # (B, S)
+        blk = torch.gather(block_tables, 1,
+                           torch.clamp(rows // bs_tok, max=nb - 1))
+        offs = rows % bs_tok
+
+        def gather(pool):
+            return pool[block_tables].reshape(B, S_view, *pool.shape[2:])
+
+        kc = _cache_update(gather(cache["k"]), k, pos)
+        vc = _cache_update(gather(cache["v"]), v, pos)
+        if int8_cache:
+            ksc = _cache_update(gather(cache["k_sc"]), k_sc, pos)
+            vsc = _cache_update(gather(cache["v_sc"]), v_sc, pos)
+            kd, vd = dqf(kc, ksc), dqf(vc, vsc)
+        else:
+            kd, vd = kc, vc
+        if S == 1:
+            valid = torch.arange(S_view, device=x.device)[None, :] <= pos[:, None]
+            out = decode_attention(q, kd, vd, valid)
+        else:
+            # the per-row causal mask also blanks the not-yet-written tail
+            out = flash_attention(q, kd, vd, causal=True, q_offset=pos)
+        _scatter_pool_rows(cache["k"], k, blk, offs)
+        _scatter_pool_rows(cache["v"], v, blk, offs)
+        if int8_cache:
+            _scatter_pool_rows(cache["k_sc"], k_sc, blk, offs)
+            _scatter_pool_rows(cache["v_sc"], v_sc, blk, offs)
+    out = out.reshape(B, S, H * hd)
+    return dense(p["wo"], out, policy=pol)
+
+
+def mlp_apply(p: dict, x: torch.Tensor, *, cfg) -> torch.Tensor:
+    if cfg.mlp != "swiglu":
+        raise NotImplementedError(f"mlp {cfg.mlp!r} is not ported yet")
+    pol = cfg.quant
+    up = dense(p["w_up"], x, policy=pol)
+    g = dense(p["w_gate"], x, policy=pol)
+    # jax.nn.silu(g) * up, with the reference's sigmoid lowering
+    # 1 / (1 + exp(-g)) rounded op by op in g's dtype (torch.sigmoid rounds
+    # once, which differs in bf16)
+    h = g * (1 / (1 + torch.exp(-g))) * up
+    return dense(p["w_down"], h, policy=pol)

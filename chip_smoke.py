@@ -6,7 +6,8 @@
 Phases, each printing its lines:
   1 device    the card's name and count, nvidia-smi's name and power limit
   2 settings  TF32 off for f32 matmuls and convolutions
-  3 build     nvcc builds every kernel source for sm_90a (-Xptxas -v)
+  3 build     nvcc builds every kernel source for sm_90a (-Xptxas -v),
+              or loads the library already built from the same sources
   4 kernels   each kernel against its plain PyTorch version at the serving
               shapes of qwen1.5-0.5b (K x N = 1024x1024, 1024x2816,
               2816x1024; M = 1, 4, 32), with kernel, plain, library
@@ -21,7 +22,9 @@ Phases, each printing its lines:
               w2a16 first-decode-step logits within the stated tolerance
   7 profile   torch.profiler over a few engine steps of each plan: wall
               and device-busy time per step (the device's idle share),
-              kernels per step, and the top host and device ops
+              kernels per step, and the top host and device ops; the
+              port's standing source of the idle share until it has a
+              benchmark of its own
 
 Any failure exits nonzero. The line before the last is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}. Without a CUDA
@@ -41,9 +44,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
+# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W). The bound of
+# each kernel takes the fastest units that compute the same function on its
+# inputs: the codebook levels are small integers, so lut_gemm's integer LUT
+# sums are an int8 product with int32 sums, and dequant_matmul is a bf16
+# product of the activations with the exact bf16 levels, f32 sums, with the
+# scales (per channel or per group) applied to the sums as an epilogue.
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12           # f32 outside the tensor cores
+INT8_TC_OPS = 1979e12       # int8 tensor cores
+BF16_TC_FLOPS = 989e12      # bf16 tensor cores
 
 # tolerances (stated): lut_gemm with an integer LUT sums exact integers in
 # f32, so it must be bit-identical; with group scales the summation order
@@ -51,7 +60,7 @@ F32_FLOPS = 67e12           # f32 outside the tensor cores
 # order than torch.matmul.
 TOL_LUT_GROUPED = 1e-5      # relative to max|plain|
 TOL_DEQUANT = 1e-5          # relative to max|plain|
-TOL_LOGITS = 5e-2           # w2a16 first decode step, relative to max|logit|
+TOL_LOGITS = 2e-2           # w2a16 first decode step, relative to max|logit|
 
 SHAPES = ((1024, 1024), (1024, 2816), (2816, 1024))   # (K, N) per projection
 ROWS = (1, 4, 32)                                      # decode / prefill chunk
@@ -90,9 +99,9 @@ def graph_ms(torch, fn, reps: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (reps * replays)
 
 
-def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
+def bound_ms(n_bytes: int, n_ops: int, peak: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_FLOPS * 1e3
+    t_ops = n_ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -153,7 +162,8 @@ def phase_kernels(torch, dev):
                     ap, wp, lut, sc, w_bits=wb, a_bits=ab, group_size=G), reps=3,
                     replays=3)
                 l_ms = graph_ms(torch, lambda: torch.matmul(x, w_deq.T))
-                b, by = bound_ms(nbytes(ap, wp, lut, sc) + M * N * 4, M * N * K)
+                b, by = bound_ms(nbytes(ap, wp, lut, sc) + M * N * 4, 2 * M * N * K,
+                                 INT8_TC_OPS)
                 cfg = f"w{wb}a{ab}" + (f"g{G}" if G else "")
                 record("lut_gemm", cfg, M, K, N, err, ok, k_ms, p_ms, l_ms, b, by)
             # dequant_matmul: w2, w2g128, w4 (bf16 activations, as served)
@@ -176,7 +186,8 @@ def phase_kernels(torch, dev):
                 p_ms = graph_ms(torch, lambda: dequant_matmul_plain(
                     x, wp, cb, sc, bits=wb, group_size=G), reps=5, replays=5)
                 l_ms = graph_ms(torch, lambda: torch.matmul(x, w_deq.T))
-                b, by = bound_ms(nbytes(x, wp, cb, sc) + M * N * 4, 2 * M * N * K)
+                b, by = bound_ms(nbytes(x, wp, cb, sc) + M * N * 4, 2 * M * N * K,
+                                 BF16_TC_FLOPS)
                 cfg = f"w{wb}a16" + (f"g{G}" if G else "")
                 record("dequant_matmul", cfg, M, K, N, err, ok, k_ms, p_ms, l_ms,
                        b, by)
@@ -276,11 +287,13 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
 
     t0 = time.perf_counter()
-    built = build.build(verbose=True)
-    print(f"[3 build] nvcc sm_90a, {len(built)} sources in parallel, "
+    built = build.build()
+    print(f"[3 build] nvcc sm_90a, {sum(r['built'] for r in built.values())} "
+          f"of {len(built)} sources built in parallel, "
           f"{time.perf_counter() - t0:.1f}s wall", flush=True)
     for stem, rec in sorted(built.items()):
-        print(f"  {stem}.cu: {rec['seconds']:.1f}s", flush=True)
+        how = f"{rec['seconds']:.1f}s" if rec["built"] else "already built"
+        print(f"  {stem}.cu: {how}", flush=True)
         for line in rec["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}", flush=True)

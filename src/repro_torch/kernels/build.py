@@ -67,28 +67,33 @@ def _lib_path(stem: str, digest: str) -> Path:
     return BUILD_DIR / f"{stem}-{digest}.so"
 
 
-def build(verbose: bool = False) -> dict[str, dict]:
+def build() -> dict[str, dict]:
     """Compile every source whose library is missing, one ``nvcc`` per
-    source, all started together. ``verbose`` adds ``-Xptxas -v``
-    (registers, shared memory and spills per kernel). Returns
-    ``{stem: {"seconds", "log", "path"}}`` for the sources compiled now."""
-    extra = ("-Xptxas", "-v") if verbose else ()
+    source, all started together, with ``-Xptxas -v`` (registers, shared
+    memory and spills per kernel). The compiler's log is kept beside each
+    library. Returns ``{stem: {"seconds", "log", "path", "built"}}`` for
+    every source: ``built`` is false, and ``seconds`` 0, where the library
+    was already there."""
     digest = _digest()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
+    done = {}
     procs = {}
     for src in sorted(CSRC.glob("*.cu")):
         out = _lib_path(src.stem, digest)
-        if out.exists() and not verbose:
+        if out.exists():
+            log_path = out.with_suffix(".log")
+            done[src.stem] = {"seconds": 0.0, "path": str(out), "built": False,
+                              "log": log_path.read_text() if log_path.exists()
+                              else ""}
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", str(CSRC), "-o", str(tmp),
-               str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-o",
+               str(tmp), str(src)]
         procs[src.stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT,
                                             text=True), tmp, out,
                            time.perf_counter())
-    done = {}
     failed = []
     for stem, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
@@ -96,8 +101,10 @@ def build(verbose: bool = False) -> dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"{stem}.cu (rc={proc.returncode}):\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
-        done[stem] = {"seconds": secs, "log": log, "path": str(out)}
+        done[stem] = {"seconds": secs, "log": log, "path": str(out),
+                      "built": True}
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return done

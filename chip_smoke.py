@@ -14,12 +14,16 @@ Phases, each printing its lines:
               (torch.matmul of bf16 activations against the pre-dequantized
               bf16 weight) and bound times
   5 engine    qwen1.5-0.5b at full width with seeded random weights, packed
-              under w2a2 and then w2a16, serving 12 requests through the
-              paged engine via repro_torch.launch.serve; launch counts set
-              to 0 just before each run and read just after
+              under w2a2, w2a16 and w2a8_bs in turn, serving 12 requests
+              through the paged engine via repro_torch.launch.serve; launch
+              counts set to 0 just before each run and read just after: the
+              plan's kernel launches 7 x 24 times per forward, the others 0
   6 plain     the same runs with the registry forced onto the plain
-              versions on the card: w2a2 greedy tokens must be identical,
-              w2a16 first-decode-step logits within the stated tolerance
+              versions on the card (no kernel launches): under w2a2 and
+              w2a8_bs, whose kernels are bit-identical to their plain
+              versions, greedy tokens and first-decode-step logits must be
+              identical; w2a16 first-decode-step logits within the stated
+              tolerance
   7 profile   torch.profiler over a few engine steps of each plan: wall
               and device-busy time per step (the device's idle share),
               kernels per step, and the top host and device ops; the
@@ -57,9 +61,12 @@ BF16_TC_FLOPS = 989e12      # bf16 tensor cores
 # tolerances (stated): lut_gemm with an integer LUT sums exact integers in
 # f32, so it must be bit-identical; with group scales the summation order
 # differs from the plain version's. dequant_matmul sums f32 FMAs in another
-# order than torch.matmul.
+# order than torch.matmul. lut_gemm_bs_fused quantizes the rows with the
+# plain version's arithmetic and sums exact integers, so per channel it must
+# be bit-identical; its group-scale sum runs in another order.
 TOL_LUT_GROUPED = 1e-5      # relative to max|plain|
 TOL_DEQUANT = 1e-5          # relative to max|plain|
+TOL_BS_GROUPED = 1e-5       # relative to max|plain|
 TOL_LOGITS = 2e-2           # w2a16 first decode step, relative to max|logit|
 
 SHAPES = ((1024, 1024), (1024, 2816), (2816, 1024))   # (K, N) per projection
@@ -115,9 +122,11 @@ def phase_kernels(torch, dev):
     from repro_torch.kernels.lut_dequant_matmul import (dequant_matmul_cuda,
                                                         dequant_matmul_plain)
     from repro_torch.kernels.lut_gemm import lut_gemm_cuda, lut_gemm_plain
+    from repro_torch.kernels.lut_gemm_bitsliced import (lut_gemm_bs_fused_cuda,
+                                                        lut_gemm_bs_fused_plain)
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = {"lut_gemm": [], "dequant_matmul": []}
+    rows = {"lut_gemm": [], "dequant_matmul": [], "lut_gemm_bs_fused": []}
 
     def codes(shape, bits):
         return torch.randint(0, 2 ** bits, shape, generator=gen, device=dev,
@@ -128,7 +137,7 @@ def phase_kernels(torch, dev):
                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                "library_ms": l_ms, "bound_ms": b, "bound_by": by}
         rows[name].append(row)
-        print(f"  {name:15s} {cfg:9s} M={M:<3d} K={K:<5d} N={N:<5d} "
+        print(f"  {name:17s} {cfg:14s} M={M:<3d} K={K:<5d} N={N:<5d} "
               f"err={err:.3g} kernel={k_ms:.5f}ms plain={p_ms:.5f}ms "
               f"library={l_ms:.5f}ms bound={b:.5f}ms ({by})", flush=True)
         if not tol_ok:
@@ -191,6 +200,48 @@ def phase_kernels(torch, dev):
                 cfg = f"w{wb}a16" + (f"g{G}" if G else "")
                 record("dequant_matmul", cfg, M, K, N, err, ok, k_ms, p_ms, l_ms,
                        b, by)
+            # lut_gemm_bs_fused: raw activations with an all-zero row (the
+            # scale floor) and a row whose amax sits in one element
+            xe = x.clone()
+            if M >= 4:
+                xe[0] = 0
+                xe[1] *= 1e-3
+                xe[1, K // 3] = 40.0
+            cases = [(2, None, "bf16", None), (2, 64, "bf16", None),
+                     (4, None, "bf16", None)]
+            if (K, N) == (1024, 2816):
+                cases += [(2, None, "f32", None)]
+                if M == 4:
+                    cases += [(2, None, "bf16", "static")]
+            for wb, G, xdt, asc_kind in cases:
+                xb = xe if xdt == "bf16" else xe.float()
+                w_idx = codes((N, K), wb)
+                planes = packing.pack_bitplanes_signed(w_idx, wb)
+                sc = torch.rand((N,) if G is None else (N, K // G), generator=gen,
+                                device=dev) * 0.02 + 0.01
+                asc = (torch.full((1, 1), 0.037, device=dev)
+                       if asc_kind == "static" else None)
+                kw = dict(w_bits=wb, a_bits=8, group_size=G)
+                got = lut_gemm_bs_fused_cuda(xb, planes, sc, asc, **kw)
+                torch.cuda.synchronize()
+                want = lut_gemm_bs_fused_plain(xb, planes, sc, asc, **kw)
+                err = (got - want).abs().max().item()
+                ok = err == 0.0 if G is None else \
+                    err <= TOL_BS_GROUPED * max(1.0, want.abs().max().item())
+                w_full = (w_idx.float() - 2 ** (wb - 1)) * (
+                    sc[:, None] if G is None else quant.expand_group_scales(sc, G))
+                w_deq = w_full.to(torch.bfloat16)
+                k_ms = graph_ms(torch, lambda: lut_gemm_bs_fused_cuda(
+                    xb, planes, sc, asc, **kw))
+                p_ms = graph_ms(torch, lambda: lut_gemm_bs_fused_plain(
+                    xb, planes, sc, asc, **kw), reps=3, replays=3)
+                l_ms = graph_ms(torch, lambda: torch.matmul(xe, w_deq.T))
+                b, by = bound_ms(nbytes(xb, planes, sc, asc) + M * N * 4,
+                                 2 * M * N * K, INT8_TC_OPS)
+                cfg = f"w{wb}a8_bs" + (f"_g{G}" if G else "") + f" {xdt}" + (
+                    " a_sc" if asc is not None else "")
+                record("lut_gemm_bs_fused", cfg, M, K, N, err, ok, k_ms, p_ms,
+                       l_ms, b, by)
     return rows
 
 
@@ -268,6 +319,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.lut_dequant_matmul import dequant_matmul_cuda
     from repro_torch.kernels.lut_gemm import lut_gemm_cuda
+    from repro_torch.kernels.lut_gemm_bitsliced import lut_gemm_bs_fused_cuda
     from repro_torch.launch import serve
 
     t_start = time.perf_counter()
@@ -300,42 +352,48 @@ def main() -> int:
 
     print("[4 kernels] kernel vs plain at the serving shapes "
           f"(tolerances: lut_gemm exact / grouped {TOL_LUT_GROUPED} rel, "
-          f"dequant_matmul {TOL_DEQUANT} rel)", flush=True)
+          f"dequant_matmul {TOL_DEQUANT} rel, lut_gemm_bs_fused exact / "
+          f"grouped {TOL_BS_GROUPED} rel)", flush=True)
     rows = phase_kernels(torch, dev)
 
+    wrappers = {"lut_gemm": lut_gemm_cuda, "dequant_matmul": dequant_matmul_cuda,
+                "lut_gemm_bs_fused": lut_gemm_bs_fused_cuda}
+    plan_op = {"w2a2": "lut_gemm", "w2a16": "dequant_matmul",
+               "w2a8_bs": "lut_gemm_bs_fused"}
+
+    def reset_launches():
+        for w in wrappers.values():
+            w.launches = 0
+
     results = {}
-    for plan in ("w2a2", "w2a16"):
+    for plan, op in plan_op.items():
         args = serve.build_parser().parse_args(
             ["--arch", "qwen1.5-0.5b", "--paged", "--plan", plan,
              "--device", "cuda"])
         cfg, qparams = serve.prepare(args)
         cap_k: dict = {}
-        lut_gemm_cuda.launches = 0
-        dequant_matmul_cuda.launches = 0
+        reset_launches()
         res_k = run_engine(torch, serve, cfg, qparams, args, cap_k)
-        launches = {"lut_gemm": lut_gemm_cuda.launches,
-                    "dequant_matmul": dequant_matmul_cuda.launches}
+        launches = {name: w.launches for name, w in wrappers.items()}
         m = res_k["metrics"]
         forwards = m["decode_steps"] + m["prefill_chunks"]
-        op = "lut_gemm" if plan == "w2a2" else "dequant_matmul"
         want = 7 * cfg.n_layers * forwards
         print(f"[5 engine] {cfg.name} {plan} (int8 pool, full width): "
               f"{len(res_k['requests'])} requests, {res_k['tokens']} tokens, "
               f"{res_k['tok_per_s']:.1f} tok/s, decode-only step "
               f"{res_k['decode_step_ms']:.3f} ms on {smi} | launches {launches} "
               f"over {forwards} forwards", flush=True)
-        if launches[op] != want:
-            fail(f"{plan}: {op} launched {launches[op]} times, expected "
-                 f"7 x {cfg.n_layers} x {forwards} = {want}")
+        if launches != {name: want if name == op else 0 for name in wrappers}:
+            fail(f"{plan}: launches {launches}, expected {op} 7 x "
+                 f"{cfg.n_layers} x {forwards} = {want} and the others 0")
 
         # 6: the same run with the registry forced onto the plain versions
         cfg_p = dataclasses.replace(
             cfg, quant=dataclasses.replace(cfg.quant, backend="ref"))
         cap_p: dict = {}
-        lut_gemm_cuda.launches = 0
-        dequant_matmul_cuda.launches = 0
+        reset_launches()
         res_p = run_engine(torch, serve, cfg_p, qparams, args, cap_p)
-        if lut_gemm_cuda.launches or dequant_matmul_cuda.launches:
+        if any(w.launches for w in wrappers.values()):
             fail("the plain-version run launched a kernel")
         toks_k = [r.out for r in res_k["requests"]]
         toks_p = [r.out for r in res_p["requests"]]
@@ -346,8 +404,9 @@ def main() -> int:
               f"tok/s; greedy tokens identical for {same}/{len(toks_k)} "
               f"requests; first decode step logits max rel diff {rel:.3g}",
               flush=True)
-        if plan == "w2a2" and same != len(toks_k):
-            fail("w2a2 greedy tokens differ between the kernel and plain paths")
+        if plan in ("w2a2", "w2a8_bs") and (same != len(toks_k) or rel != 0.0):
+            fail(f"{plan}: kernel and plain paths differ (tokens identical for "
+                 f"{same}/{len(toks_k)} requests, first-step logits by {rel})")
         if plan == "w2a16" and rel > TOL_LOGITS:
             fail(f"w2a16 first-step logits differ by {rel} > {TOL_LOGITS}")
         results[plan] = {"launches": launches, "tok_per_s": res_k["tok_per_s"],
@@ -364,7 +423,11 @@ def main() -> int:
                "dequant_matmul": ("src/repro_torch/csrc/dequant_matmul.cu",
                                   "src/repro/kernels/lut_dequant_matmul.py:77",
                                   results["w2a16"]["launches"]["dequant_matmul"],
-                                  "w2a16")}
+                                  "w2a16"),
+               "lut_gemm_bs_fused": ("src/repro_torch/csrc/lut_gemm_bs_fused.cu",
+                                     "src/repro/kernels/lut_gemm_bitsliced.py:292",
+                                     results["w2a8_bs"]["launches"]["lut_gemm_bs_fused"],
+                                     "w2a8_bs bf16")}
     kernels = []
     for name, (src, replaces, launches, cfg_name) in sources.items():
         rep = next(r for r in rows[name] if r["cfg"] == cfg_name

@@ -7,7 +7,9 @@ neither ``jax`` nor ``repro``:
   params_from_jax   a plain tree from ``repro.models.lm.init_params``
   qparams_from_jax  a tree packed by ``repro.models.lm.quantize_tree``,
                     whose ``QuantizedWeight`` leaves arrive as objects with
-                    the same field names (numpy arrays + aux ints/strings)
+                    the same field names (numpy arrays + aux ints/strings);
+                    bit-plane leaves (scheme 'bs') keep their
+                    (bits, N, K/4) planes, and ``a_sc`` comes along where set
 
 The reference stacks the superblock scan axis first (``blocks``: every
 array carries a leading ``n_superblocks`` axis, one entry per repeat of the
@@ -43,11 +45,12 @@ def _is_qw(x) -> bool:
 
 def _qw_from(leaf, index, device) -> QuantizedWeight:
     if getattr(leaf, "tp", None) is not None:
-        raise NotImplementedError("tensor-parallel packed leaves are not "
-                                  "ported yet: ROADMAP queue 1, item 11")
-    if getattr(leaf, "scheme", "a") == "bs":
-        raise NotImplementedError("bit-plane packed leaves are not ported "
-                                  "yet: ROADMAP queue 2, item 1")
+        route = ""
+        if getattr(leaf, "scheme", "a") == "bs":
+            route = (" (a row-parallel bit-sliced leaf takes the two-step "
+                     "lut_gemm_bitsliced route)")
+        raise NotImplementedError(f"tensor-parallel packed leaves{route} are "
+                                  "not ported yet: ROADMAP queue 1, item 11")
     arrays = {}
     for name in _QW_ARRAYS:
         v = getattr(leaf, name)

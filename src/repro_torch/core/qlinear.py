@@ -9,14 +9,20 @@ routes a planned leaf to its kernel op:
   w{b}a16   -> ``dequant_matmul`` (codebook dequant + matmul + scale)
   w{b}a{b}  -> per-row dynamic activation quantization (or the leaf's static
                scale), packed activation codes, ``lut_gemm``
+  w{b}a8_bs -> ``lut_gemm_bs_fused`` on the raw activations: the op itself
+               quantizes each row, runs the bit-plane core and applies
+               every scale (bit-plane leaves, scheme 'bs')
 
 One difference from the reference: under the 'ref' backend the reference
 runs the w{b}a{b} route as a dequant dot (the GSPMD-shardable form); the
 port always dispatches ``lut_gemm`` and its 'ref' backend is the plain LUT
 sum. Both sum the same exact integer products per channel.
 
-Not ported yet, and raising: the bit-sliced routes (ROADMAP queue 2, item
-1), k-means codebooks, QAT, and tensor-parallel roles and autotuned tiles.
+Not ported yet, and raising: k-means codebooks, QAT, and tensor-parallel
+roles and autotuned tiles. The reference's two-step bit-sliced route
+(``lut_gemm_bitsliced``) serves only row-parallel leaves under a TP mesh;
+it comes with the TP slice (ROADMAP queue 1, item 11), and ``bridge.py``
+refuses such leaves.
 """
 
 from __future__ import annotations
@@ -31,9 +37,6 @@ import torch
 from . import packing, quant
 from .lut import product_lut
 from repro_torch.kernels import registry as kreg
-
-_BITSLICED = ("bit-sliced route (lut_gemm_bitsliced / lut_gemm_bs_fused) is "
-              "not ported yet: ROADMAP queue 2, item 1")
 
 
 def _component_parts(component: str) -> list[str]:
@@ -85,7 +88,8 @@ class QuantizedWeight:
     reference): packed (out, in_pad/f) uint8, codebook (2^bits,) f32,
     scales (out,) or (out, in_pad/G) f32, and for w{b}a{b} leaves the
     activation codebook ``a_levels``, the product LUT ``plut`` and an
-    optional static activation scale ``a_sc``."""
+    optional static activation scale ``a_sc``. Bit-sliced leaves (scheme
+    'bs') hold (bits, out, in_pad/4) planes in ``packed`` and no ``plut``."""
     packed: torch.Tensor
     codebook: torch.Tensor
     scales: torch.Tensor
@@ -102,20 +106,29 @@ class QuantizedWeight:
 
     @property
     def k_padded(self) -> int:
+        if self.scheme == "bs":
+            return self.packed.shape[-1] * packing.BITPLANE_GROUP
         return self.packed.shape[-1] * packing.PACK_FACTOR[self.bits]
 
     def unpacked_idx(self) -> torch.Tensor:
+        if self.scheme == "bs":
+            return packing.unpack_bitplanes_signed(self.packed, self.bits)
         return packing.unpack(self.packed, self.bits)
 
 
 def _k_multiple(policy: QuantPolicy) -> int:
     """Contraction-axis padding unit: the pack factor (or the scale group,
     itself a pack-factor multiple), lcm'd with the activation pack factor
-    for w{b}a{b} LUT plans so both operands hold whole packed bytes."""
+    for w{b}a{b} LUT plans so both operands hold whole packed bytes, and
+    with the plane group for the bit-sliced kernel (its activations stay
+    unpacked)."""
     m = policy.group_size if policy.group_size is not None \
         else packing.PACK_FACTOR[policy.w_bits]
-    if policy.a_bits is not None and policy.resolved_kernel() == "lut_gemm":
+    kern = policy.resolved_kernel()
+    if policy.a_bits is not None and kern == "lut_gemm":
         m = math.lcm(m, packing.PACK_FACTOR[policy.a_bits])
+    if kern == "lut_gemm_bitsliced":
+        m = math.lcm(m, packing.BITPLANE_GROUP)
     return m
 
 
@@ -128,18 +141,24 @@ def _pad_k(wt: torch.Tensor, multiple: int) -> torch.Tensor:
 
 def _act_tables(policy: QuantPolicy, w_levels: torch.Tensor):
     """The activation codebook and product LUT, precomputed offline for
-    w{b}a{b} LUT plans (None otherwise)."""
-    if policy.a_bits is None or policy.resolved_kernel() != "lut_gemm":
+    w{b}a{b} LUT plans (None otherwise). The bit-sliced route keeps the
+    codebook but has no product LUT: its tables are built from the
+    activations inside the kernel."""
+    kern = policy.resolved_kernel()
+    if policy.a_bits is None or kern not in ("lut_gemm", "lut_gemm_bitsliced"):
         return None, None
     a_levels = quant.uniform_codebook(policy.a_bits, True,
                                       device=w_levels.device).levels
+    if kern == "lut_gemm_bitsliced":
+        return a_levels, None
     return a_levels, product_lut(w_levels, a_levels).table
 
 
 def quantize_weight(w: torch.Tensor, policy: QuantPolicy, *,
                     a_static: Optional[float] = None) -> QuantizedWeight:
     """Offline quantize+pack of one dense weight: w (in, out) -> packed
-    (out, in_pad/f), on w's device."""
+    (out, in_pad/f), or (bits, out, in_pad/4) bit planes for the bit-sliced
+    kernel, on w's device."""
     bits = policy.w_bits
     if bits is None:
         raise ValueError("quantize_weight needs a policy with w_bits set")
@@ -147,8 +166,10 @@ def quantize_weight(w: torch.Tensor, policy: QuantPolicy, *,
         raise NotImplementedError("k-means (non-uniform) codebooks are not "
                                   "ported yet: ROADMAP queue 1, item 2")
     kern = policy.resolved_kernel() if policy.kernel else None
-    if kern == "lut_gemm_bitsliced":
-        raise NotImplementedError(_BITSLICED)
+    if kern == "lut_gemm_bitsliced" and not (policy.signed
+                                             and policy.a_bits is not None):
+        raise ValueError("bit-sliced route needs signed uniform w{b}a{b} "
+                         "quantization")
     G = policy.group_size
     wt = _pad_k(w.T.to(torch.float32).contiguous(), _k_multiple(policy))  # (out, in_pad)
     if G is None:
@@ -164,12 +185,18 @@ def quantize_weight(w: torch.Tensor, policy: QuantPolicy, *,
     a_sc = None
     if a_static is not None and a_levels is not None:
         a_sc = torch.tensor(a_static, dtype=torch.float32, device=w.device)
-    packed = (packing.pack_indexready(idx, bits) if policy.scheme in ("c", "d")
-              else packing.pack(idx, bits))
+    scheme = policy.scheme
+    if kern == "lut_gemm_bitsliced":
+        # the plane decomposition is the codebook: code value = idx - 2^(b-1)
+        packed, scheme = packing.pack_bitplanes_signed(idx, bits), "bs"
+    elif scheme in ("c", "d"):
+        packed = packing.pack_indexready(idx, bits)
+    else:
+        packed = packing.pack(idx, bits)
     return QuantizedWeight(
         packed=packed, codebook=levels, scales=scales, bits=bits,
         in_features=w.shape[0], out_features=w.shape[1], group_size=G,
-        a_bits=policy.a_bits, scheme=policy.scheme, kernel=kern,
+        a_bits=policy.a_bits, scheme=scheme, kernel=kern,
         a_levels=a_levels, plut=plut, a_sc=a_sc)
 
 
@@ -192,10 +219,11 @@ def dense_serve(qw: QuantizedWeight, x: torch.Tensor, *,
     """Serving forward with packed weights. x: (..., in) -> (..., out), in
     x's dtype. Mirrors the reference's K padding (lcm of both pack
     factors), M padding (to a multiple of 8 above 8 rows) and activation
-    scale rules (static leaf scale, else one dynamic scale per row)."""
-    if qw.kernel == "lut_gemm_bitsliced":
-        raise NotImplementedError(_BITSLICED)
-    if a_bits is None and qw.kernel == "lut_gemm":
+    scale rules (static leaf scale, else one dynamic scale per row).
+    Bit-sliced leaves take the fused route: the raw rows go into
+    ``lut_gemm_bs_fused`` with the scale (explicit, the leaf's static one,
+    or None for the op's own per-row amax) in its fourth slot."""
+    if a_bits is None and qw.kernel in ("lut_gemm", "lut_gemm_bitsliced"):
         a_bits = qw.a_bits
     lead = x.shape[:-1]
     xm = x.reshape(-1, qw.in_features)
@@ -215,21 +243,27 @@ def dense_serve(qw: QuantizedWeight, x: torch.Tensor, *,
         # scale per row, so rows stay batch-composition-independent
         if a_scale is None and qw.a_sc is not None and a_bits == qw.a_bits:
             a_scale = qw.a_sc.reshape(1, 1).to(torch.float32)
-        if a_scale is None:
-            a_scale, _ = quant.compute_scale_zero_point(xm, a_bits, signed=True,
-                                                        axis=0)   # (M, 1)
-        aq = quant.quantize(xm, a_scale, bits=a_bits, signed=True)
-        a_idx = quant.to_index(aq, a_bits, True)
-        if qw.plut is not None and a_bits == qw.a_bits:
-            table = qw.plut
+        if qw.kernel == "lut_gemm_bitsliced":
+            # the op quantizes the rows itself and applies every scale
+            y = kreg.dispatch("lut_gemm_bs_fused", xm.contiguous(), qw.packed,
+                              qw.scales, a_scale, w_bits=qw.bits,
+                              a_bits=a_bits, group_size=G, backend=backend)
         else:
-            a_levels = quant.uniform_codebook(a_bits, True, device=x.device).levels
-            table = product_lut(qw.codebook, a_levels).table
-        y = kreg.dispatch("lut_gemm", packing.pack(a_idx, a_bits), qw.packed,
-                          table, qw.scales if G is not None else None,
-                          w_bits=qw.bits, a_bits=a_bits, group_size=G,
-                          backend=backend)
-        y = y * a_scale if G is not None else y * qw.scales[None, :] * a_scale
+            if a_scale is None:
+                a_scale, _ = quant.compute_scale_zero_point(xm, a_bits, signed=True,
+                                                            axis=0)   # (M, 1)
+            aq = quant.quantize(xm, a_scale, bits=a_bits, signed=True)
+            a_idx = quant.to_index(aq, a_bits, True)
+            if qw.plut is not None and a_bits == qw.a_bits:
+                table = qw.plut
+            else:
+                a_levels = quant.uniform_codebook(a_bits, True, device=x.device).levels
+                table = product_lut(qw.codebook, a_levels).table
+            y = kreg.dispatch("lut_gemm", packing.pack(a_idx, a_bits), qw.packed,
+                              table, qw.scales if G is not None else None,
+                              w_bits=qw.bits, a_bits=a_bits, group_size=G,
+                              backend=backend)
+            y = y * a_scale if G is not None else y * qw.scales[None, :] * a_scale
     y = y[:n_rows]
     if bias is not None:
         y = y + bias

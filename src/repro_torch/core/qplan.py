@@ -5,7 +5,9 @@ wins, a ``None`` policy keeps the layer bf16 (the port's copy of
 ``backend`` is the kernel backend every planned layer dispatches with:
 'auto' (kernel for CUDA tensors, plain version for CPU tensors), 'cuda' or
 'ref' (see kernels/registry.py). The reference's autotuner field ``tune``
-waits for the autotuner (ROADMAP queue 1, item 7).
+(set to (1, 4) on its bit-sliced presets) only stamps Pallas tiles and
+never changes a result; the port leaves it out until the autotuner is
+ported (ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ PLANS = {
     "w4a16": make_plan(4),
     "w4a8": make_plan(4, 8),
     "mixed_attn4_mlp2": _mixed_plan(),
-    # bit-sliced routes: packing them raises until that slice is ported
+    # bit-sliced routes: every projection through lut_gemm_bs_fused
     "w2a8_bs": make_plan(2, 8, kernel="lut_gemm_bitsliced"),
     "w2a8_bs_g64": make_plan(2, 8, group_size=64, kernel="lut_gemm_bitsliced"),
     "w4a8_bs": make_plan(4, 8, kernel="lut_gemm_bitsliced"),

@@ -36,6 +36,9 @@ SIGNATURES = {
                                       _I, _P],
     ("dequant_matmul", "dequant_matmul_launch"): [_P, _P, _P, _P, _P, _I, _I,
                                                   _I, _I, _I, _I, _P],
+    ("lut_gemm_bs_fused", "lut_gemm_bs_fused_launch"): [_P, _P, _P, _P, _P, _I,
+                                                        _I, _I, _I, _I, _I, _I,
+                                                        _I, _P],
 }
 
 _LOCK = threading.Lock()

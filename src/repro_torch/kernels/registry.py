@@ -15,8 +15,9 @@ Backends:
 
 Every dispatch records ``kernel_dispatch_total{op,backend,m_bucket,bits}``
 (obs/metrics.py), counted per call. Tensor-parallel rules wait for the
-distributed slice (ROADMAP queue 1, item 11); the ops not yet ported
-(bit-sliced, attention, expert and LUT-65k kernels) are not registered.
+distributed slice (ROADMAP queue 1, item 11); the ops not yet ported (the
+two-step ``lut_gemm_bitsliced``, attention, expert and LUT-65k kernels)
+are not registered.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 from repro_torch.obs import metrics as obs_metrics
 from .lut_dequant_matmul import dequant_matmul_cuda, dequant_matmul_plain
 from .lut_gemm import lut_gemm_cuda, lut_gemm_plain
+from .lut_gemm_bitsliced import lut_gemm_bs_fused_cuda, lut_gemm_bs_fused_plain
 
 BACKENDS = ("auto", "cuda", "ref")
 
@@ -96,3 +98,12 @@ register(KernelOp(
     kernel=dequant_matmul_cuda,
     doc="Packed-weight matmul: (a @ dequant(w).T) * scales. "
         "arrays: (a, w_packed, codebook, scales)"))
+
+register(KernelOp(
+    name="lut_gemm_bs_fused", plain=lut_gemm_bs_fused_plain,
+    kernel=lut_gemm_bs_fused_cuda,
+    doc="Fused-prologue bit-sliced LUT GEMM: per-row activation quantization "
+        "(dynamic row amax or a given f32 a_sc), the bit-plane subset-sum "
+        "core and the full weight x activation scale epilogue in one kernel; "
+        "raw bf16/f32 activations in, scaled f32 out. "
+        "arrays: (x, w_planes, w_scales, a_sc|None)"))

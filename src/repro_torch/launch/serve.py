@@ -4,10 +4,13 @@ The port's counterpart of ``repro/launch/serve.py`` (``--paged`` path):
 random weights from ``--seed`` -> offline quantize+pack under a plan ->
 a stream of mixed-length requests admitted through chunked prefill into the
 paged pool and decoded greedily, every planned projection running through
-its kernel (``lut_gemm`` for w{b}a{b}, ``dequant_matmul`` for w{b}a16).
+its kernel (``lut_gemm`` for w{b}a{b}, ``dequant_matmul`` for w{b}a16,
+``lut_gemm_bs_fused`` for the bit-sliced w2a8_bs, w2a8_bs_g64 and w4a8_bs).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --paged --plan w2a2                      # full width, on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+      --paged --plan w2a8_bs                   # bit-sliced, on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --smoke --paged --device cpu             # tiny, plain versions on CPU
 

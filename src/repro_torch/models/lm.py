@@ -127,6 +127,9 @@ def quantize_tree(params: dict, cfg) -> dict:
             tag = f"{path}.{k}" if path else k
             lp = plan.policy_for(tag)
             if isinstance(v, dict) and "w" in v and v["w"].ndim == 2 and lp is not None:
+                # When calibration is ported, keep the reference's rule
+                # (lm.py:588-590 there): a static scale is stamped only on
+                # lut_gemm leaves; bit-sliced leaves stay dynamic.
                 if lp.a_scale == "static":
                     raise NotImplementedError(
                         "static activation scales need the calibration pass, "

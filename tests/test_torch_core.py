@@ -207,8 +207,22 @@ def test_plan_rules_resolve_like_reference():
                 assert jp.resolved_kernel() == tp.resolved_kernel()
 
 
+def test_bitsliced_leaves_pack_as_scheme_bs():
+    """Bit-sliced leaves pack into signed bit planes and serve through the
+    fused op."""
+    qw = qlinear.quantize_weight(torch.zeros((64, 8)), qplan.get_plan(
+        "w2a8_bs").rules[-1][1])
+    assert qw.scheme == "bs" and tuple(qw.packed.shape) == (2, 8, 16)
+
+
 def test_bitsliced_plan_raises_and_points_at_its_slice():
-    w = torch.zeros((64, 8))
-    with pytest.raises(NotImplementedError, match="queue 2, item 1"):
-        qlinear.quantize_weight(w, qplan.get_plan("w2a8_bs").rules[-1][1])
+    """A row-parallel bit-sliced leaf, which the reference serves through the
+    two-step lut_gemm_bitsliced route under a TP mesh, is refused with the
+    TP slice's ROADMAP item."""
+    from repro_torch import bridge
+    pol = jqplan.get_plan("w2a8_bs").rules[-1][1]
+    leaf = jqlinear.quantize_weight(jnp.zeros((64, 8)), pol, tp_role="row",
+                                    tp_shards=2)
+    with pytest.raises(NotImplementedError, match="two-step.*queue 1, item 11"):
+        bridge._qw_from(jax.tree.map(np.asarray, leaf), None, "cpu")
     assert jax.default_backend() == "cpu"

@@ -168,7 +168,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_registry_dispatch_backends_and_counter():
-    assert registry.op_names() == ("dequant_matmul", "lut_gemm")
+    assert registry.op_names() == ("dequant_matmul", "lut_gemm",
+                                   "lut_gemm_bs_fused")
     ap, wp, lut, _ = _lut_operands(3, 4, 64, 16, 2, 2)
     t = [torch.from_numpy(x) for x in (ap, wp, lut)]
     with obs_metrics.scoped(isolate=True) as reg:
@@ -191,7 +192,8 @@ def test_registry_dispatch_backends_and_counter():
 
 
 @pytest.mark.parametrize("plan", ["w2a2", "w2a2g64", "w4a8", "w2a16",
-                                  "w2a16g128", "w4a16"])
+                                  "w2a16g128", "w4a16", "w2a8_bs",
+                                  "w2a8_bs_g64", "w4a8_bs"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_serving_operands_pass_the_kernel_checks(monkeypatch, plan, dtype):
     """What dense_serve hands a kernel (packed leaves from quantize_weight,
@@ -199,6 +201,7 @@ def test_serving_operands_pass_the_kernel_checks(monkeypatch, plan, dtype):
     wrapper except the device one — so on the card the call launches."""
     from repro_torch.core import qlinear, qplan
     from repro_torch.kernels import lut_dequant_matmul as dq, lut_gemm as lg
+    from repro_torch.kernels import lut_gemm_bitsliced as bs
     seen = []
 
     def spy(check, plain):
@@ -218,6 +221,11 @@ def test_serving_operands_pass_the_kernel_checks(monkeypatch, plan, dtype):
         "dequant_matmul", plain=spy(lambda a, wp, cb, sc, *, bits, group_size:
                                     dq._check(a, wp, cb, sc, bits, group_size),
                                     dequant_matmul_plain), kernel=None))
+    monkeypatch.setitem(registry._REGISTRY, "lut_gemm_bs_fused", registry.KernelOp(
+        "lut_gemm_bs_fused", plain=spy(lambda x, wp, sc, asc, *, w_bits, a_bits,
+                                       group_size: bs._check(x, wp, sc, asc, w_bits,
+                                                             a_bits, group_size),
+                                       bs.lut_gemm_bs_fused_plain), kernel=None))
     rng = np.random.default_rng(0)
     w = torch.from_numpy(rng.normal(size=(256, 96)).astype(np.float32)).to(dtype)
     qw = qlinear.quantize_weight(w, qplan.get_plan(plan).rules[-1][1])

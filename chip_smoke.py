@@ -10,25 +10,49 @@ Phases, each printing its lines:
               or loads the library already built from the same sources
   4 kernels   each kernel against its plain PyTorch version at the serving
               shapes of qwen1.5-0.5b (K x N = 1024x1024, 1024x2816,
-              2816x1024; M = 1, 4, 32), with kernel, plain, library
-              (torch.matmul of bf16 activations against the pre-dequantized
-              bf16 weight) and bound times
+              2816x1024; M = 1, 4, 32) and, for lut_gemm_bs_fused, of
+              codeqwen1.5-7b (4096x4096, 4096x13440, 13440x4096; M = 1, 4),
+              with kernel, plain, library (torch.matmul of bf16 activations
+              against the pre-dequantized bf16 weight) and bound times; the
+              paged-attention pair at the qwen and codeqwen serve shapes,
+              at 8k and 32k context (block 512), with G = 8 and at the edges
+              (length 1, lengths off the block size, null-padded tables,
+              kv_splits above the table width, chunks past every length),
+              the library time being scaled_dot_product_attention over the
+              pre-dequantized bf16 view
   5 engine    qwen1.5-0.5b at full width with seeded random weights, packed
               under w2a2, w2a16 and w2a8_bs in turn, serving 12 requests
               through the paged engine via repro_torch.launch.serve; launch
               counts set to 0 just before each run and read just after: the
-              plan's kernel launches 7 x 24 times per forward, the others 0
-  6 plain     the same runs with the registry forced onto the plain
-              versions on the card (no kernel launches): under w2a2 and
-              w2a8_bs, whose kernels are bit-identical to their plain
-              versions, greedy tokens and first-decode-step logits must be
-              identical; w2a16 first-decode-step logits within the stated
-              tolerance
+              plan's kernel launches 7 x 24 times per forward, the others 0;
+              paged_attention 24 times per decode step, the split kernel 0
+  6 plain     the same runs with the registry's GEMMs forced onto the plain
+              versions on the card (attention stays on its kernel): under
+              w2a2 and w2a8_bs, whose kernels are bit-identical to their
+              plain versions, greedy tokens and first-decode-step logits
+              must be identical; w2a16 first-decode-step logits within the
+              stated tolerance. Then the same runs with the GEMM kernels on
+              and attention on its plain version (attn_backend "ref"):
+              first-decode-step logits within the stated tolerance
   7 profile   torch.profiler over a few engine steps of each plan: wall
               and device-busy time per step (the device's idle share),
               kernels per step, and the top host and device ops; the
               port's standing source of the idle share until it has a
               benchmark of its own
+  8 long      qwen1.5-0.5b under w2a8_bs, 2 slots planted decode-ready at
+              8192 and 32768 tokens of context in a pool of 512-row blocks
+              filled from a seeded generator; 3 warm-up and 12 timed decode
+              steps with kv_splits 1 (paged_attention) and 8
+              (paged_attention_splitkv) on byte-identical state, and a
+              first step with attention on its plain version; every
+              attention call of the first step checked against its plain
+              version on the same inputs; launch counts, logits, tokens,
+              step times and a profile of each; and, not as a gate, how far
+              the plain single pass and the plain split move the logits
+  9 codeqwen  codeqwen1.5-7b at full width (32 layers, untied head, int4
+              pool) under w2a8_bs serving the 12 requests, with the
+              attention-plain comparison and a profile, after the qwen
+              engines are freed
 
 Any failure exits nonzero. The line before the last is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}. Without a CUDA
@@ -38,7 +62,9 @@ exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -68,10 +94,22 @@ TOL_LUT_GROUPED = 1e-5      # relative to max|plain|
 TOL_DEQUANT = 1e-5          # relative to max|plain|
 TOL_BS_GROUPED = 1e-5       # relative to max|plain|
 TOL_LOGITS = 2e-2           # w2a16 first decode step, relative to max|logit|
+# paged attention: f32 sums and exponentials in another order than the plain
+# version's dense masked softmax, the K scale factored out of the dot product
+TOL_ATTN = 1e-5             # relative to max|plain|
 
 SHAPES = ((1024, 1024), (1024, 2816), (2816, 1024))   # (K, N) per projection
 ROWS = (1, 4, 32)                                      # decode / prefill chunk
 REPRESENTATIVE = (4, 1024, 2816)                       # (M, K, N) in the JSON
+CODEQWEN_SHAPES = ((4096, 4096), (4096, 13440), (13440, 4096))
+CODEQWEN_ROWS = (1, 4)
+# long-context decode (the port's counterpart of benchmarks/serving.py's
+# planted long-context workload): qwen1.5-0.5b, 2 slots, 512-row blocks
+LC_CONTEXTS = (8192, 32768)
+LC_BLOCK = 512
+LC_SLOTS = 2
+LC_WARM, LC_GEN = 3, 12
+LC_SPLITS = 8
 
 
 def fail(msg: str) -> None:
@@ -242,19 +280,167 @@ def phase_kernels(torch, dev):
                     " a_sc" if asc is not None else "")
                 record("lut_gemm_bs_fused", cfg, M, K, N, err, ok, k_ms, p_ms,
                        l_ms, b, by)
+    # lut_gemm_bs_fused at codeqwen1.5-7b's projection shapes (w2a8_bs)
+    for K, N in CODEQWEN_SHAPES:
+        for M in CODEQWEN_ROWS:
+            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+            w_idx = codes((N, K), 2)
+            planes = packing.pack_bitplanes_signed(w_idx, 2)
+            sc = torch.rand((N,), generator=gen, device=dev) * 0.02 + 0.01
+            kw = dict(w_bits=2, a_bits=8, group_size=None)
+            got = lut_gemm_bs_fused_cuda(x, planes, sc, None, **kw)
+            torch.cuda.synchronize()
+            want = lut_gemm_bs_fused_plain(x, planes, sc, None, **kw)
+            err = (got - want).abs().max().item()
+            w_deq = ((w_idx.float() - 2) * sc[:, None]).to(torch.bfloat16)
+            del w_idx
+            k_ms = graph_ms(torch, lambda: lut_gemm_bs_fused_cuda(
+                x, planes, sc, None, **kw))
+            p_ms = graph_ms(torch, lambda: lut_gemm_bs_fused_plain(
+                x, planes, sc, None, **kw), reps=2, replays=2)
+            l_ms = graph_ms(torch, lambda: torch.matmul(x, w_deq.T))
+            b, by = bound_ms(nbytes(x, planes, sc) + M * N * 4, 2 * M * N * K,
+                             INT8_TC_OPS)
+            record("lut_gemm_bs_fused", "w2a8_bs bf16 cq", M, K, N, err,
+                   err == 0.0, k_ms, p_ms, l_ms, b, by)
+            del w_deq, planes
     return rows
 
 
-def run_engine(torch, serve, cfg, qparams, args, capture: dict):
+def attention_operands(torch, dev, gen, *, B, KV, G, hd, bits, bs, lengths, nb,
+                       q_dtype):
+    """q, a pool whose blocks each sequence owns in a shuffled order, the
+    NULL-padded int64 tables and the lengths, all on the card."""
+    need = [-(-n // bs) for n in lengths]
+    n_blocks = 1 + sum(need) + 2
+    ids = torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1
+    tables = torch.zeros((B, nb), dtype=torch.int64, device=dev)
+    o = 0
+    for b, k in enumerate(need):
+        tables[b, :k] = ids[o:o + k]
+        o += k
+    shape = (n_blocks, bs, KV, hd * bits // 8)
+    if bits == 8:
+        pools = [torch.randint(-127, 128, shape, generator=gen, device=dev,
+                               dtype=torch.int8) for _ in range(2)]
+    else:
+        pools = [torch.randint(0, 256, shape, generator=gen, device=dev,
+                               dtype=torch.uint8) for _ in range(2)]
+    scs = [torch.rand(shape[:3], generator=gen, device=dev) * 0.045 + 0.005
+           for _ in range(2)]
+    q = torch.randn((B, KV, G, hd), generator=gen, device=dev).to(q_dtype)
+    lens = torch.tensor(lengths, dtype=torch.int64, device=dev)
+    return [q, pools[0], scs[0], pools[1], scs[1], tables, lens]
+
+
+# (label, B, KV, G, hd, bits, bs, lengths, nb, kv_splits, q dtype)
+ATTN_ROWS = (
+    ("qwen serve", 4, 16, 1, 64, 8, 16, (4, 23, 48, 64), 4, 1, "bf16"),
+    ("qwen serve", 4, 16, 1, 64, 8, 16, (4, 23, 48, 64), 4, 2, "bf16"),
+    ("codeqwen serve", 4, 32, 1, 128, 4, 16, (4, 23, 48, 64), 4, 1, "bf16"),
+    ("codeqwen serve", 4, 32, 1, 128, 4, 16, (4, 23, 48, 64), 4, 2, "bf16"),
+    ("long 8k", 2, 16, 1, 64, 8, 512, (8192, 8192), 20, 1, "bf16"),
+    ("long 8k", 2, 16, 1, 64, 8, 512, (8192, 8192), 20, 8, "bf16"),
+    ("long 32k", 2, 16, 1, 64, 8, 512, (32768, 32768), 68, 1, "bf16"),
+    ("long 32k", 2, 16, 1, 64, 8, 512, (32768, 32768), 68, 8, "bf16"),
+    ("G=8", 2, 2, 8, 128, 8, 16, (100, 300), 20, 1, "f32"),
+    ("G=8", 2, 2, 8, 128, 4, 16, (100, 300), 20, 3, "f32"),
+    ("edge len 1", 2, 4, 2, 64, 8, 16, (1, 1), 3, 1, "f32"),
+    ("edge len 1, masked chunks", 2, 4, 2, 64, 4, 16, (1, 37), 6, 4, "f32"),
+    ("edge off-block, padded", 3, 4, 2, 64, 8, 16, (17, 37, 95), 8, 1, "bf16"),
+    ("edge off-block, padded", 3, 4, 2, 64, 4, 16, (17, 37, 95), 8, 3, "bf16"),
+    ("edge splits > nb", 2, 4, 2, 64, 8, 16, (3, 40), 3, 7, "f32"),
+)
+REPRESENTATIVE_ATTN = {"paged_attention": ("qwen serve", 1),
+                       "paged_attention_splitkv": ("long 32k", 8)}
+
+
+def phase_attention(torch, dev):
+    """The paged-attention pair against its plain versions (ATTN_ROWS)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels.ref import dequant_kv_tile
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = {"paged_attention": [], "paged_attention_splitkv": []}
+    for (label, B, KV, G, hd, bits, bs, lengths, nb, ks, qdt) in ATTN_ROWS:
+        q_dtype = torch.bfloat16 if qdt == "bf16" else torch.float32
+        ops = attention_operands(torch, dev, gen, B=B, KV=KV, G=G, hd=hd,
+                                 bits=bits, bs=bs, lengths=lengths, nb=nb,
+                                 q_dtype=q_dtype)
+        if ks == 1:
+            name = "paged_attention"
+
+            def kern():
+                return PA.paged_attention_cuda(*ops, bits=bits)
+
+            def plain():
+                return PA.paged_attention_plain(*ops, bits=bits)
+        else:
+            name = "paged_attention_splitkv"
+
+            def kern():
+                return PA.paged_attention_splitkv_cuda(*ops, bits=bits,
+                                                       kv_splits=ks)
+
+            def plain():
+                return PA.paged_attention_splitkv_plain(*ops, bits=bits,
+                                                        kv_splits=ks)
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and err <= TOL_ATTN * scale
+        k_ms = graph_ms(torch, kern)
+        p_ms = graph_ms(torch, plain, reps=3, replays=3)
+        # library: SDPA over the pre-dequantized bf16 view (outside the timing)
+        q, kp, ksc, vp, vsc, tbl, lens = ops
+        L = nb * bs
+
+        def view(pool, sc):
+            d = dequant_kv_tile(pool[tbl], sc[tbl], bits)      # (B, nb, bs, KV, hd)
+            d = d.reshape(B, L, KV, hd).permute(0, 2, 1, 3)
+            return d.repeat_interleave(G, dim=1).to(torch.bfloat16).contiguous()
+
+        kd, vd = view(kp, ksc), view(vp, vsc)
+        qs = q.reshape(B, KV * G, 1, hd).to(torch.bfloat16)
+        mask = (torch.arange(L, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        l_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, kd, vd, attn_mask=mask))
+        del kd, vd
+        n_rows = sum(lengths)
+        n_bytes = (n_rows * KV * (hd * bits // 8 + 4) * 2 + nbytes(q)
+                   + B * KV * G * hd * 4)
+        b, by = bound_ms(n_bytes, 4 * n_rows * KV * G * hd, BF16_TC_FLOPS)
+        row = {"kernel": name, "label": label, "B": B, "KV": KV, "G": G, "hd": hd,
+               "bits": bits, "bs": bs, "lengths": list(lengths), "nb": nb,
+               "kv_splits": ks, "q": qdt, "max_abs_err": err, "max_abs_plain": scale,
+               "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b,
+               "bound_by": by}
+        rows[name].append(row)
+        print(f"  {name:23s} {label:26s} B={B} KV={KV} G={G} hd={hd} int{bits} "
+              f"bs={bs} len={list(lengths) if len(set(lengths)) > 1 else lengths[0]} "
+              f"nb={nb} splits={ks} q={qdt} err={err:.3g} (max|plain| "
+              f"{scale:.3g}) kernel={k_ms:.5f}ms plain={p_ms:.5f}ms "
+              f"sdpa={l_ms:.5f}ms bound={b:.5f}ms ({by})", flush=True)
+        if not ok:
+            fail(f"{name} {label} disagrees with its plain version: "
+                 f"max_abs_err={err}, max|plain|={scale}")
+    return rows
+
+
+def run_engine(torch, serve, cfg, qparams, args, capture: dict, **engine_kw):
     """One serve run through the CLI's code path; checks every decode
     step's logits are finite and keeps the first step's."""
-    engine = serve.make_engine(cfg, qparams, args)
+    engine = serve.make_engine(cfg, qparams, args, **engine_kw)
     inner = engine._decode_fn
 
     def checked(*a):
         logits = inner(*a)
         if not bool(torch.isfinite(logits).all()):
-            fail(f"{cfg.quant} produced non-finite logits")
+            fail(f"{cfg.name} {cfg.quant} produced non-finite logits")
         capture.setdefault("first_logits", logits.clone())
         return logits
 
@@ -262,26 +448,22 @@ def run_engine(torch, serve, cfg, qparams, args, capture: dict):
     res = serve.serve_paged(cfg, qparams, args, engine=engine)
     if not all(r.done for r in res["requests"]):
         fail("not every request finished")
+    res.pop("engine")
     return res
 
 
-def phase_profile(torch, serve, cfg, qparams, args, steps: int = 4) -> dict:
-    """Profile ``steps`` engine steps of the serve workload, taken once
-    the first requests decode (a mix of decode and prefill-chunk steps,
-    as served)."""
+def profile_steps(torch, step, steps: int, label: str) -> dict:
+    """torch.profiler over ``steps`` calls of ``step``: wall and device-busy
+    time per step (the idle share), kernels per step, device ms per step by
+    kernel name, and the top host ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    engine = serve.make_engine(cfg, qparams, args)
-    for r in serve.make_requests(cfg, args):
-        engine.submit(r)
-    while engine.decode_steps < 4:
-        engine.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            engine.step()
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -291,21 +473,157 @@ def phase_profile(torch, serve, cfg, qparams, args, steps: int = 4) -> dict:
         by_dev[e.name] = by_dev.get(e.name, 0.0) + e.time_range.elapsed_us()
     top_dev = sorted(by_dev.items(), key=lambda kv: -kv[1])[:5]
     top_cpu = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:6]
+    attn_ms = {k: sum(us for n, us in by_dev.items() if k in n) / 1e3 / steps
+               for k in ("paged_attn_kernel", "merge_kernel")}
     out = {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
            "idle_share": 1.0 - busy_ms / wall_ms,
            "kernels_per_step": len(dev) / steps,
+           "attention_device_ms_per_step": attn_ms,
            "top_device_ms_per_step": [(n[:60], us / 1e3 / steps) for n, us in top_dev],
            "top_host_self_ms_per_step": [(a.key[:60], a.self_cpu_time_total / 1e3 / steps)
                                          for a in top_cpu]}
-    print(f"[7 profile] {args.plan}, {steps} engine steps: "
-          f"wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step "
-          f"(idle share {out['idle_share']:.3f}), {out['kernels_per_step']:.0f} "
-          f"kernels/step", flush=True)
+    print(f"{label}, {steps} steps: wall {wall_ms:.2f} ms/step, device busy "
+          f"{busy_ms:.2f} ms/step (idle share {out['idle_share']:.3f}), "
+          f"{out['kernels_per_step']:.0f} kernels/step, attention kernels "
+          f"{attn_ms['paged_attn_kernel']:.3f} ms/step (+ merge "
+          f"{attn_ms['merge_kernel']:.3f})", flush=True)
     print("  top device: " + "; ".join(f"{n} {ms:.3f}ms" for n, ms in
                                        out["top_device_ms_per_step"]), flush=True)
     print("  top host (self): " + "; ".join(f"{n} {ms:.3f}ms" for n, ms in
                                             out["top_host_self_ms_per_step"]),
           flush=True)
+    return out
+
+
+def phase_profile(torch, serve, cfg, qparams, args, label: str,
+                  steps: int = 4) -> dict:
+    """Profile ``steps`` engine steps of the serve workload, taken once
+    the first requests decode (a mix of decode and prefill-chunk steps,
+    as served)."""
+    engine = serve.make_engine(cfg, qparams, args)
+    for r in serve.make_requests(cfg, args):
+        engine.submit(r)
+    while engine.decode_steps < 4:
+        engine.step()
+    return profile_steps(torch, engine.step, steps, label)
+
+
+def rel_diff(a, b) -> float:
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def plant_long_context(torch, engine, ctx: int, steps: int, seed: int) -> list:
+    """Set each slot decode-ready at pos = ctx, its blocks allocated as
+    admission would, over pools filled from a seeded generator on the card
+    (benchmarks/serving.py's planted long-context state). The same seed
+    gives byte-identical pools and tables. The K/V rows are drawn from
+    N(0, 1) and stored through the pool's own codec (layers.KV_QUANT), as
+    the engine stores the rows it computes; benchmarks/serving.py fills
+    uniform codes and N(0, 0.05^2) scales instead, which no codec writes."""
+    import numpy as np
+
+    from repro_torch.models.layers import KV_QUANT
+    from repro_torch.serving.engine import _DECODE, Request
+
+    gen = torch.Generator(device=engine.device).manual_seed(seed)
+    cfg = engine.cfg
+    for layer in engine.caches:
+        for name in ("k", "v"):
+            x = torch.randn(layer[name].shape[:3] + (cfg.hd,), generator=gen,
+                            device=engine.device)
+            codes, sc = KV_QUANT[cfg.kv_cache_dtype][0](x)
+            layer[name].copy_(codes)
+            layer[f"{name}_sc"].copy_(sc)
+            del x, codes, sc
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i, s in enumerate(engine.slots):
+        r = Request(uid=i, prompt=np.zeros((1,), np.int64), max_new=steps)
+        s.req, s.state, s.prompt, s.pos = r, _DECODE, np.zeros((1,), np.int64), ctx
+        s.next_input = int(rng.integers(0, cfg.vocab_size))
+        s.blocks = engine.pool.alloc(ctx // engine.block_size + 1)
+        reqs.append(r)
+    return reqs
+
+
+@contextlib.contextmanager
+def checked_attention_calls(errs: list):
+    """While active, every attention op the registry sends to its kernel is
+    also run through its plain version on the same inputs (no launch), and
+    max|kernel - plain| / max|plain| of each call is appended to ``errs``."""
+    from repro_torch.kernels import registry
+
+    saved = {name: registry.get(name)
+             for name in ("paged_attention", "paged_attention_splitkv")}
+
+    def checking(op):
+        def kernel(*arrays, **static):
+            out = op.kernel(*arrays, **static)
+            want = op.plain(*arrays, **static)
+            errs.append(((out - want).abs().max() / want.abs().max()).item())
+            return out
+        return kernel
+
+    for name, op in saved.items():
+        registry._REGISTRY[name] = dataclasses.replace(op, kernel=checking(op))
+    try:
+        yield
+    finally:
+        registry._REGISTRY.update(saved)
+
+
+def long_context_run(torch, cfg, qparams, ctx: int, kv_splits: int, wrappers,
+                     attn_backend: str = "auto", warm: int = LC_WARM,
+                     gen_steps: int = LC_GEN, profile: bool = True) -> dict:
+    """Planted decode at ``ctx``: ``warm`` warm-up steps, the first with
+    every attention call checked against its plain version, ``gen_steps``
+    timed steps (host clock around synchronised steps), then 2 profiled
+    steps; launch counts set to 0 just before and read just after."""
+    from repro_torch.serving import Engine
+
+    engine = Engine(cfg, qparams, n_slots=LC_SLOTS, max_len=ctx + 4 * LC_BLOCK,
+                    block_size=LC_BLOCK, chunk_size=LC_BLOCK, kv_splits=kv_splits,
+                    attn_backend=attn_backend)
+    n_prof = 2 if profile else 0
+    reqs = plant_long_context(torch, engine, ctx, warm + gen_steps + n_prof,
+                              seed=11)
+    cap: dict = {}
+    inner = engine._decode_fn
+
+    def checked(*a):
+        logits = inner(*a)
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"long context {ctx} kv_splits {kv_splits} produced non-finite "
+                 "logits")
+        cap.setdefault("first_logits", logits.clone())
+        return logits
+
+    engine._decode_fn = checked
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    call_errs: list = []
+    with checked_attention_calls(call_errs):
+        engine._do_decode()
+    for _ in range(warm - 1):
+        engine._do_decode()
+    times = []
+    for _ in range(gen_steps):
+        t0 = time.perf_counter()
+        engine._do_decode()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    prof = profile_steps(torch, engine._do_decode, n_prof,
+                         f"[8 long] ctx {ctx} kv_splits {kv_splits} profile") \
+        if profile else None
+    launches = {name: w.launches for name, w in wrappers.items()}
+    out = {"steps": engine.decode_steps, "launches": launches,
+           "first_step_call_errs": call_errs,
+           "decode_step_ms": 1e3 * sum(times) / len(times) if times else None,
+           "tokens": [r.out for r in reqs], "first_logits": cap["first_logits"],
+           "profile": prof}
+    del engine
+    torch.cuda.empty_cache()
     return out
 
 
@@ -320,6 +638,8 @@ def main() -> int:
     from repro_torch.kernels.lut_dequant_matmul import dequant_matmul_cuda
     from repro_torch.kernels.lut_gemm import lut_gemm_cuda
     from repro_torch.kernels.lut_gemm_bitsliced import lut_gemm_bs_fused_cuda
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_attention_splitkv_cuda)
     from repro_torch.launch import serve
 
     t_start = time.perf_counter()
@@ -353,17 +673,31 @@ def main() -> int:
     print("[4 kernels] kernel vs plain at the serving shapes "
           f"(tolerances: lut_gemm exact / grouped {TOL_LUT_GROUPED} rel, "
           f"dequant_matmul {TOL_DEQUANT} rel, lut_gemm_bs_fused exact / "
-          f"grouped {TOL_BS_GROUPED} rel)", flush=True)
+          f"grouped {TOL_BS_GROUPED} rel, paged attention {TOL_ATTN} rel)",
+          flush=True)
     rows = phase_kernels(torch, dev)
+    rows.update(phase_attention(torch, dev))
+    print(f"[4 kernels] done at {time.perf_counter() - t_start:.1f}s", flush=True)
 
-    wrappers = {"lut_gemm": lut_gemm_cuda, "dequant_matmul": dequant_matmul_cuda,
-                "lut_gemm_bs_fused": lut_gemm_bs_fused_cuda}
+    gemms = {"lut_gemm": lut_gemm_cuda, "dequant_matmul": dequant_matmul_cuda,
+             "lut_gemm_bs_fused": lut_gemm_bs_fused_cuda}
+    attns = {"paged_attention": paged_attention_cuda,
+             "paged_attention_splitkv": paged_attention_splitkv_cuda}
+    wrappers = {**gemms, **attns}
     plan_op = {"w2a2": "lut_gemm", "w2a16": "dequant_matmul",
                "w2a8_bs": "lut_gemm_bs_fused"}
 
     def reset_launches():
         for w in wrappers.values():
             w.launches = 0
+
+    def expect_launches(what, launches, gemm_op, gemm_n, attn_op, attn_n):
+        want = {name: 0 for name in wrappers}
+        want[gemm_op] = gemm_n
+        if attn_op is not None:
+            want[attn_op] = attn_n
+        if launches != want:
+            fail(f"{what}: launches {launches}, expected {want}")
 
     results = {}
     for plan, op in plan_op.items():
@@ -377,30 +711,29 @@ def main() -> int:
         launches = {name: w.launches for name, w in wrappers.items()}
         m = res_k["metrics"]
         forwards = m["decode_steps"] + m["prefill_chunks"]
-        want = 7 * cfg.n_layers * forwards
         print(f"[5 engine] {cfg.name} {plan} (int8 pool, full width): "
               f"{len(res_k['requests'])} requests, {res_k['tokens']} tokens, "
               f"{res_k['tok_per_s']:.1f} tok/s, decode-only step "
               f"{res_k['decode_step_ms']:.3f} ms on {smi} | launches {launches} "
-              f"over {forwards} forwards", flush=True)
-        if launches != {name: want if name == op else 0 for name in wrappers}:
-            fail(f"{plan}: launches {launches}, expected {op} 7 x "
-                 f"{cfg.n_layers} x {forwards} = {want} and the others 0")
+              f"over {forwards} forwards, {m['decode_steps']} decode steps",
+              flush=True)
+        expect_launches(plan, launches, op, 7 * cfg.n_layers * forwards,
+                        "paged_attention", cfg.n_layers * m["decode_steps"])
 
-        # 6: the same run with the registry forced onto the plain versions
+        # 6: the same run with the registry's GEMMs forced onto the plain
+        # versions; attention stays on its kernel
         cfg_p = dataclasses.replace(
             cfg, quant=dataclasses.replace(cfg.quant, backend="ref"))
         cap_p: dict = {}
         reset_launches()
         res_p = run_engine(torch, serve, cfg_p, qparams, args, cap_p)
-        if any(w.launches for w in wrappers.values()):
-            fail("the plain-version run launched a kernel")
+        if any(gemms[name].launches for name in gemms):
+            fail("the plain-GEMM run launched a GEMM kernel")
         toks_k = [r.out for r in res_k["requests"]]
         toks_p = [r.out for r in res_p["requests"]]
         same = sum(a == b for a, b in zip(toks_k, toks_p))
-        lk, lp = cap_k["first_logits"], cap_p["first_logits"]
-        rel = ((lk - lp).abs().max() / lp.abs().max()).item()
-        print(f"[6 plain] {plan}: plain-version run {res_p['tok_per_s']:.1f} "
+        rel = rel_diff(cap_k["first_logits"], cap_p["first_logits"])
+        print(f"[6 plain] {plan}: plain-GEMM run {res_p['tok_per_s']:.1f} "
               f"tok/s; greedy tokens identical for {same}/{len(toks_k)} "
               f"requests; first decode step logits max rel diff {rel:.3g}",
               flush=True)
@@ -409,14 +742,155 @@ def main() -> int:
                  f"{same}/{len(toks_k)} requests, first-step logits by {rel})")
         if plan == "w2a16" and rel > TOL_LOGITS:
             fail(f"w2a16 first-step logits differ by {rel} > {TOL_LOGITS}")
+
+        # 6: GEMM kernels on, attention on its plain version
+        cap_a: dict = {}
+        reset_launches()
+        res_a = run_engine(torch, serve, cfg, qparams, args, cap_a,
+                           attn_backend="ref")
+        ma = res_a["metrics"]
+        expect_launches(f"{plan} attention-plain run",
+                        {name: w.launches for name, w in wrappers.items()}, op,
+                        7 * cfg.n_layers * (ma["decode_steps"] + ma["prefill_chunks"]),
+                        None, 0)
+        same_a = sum(a == r.out for a, r in zip(toks_k, res_a["requests"]))
+        rel_a = rel_diff(cap_k["first_logits"], cap_a["first_logits"])
+        print(f"[6 plain] {plan}: attention-plain run {res_a['tok_per_s']:.1f} "
+              f"tok/s; greedy tokens identical for {same_a}/{len(toks_k)} "
+              f"requests; first decode step logits max rel diff {rel_a:.3g}",
+              flush=True)
+        if rel_a > TOL_LOGITS:
+            fail(f"{plan}: attention kernel and plain first-step logits differ "
+                 f"by {rel_a} > {TOL_LOGITS}")
         results[plan] = {"launches": launches, "tok_per_s": res_k["tok_per_s"],
                          "decode_step_ms": res_k["decode_step_ms"],
                          "plain_tok_per_s": res_p["tok_per_s"],
                          "plain_decode_step_ms": res_p["decode_step_ms"],
                          "tokens_identical": same, "logits_rel_diff": rel,
-                         "profile": phase_profile(torch, serve, cfg, qparams, args)}
+                         "attn_plain_decode_step_ms": res_a["decode_step_ms"],
+                         "attn_plain_tokens_identical": same_a,
+                         "attn_plain_logits_rel_diff": rel_a,
+                         "profile": phase_profile(torch, serve, cfg, qparams, args,
+                                                  f"[7 profile] {plan}")}
+    del res_k, res_p, res_a, cap_k, cap_p, cap_a
+
+    # 8: planted long-context decode, qwen1.5-0.5b under w2a8_bs
+    print(f"[8 long] started at {time.perf_counter() - t_start:.1f}s", flush=True)
+    long_ctx = {}
+    for ctx in LC_CONTEXTS:
+        split = long_context_run(torch, cfg, qparams, ctx, LC_SPLITS, wrappers)
+        single = long_context_run(torch, cfg, qparams, ctx, 1, wrappers)
+        ref = long_context_run(torch, cfg, qparams, ctx, LC_SPLITS, wrappers,
+                               attn_backend="ref", warm=1, gen_steps=0,
+                               profile=False)
+        n = cfg.n_layers
+        expect_launches(f"ctx {ctx} split", split["launches"], "lut_gemm_bs_fused",
+                        7 * n * split["steps"], "paged_attention_splitkv",
+                        n * split["steps"])
+        expect_launches(f"ctx {ctx} single", single["launches"], "lut_gemm_bs_fused",
+                        7 * n * single["steps"], "paged_attention", n * single["steps"])
+        expect_launches(f"ctx {ctx} attention-plain", ref["launches"],
+                        "lut_gemm_bs_fused", 7 * n * ref["steps"], None, 0)
+        call_err = max(split["first_step_call_errs"] + single["first_step_call_errs"])
+        n_calls = len(split["first_step_call_errs"]) + len(single["first_step_call_errs"])
+        if n_calls != 2 * n or call_err > TOL_ATTN:
+            fail(f"ctx {ctx}: {n_calls} checked attention calls (want {2 * n}), "
+                 f"max rel err {call_err} > {TOL_ATTN}")
+        rel_s = rel_diff(split["first_logits"], single["first_logits"])
+        rel_r = rel_diff(split["first_logits"], ref["first_logits"])
+        same = sum(a == b for a, b in zip(split["tokens"], single["tokens"]))
+        same_r = sum(a[:1] == b[:1] for a, b in zip(split["tokens"], ref["tokens"]))
+        print(f"[8 long] ctx {ctx}: the first step's {n_calls} attention kernel "
+              f"calls each within {call_err:.3g} of their plain version "
+              f"(relative to max|plain|)", flush=True)
+        print(f"[8 long] ctx {ctx}, {LC_SLOTS} slots, w2a8_bs: decode-only step "
+              f"{split['decode_step_ms']:.3f} ms (kv_splits {LC_SPLITS}) / "
+              f"{single['decode_step_ms']:.3f} ms (kv_splits 1); attention "
+              f"kernels {split['profile']['attention_device_ms_per_step']} / "
+              f"{single['profile']['attention_device_ms_per_step']} ms/step; "
+              f"first-step logits split vs single {rel_s:.3g}, split kernel vs "
+              f"plain {rel_r:.3g}; tokens identical split vs single for "
+              f"{same}/{LC_SLOTS} slots over {split['steps']} steps, first token "
+              f"kernel vs plain {same_r}/{LC_SLOTS}", flush=True)
+        if rel_s > TOL_LOGITS or rel_r > TOL_LOGITS:
+            fail(f"ctx {ctx}: first-step logits differ (split vs single {rel_s}, "
+                 f"split vs plain {rel_r}) > {TOL_LOGITS}")
+        long_ctx[ctx] = {
+            "split_decode_step_ms": split["decode_step_ms"],
+            "single_decode_step_ms": single["decode_step_ms"],
+            "split_profile": split["profile"], "single_profile": single["profile"],
+            "split_launches": split["launches"], "single_launches": single["launches"],
+            "logits_rel_diff_split_single": rel_s,
+            "logits_rel_diff_split_plain": rel_r,
+            "first_step_attention_call_max_rel_err": call_err,
+            "tokens_identical_split_single": same}
+        del split, single, ref
+    # conditioning of the logits gate: two plain formulations (single
+    # pass, split) on the same planted state
+    ctx = LC_CONTEXTS[-1]
+    one = [long_context_run(torch, cfg, qparams, ctx, ks, wrappers,
+                            attn_backend="ref", warm=1, gen_steps=0,
+                            profile=False)["first_logits"]
+           for ks in (1, LC_SPLITS)]
+    long_ctx["plain_single_vs_plain_split"] = rel_diff(one[1], one[0])
+    print(f"[8 long] ctx {ctx}: first-step logits of the plain single pass vs "
+          f"the plain split differ by "
+          f"{long_ctx['plain_single_vs_plain_split']:.3g} of max|logit| (not a "
+          "gate: it shows how far last-ulp differences in attention can move "
+          "this quantized model's logits)", flush=True)
+    del one
+    results["long_context"] = long_ctx
+
+    # 9: codeqwen1.5-7b at full width, int4 pool, w2a8_bs
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[9 codeqwen] started at {time.perf_counter() - t_start:.1f}s", flush=True)
+    args = serve.build_parser().parse_args(
+        ["--arch", "codeqwen1.5-7b", "--paged", "--plan", "w2a8_bs", "--device",
+         "cuda"])
+    cfg, qparams = serve.prepare(args)
+    cap_k = {}
+    reset_launches()
+    res_k = run_engine(torch, serve, cfg, qparams, args, cap_k)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    m = res_k["metrics"]
+    forwards = m["decode_steps"] + m["prefill_chunks"]
+    print(f"[9 codeqwen] {cfg.name} w2a8_bs (int4 pool, {cfg.n_layers} layers, "
+          f"full width): {len(res_k['requests'])} requests, {res_k['tokens']} "
+          f"tokens, {res_k['tok_per_s']:.1f} tok/s, decode-only step "
+          f"{res_k['decode_step_ms']:.3f} ms | launches {launches} over "
+          f"{forwards} forwards, {m['decode_steps']} decode steps", flush=True)
+    expect_launches("codeqwen", launches, "lut_gemm_bs_fused",
+                    7 * cfg.n_layers * forwards, "paged_attention",
+                    cfg.n_layers * m["decode_steps"])
+    cap_a = {}
+    reset_launches()
+    res_a = run_engine(torch, serve, cfg, qparams, args, cap_a, attn_backend="ref")
+    ma = res_a["metrics"]
+    expect_launches("codeqwen attention-plain run",
+                    {name: w.launches for name, w in wrappers.items()},
+                    "lut_gemm_bs_fused",
+                    7 * cfg.n_layers * (ma["decode_steps"] + ma["prefill_chunks"]),
+                    None, 0)
+    same_a = sum(a.out == b.out for a, b in zip(res_k["requests"], res_a["requests"]))
+    rel_a = rel_diff(cap_k["first_logits"], cap_a["first_logits"])
+    print(f"[9 codeqwen] attention-plain run {res_a['tok_per_s']:.1f} tok/s; "
+          f"greedy tokens identical for {same_a}/{len(res_k['requests'])} "
+          f"requests; first decode step logits max rel diff {rel_a:.3g}", flush=True)
+    if rel_a > TOL_LOGITS:
+        fail(f"codeqwen: attention kernel and plain first-step logits differ by "
+             f"{rel_a} > {TOL_LOGITS}")
+    results["codeqwen"] = {
+        "launches": launches, "tok_per_s": res_k["tok_per_s"],
+        "decode_step_ms": res_k["decode_step_ms"],
+        "attn_plain_decode_step_ms": res_a["decode_step_ms"],
+        "attn_plain_tokens_identical": same_a, "attn_plain_logits_rel_diff": rel_a,
+        "profile": phase_profile(torch, serve, cfg, qparams, args,
+                                 "[9 codeqwen profile] w2a8_bs")}
 
     print("[results] " + json.dumps({"engine": results}), flush=True)
+    lc_split = long_ctx[LC_CONTEXTS[-1]]["split_launches"]
     sources = {"lut_gemm": ("src/repro_torch/csrc/lut_gemm.cu",
                             "src/repro/kernels/lut_gemm.py:152",
                             results["w2a2"]["launches"]["lut_gemm"], "w2a2"),
@@ -427,11 +901,23 @@ def main() -> int:
                "lut_gemm_bs_fused": ("src/repro_torch/csrc/lut_gemm_bs_fused.cu",
                                      "src/repro/kernels/lut_gemm_bitsliced.py:292",
                                      results["w2a8_bs"]["launches"]["lut_gemm_bs_fused"],
-                                     "w2a8_bs bf16")}
+                                     "w2a8_bs bf16"),
+               "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                                   "src/repro/kernels/paged_attention.py:74",
+                                   results["w2a2"]["launches"]["paged_attention"],
+                                   None),
+               "paged_attention_splitkv": ("src/repro_torch/csrc/paged_attention.cu",
+                                           "src/repro/kernels/paged_attention.py:210",
+                                           lc_split["paged_attention_splitkv"], None)}
     kernels = []
     for name, (src, replaces, launches, cfg_name) in sources.items():
-        rep = next(r for r in rows[name] if r["cfg"] == cfg_name
-                   and (r["M"], r["K"], r["N"]) == REPRESENTATIVE)
+        if name in REPRESENTATIVE_ATTN:
+            label, ks = REPRESENTATIVE_ATTN[name]
+            rep = next(r for r in rows[name] if r["label"] == label
+                       and r["kv_splits"] == ks)
+        else:
+            rep = next(r for r in rows[name] if r["cfg"] == cfg_name
+                       and (r["M"], r["K"], r["N"]) == REPRESENTATIVE)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches,

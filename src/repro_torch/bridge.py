@@ -94,10 +94,15 @@ def _layers(np_tree: dict, cfg, device) -> list:
 
 
 def params_from_jax(np_tree: dict, cfg, device="cpu") -> dict:
-    """The reference's plain parameter tree (numpy leaves) -> the port's."""
-    return {"tok_embed": to_torch(np_tree["tok_embed"], device),
-            "final_norm": _convert(np_tree["final_norm"], None, device),
-            "layers": _layers(np_tree, cfg, device)}
+    """The reference's plain parameter tree (numpy leaves) -> the port's:
+    the tied ``tok_embed``, or ``in_embed`` and the untied ``lm_head``."""
+    out = {name: to_torch(np_tree[name], device)
+           for name in ("tok_embed", "in_embed") if name in np_tree}
+    if "lm_head" in np_tree:
+        out["lm_head"] = _convert(np_tree["lm_head"], None, device)
+    out["final_norm"] = _convert(np_tree["final_norm"], None, device)
+    out["layers"] = _layers(np_tree, cfg, device)
+    return out
 
 
 def qparams_from_jax(np_tree: dict, cfg, device="cpu") -> dict:

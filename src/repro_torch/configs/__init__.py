@@ -1,6 +1,7 @@
-"""Config registry of the port. Only the dense family's first model is
-ported; the reference's other architectures come with their families
-(ROADMAP queue 1, item 9)."""
+"""Config registry of the port: the dense family's qwen1.5-0.5b (tied
+embeddings, int8 pool) and codeqwen1.5-7b (untied embeddings, int4 pool).
+The reference's other architectures come with their families (ROADMAP
+queue 1, items 4 and 9)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from .base import ModelConfig, reduce_for_smoke  # noqa: F401
 
 _MODULES = {
     "qwen1.5-0.5b": "qwen15_05b",
+    "codeqwen1.5-7b": "codeqwen15_7b",
 }
 ARCHS = tuple(_MODULES)
 

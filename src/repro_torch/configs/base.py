@@ -34,7 +34,7 @@ class ModelConfig:
     # The reference defaults to a legacy single QuantPolicy (dequant-einsum
     # serving), which the port does not carry; its default is the bf16 plan.
     quant: QuantPlan = PLANS["bf16"]
-    kv_cache_dtype: str = "bfloat16"   # bfloat16 | int8 (serve-time pool)
+    kv_cache_dtype: str = "bfloat16"   # bfloat16 | int8 | int4 (serve-time pool)
     dtype: str = "bfloat16"
     source: str = ""
 

@@ -39,6 +39,9 @@ SIGNATURES = {
     ("lut_gemm_bs_fused", "lut_gemm_bs_fused_launch"): [_P, _P, _P, _P, _P, _I,
                                                         _I, _I, _I, _I, _I, _I,
                                                         _I, _P],
+    ("paged_attention", "paged_attention_launch"): [_P] * 8 + [_I] * 8 + [_P],
+    ("paged_attention", "paged_attention_splitkv_launch"): [_P] * 11 + [_I] * 10
+                                                           + [_P],
 }
 
 _LOCK = threading.Lock()

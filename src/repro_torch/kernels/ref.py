@@ -7,6 +7,9 @@ Layouts, shared with the CUDA kernels:
   product LUT    : flat (2^(w_bits+a_bits),) -- entry [w_idx << a_bits | a_idx]
   bit planes     : (bits, N, K/4) uint8 -- see packing.pack_bitplanes_signed
   out            : (M, N) float32
+  KV pool        : (n_blocks, bs, KV, hd) int8 codes, or (..., hd/2) uint8
+                   with two 4-bit codes per byte (low nibble first), plus
+                   (n_blocks, bs, KV) f32 per-(token, head) scales
 
 They run on whatever device their inputs lie on: the CPU tests use them,
 and ``chip_smoke.py`` holds the kernels against them on the card.
@@ -183,3 +186,97 @@ def ref_lut_gemm_bs_fused(x: torch.Tensor, w_planes: torch.Tensor,
         return y * a_scale
     y = ref_lut_gemm_bitsliced(aq, w_planes, bits=w_bits)
     return y * w_scales[None, :] * a_scale
+
+
+# --------------------------------------------------------------------------- #
+# Decode attention over a packed KV cache (reference ref.py:325-425)
+# --------------------------------------------------------------------------- #
+
+def _unpack4(codes: torch.Tensor) -> torch.Tensor:
+    """(..., hd/2) uint8 -> (..., hd) int32 codes, low nibble first (the
+    rule of the reference's kv_cache_attention.py:27-33)."""
+    lo = codes & 0xF
+    hi = (codes >> 4) & 0xF
+    return torch.stack([lo, hi], dim=-1).reshape(
+        *codes.shape[:-1], codes.shape[-1] * 2).to(torch.int32)
+
+
+def dequant_kv_tile(codes: torch.Tensor, sc: torch.Tensor, bits: int) -> torch.Tensor:
+    """Packed codes (..., hd/f) + scales (...) -> f32 (..., hd): int8 is
+    code * scale, int4 is (nibble - 8) * scale (kv_cache_attention.py:36-42
+    of the reference)."""
+    if bits == 4:
+        vals = _unpack4(codes).to(torch.float32) - 8.0
+    else:
+        vals = codes.to(torch.float32)
+    return vals * sc.float()[..., None]
+
+
+def ref_kv_cache_attention(q: torch.Tensor, k_packed: torch.Tensor,
+                           k_sc: torch.Tensor, v_packed: torch.Tensor,
+                           v_sc: torch.Tensor, lengths: torch.Tensor,
+                           bits: int) -> torch.Tensor:
+    """Oracle: dequantize the whole cache (B, S, KV, hd/f), masked softmax
+    of the (B, KV, G, hd) queries over rows < lengths[b], f32 out."""
+    kd = dequant_kv_tile(k_packed, k_sc, bits)
+    vd = dequant_kv_tile(v_packed, v_sc, bits)
+    hd = q.shape[-1]
+    s = torch.einsum("begh,bseh->begs", q.float(), kd) * hd ** -0.5
+    mask = torch.arange(kd.shape[1], device=q.device)[None, :] < lengths[:, None]
+    s = torch.where(mask[:, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("begs,bseh->begh", p, vd)
+
+
+def ref_paged_attention(q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths,
+                        bits: int) -> torch.Tensor:
+    """Oracle: gather each sequence's blocks into a dense view, then the
+    flat packed-cache oracle over it."""
+    B, nb = block_tables.shape
+    bs = k_pool.shape[1]
+
+    def view(pool):
+        return pool[block_tables].reshape(B, nb * bs, *pool.shape[2:])
+
+    return ref_kv_cache_attention(q, view(k_pool), view(k_sc), view(v_pool),
+                                  view(v_sc), lengths, bits)
+
+
+def ref_paged_attention_splitkv(q, k_pool, k_sc, v_pool, v_sc, block_tables,
+                                lengths, bits: int,
+                                kv_splits: int = 2) -> torch.Tensor:
+    """Oracle of the flash-decoding split: ns = min(kv_splits, nb) chunks of
+    nbc = ceil(nb / ns) table entries (the tail padded with block 0), plain
+    per-chunk unnormalised partials (acc, m, l), and the exact merge written
+    out here, so the oracle shares no code with what it checks."""
+    B, nb = block_tables.shape
+    bs = k_pool.shape[1]
+    ns = max(1, min(int(kv_splits), nb))
+    nbc = -(-nb // ns)
+    tbl = torch.nn.functional.pad(block_tables, (0, ns * nbc - nb))
+    hd = q.shape[-1]
+    qf = q.float()
+    o_parts, m_parts, l_parts = [], [], []
+    for c in range(ns):
+        ids = tbl[:, c * nbc:(c + 1) * nbc]                      # (B, nbc)
+        kd = dequant_kv_tile(k_pool[ids], k_sc[ids], bits)
+        vd = dequant_kv_tile(v_pool[ids], v_sc[ids], bits)
+        kd = kd.reshape(B, nbc * bs, *kd.shape[3:])
+        vd = vd.reshape(B, nbc * bs, *vd.shape[3:])
+        s = torch.einsum("begh,bseh->begs", qf, kd) * hd ** -0.5
+        pos = c * nbc * bs + torch.arange(nbc * bs, device=q.device)
+        mask = pos[None, :] < lengths[:, None]
+        s = torch.where(mask[:, None, None, :], s, -1e30)
+        m_c = s.amax(-1)                                         # (B, KV, G)
+        p = torch.exp(s - m_c[..., None])
+        o_parts.append(torch.einsum("begs,bseh->begh", p, vd))
+        m_parts.append(m_c)
+        l_parts.append(p.sum(-1))
+    o = torch.stack(o_parts, dim=1)                              # (B, ns, KV, G, hd)
+    m = torch.stack(m_parts, dim=1)                              # (B, ns, KV, G)
+    ll = torch.stack(l_parts, dim=1)
+    M = m.amax(dim=1)
+    w = torch.exp(m - M[:, None])
+    num = (o * w[..., None]).sum(dim=1)
+    den = (ll * w).sum(dim=1)
+    return num / torch.clamp(den, min=1e-30)[..., None]

@@ -14,10 +14,12 @@ Backends:
           kernel-versus-plain comparison on the card uses this)
 
 Every dispatch records ``kernel_dispatch_total{op,backend,m_bucket,bits}``
-(obs/metrics.py), counted per call. Tensor-parallel rules wait for the
-distributed slice (ROADMAP queue 1, item 11); the ops not yet ported (the
-two-step ``lut_gemm_bitsliced``, attention, expert and LUT-65k kernels)
-are not registered.
+(obs/metrics.py), counted per call. Registered: the GEMMs ``lut_gemm``,
+``dequant_matmul`` and ``lut_gemm_bs_fused``, and paged decode attention,
+``paged_attention`` and ``paged_attention_splitkv``. Tensor-parallel rules
+wait for the distributed slice (ROADMAP queue 1, item 11); the ops not yet
+ported (the two-step ``lut_gemm_bitsliced``, the dense-cache
+``kv_cache_attention``, the expert kernels and LUT-65k) are not registered.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ from repro_torch.obs import metrics as obs_metrics
 from .lut_dequant_matmul import dequant_matmul_cuda, dequant_matmul_plain
 from .lut_gemm import lut_gemm_cuda, lut_gemm_plain
 from .lut_gemm_bitsliced import lut_gemm_bs_fused_cuda, lut_gemm_bs_fused_plain
+from .paged_attention import (paged_attention_cuda, paged_attention_plain,
+                              paged_attention_splitkv_cuda,
+                              paged_attention_splitkv_plain)
 
 BACKENDS = ("auto", "cuda", "ref")
 
@@ -107,3 +112,18 @@ register(KernelOp(
         "core and the full weight x activation scale epilogue in one kernel; "
         "raw bf16/f32 activations in, scaled f32 out. "
         "arrays: (x, w_planes, w_scales, a_sc|None)"))
+
+register(KernelOp(
+    name="paged_attention", plain=paged_attention_plain,
+    kernel=paged_attention_cuda,
+    doc="Decode attention over a paged packed KV-cache pool via per-"
+        "sequence block tables. arrays: (q, k_pool, k_sc, v_pool, v_sc, "
+        "block_tables, lengths)"))
+
+register(KernelOp(
+    name="paged_attention_splitkv", plain=paged_attention_splitkv_plain,
+    kernel=paged_attention_splitkv_cuda,
+    doc="Flash-decoding paged attention: the block table is partitioned "
+        "into kv_splits chunks, each folded by its own online softmax into "
+        "(acc, m, l) partials, then merged exactly. arrays: (q, k_pool, "
+        "k_sc, v_pool, v_sc, block_tables, lengths)"))

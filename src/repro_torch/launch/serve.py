@@ -11,8 +11,14 @@ its kernel (``lut_gemm`` for w{b}a{b}, ``dequant_matmul`` for w{b}a16,
       --paged --plan w2a2                      # full width, on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --paged --plan w2a8_bs                   # bit-sliced, on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \
+      --paged --plan w2a8_bs                   # int4 pool, untied head
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --smoke --paged --device cpu             # tiny, plain versions on CPU
+
+Decode attention over the int8/int4 pool runs through ``paged_attention``,
+or with ``--kv-splits N`` (N > 1; "auto" gives one split per 4096 rows of
+context) through the split-KV ``paged_attention_splitkv``.
 
 It takes the reference's flags. Those of features not ported yet are
 rejected loudly, as is running without ``--paged`` (the fixed-batch loop
@@ -60,7 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefix-cache", action="store_true")
     ap.add_argument("--prefill-batch", type=int, default=1)
     ap.add_argument("--prefill", default="chunked", choices=("chunked", "whole"))
-    ap.add_argument("--kv-splits", default="auto")
+    ap.add_argument("--kv-splits", default="auto",
+                    help="split-KV decode chunks: auto or an int >= 1")
     ap.add_argument("--ring", action="store_true")
     ap.add_argument("--spec-draft-plan", default=None)
     ap.add_argument("--spec-k", type=int, default=4)
@@ -87,8 +94,6 @@ def validate_args(args) -> None:
         (args.spec_draft_plan is not None,
          f"--spec-draft-plan (speculative decoding) is not ported yet: {item6}"),
         (args.ring, f"--ring (ring-paged local layers) is not ported yet: {item6}"),
-        (args.kv_splits not in ("auto", "1"),
-         f"--kv-splits > 1 (split-KV decode) is not ported yet: {item6}"),
         (args.tp > 1, "--tp > 1 is not ported yet: ROADMAP queue 1, item 11"),
         (args.trace_out is not None, f"--trace-out (tracer) is not ported yet: {item6}"),
         (args.a_scale == "static", "--a-scale static (calibration) is not "
@@ -104,6 +109,10 @@ def validate_args(args) -> None:
     for bad, msg in checks:
         if bad:
             raise ValueError(msg)
+    if args.kv_splits != "auto" and not (args.kv_splits.isdigit()
+                                         and int(args.kv_splits) >= 1):
+        raise ValueError(f"--kv-splits must be auto or an int >= 1, got "
+                         f"{args.kv_splits!r}")
     if args.plan is not None and args.plan not in PLANS:
         raise ValueError(f"unknown --plan {args.plan!r} "
                          f"({', '.join(sorted(PLANS))})")
@@ -128,12 +137,14 @@ def make_requests(cfg, args) -> list[Request]:
                     max_new=args.gen) for i, P in enumerate(lens)]
 
 
-def make_engine(cfg, qparams, args) -> Engine:
+def make_engine(cfg, qparams, args, **engine_kw) -> Engine:
+    """The engine the flags ask for; ``engine_kw`` reaches ``Engine`` (a
+    caller's ``attn_backend``)."""
     max_len = args.prompt_len + args.gen + args.block_size
     max_len = -(-max_len // args.block_size) * args.block_size
     return Engine(cfg, qparams, n_slots=args.batch, max_len=max_len,
                   block_size=args.block_size, max_queue=args.max_queue,
-                  kv_splits=args.kv_splits)
+                  kv_splits=args.kv_splits, **engine_kw)
 
 
 def _sync(device: torch.device) -> None:

@@ -3,14 +3,19 @@
 The port's counterpart of ``repro/models/layers.py``: ``dense`` (plain or
 packed-serving dispatch), RMSNorm, RoPE, the attention math (the same
 masked softmax as the reference: an online softmax over key chunks for
-prefill, a dense masked softmax for one-token decode), the int8 KV codec,
-the attention layer's no-cache prefill branch and single-pass paged branch,
-and the swiglu MLP.
+prefill, a dense masked softmax for one-token decode), the int8 and int4
+KV codecs, the attention layer's no-cache prefill branch and its paged
+branches (chunked prefill, single-pass decode and split-KV decode), and
+the swiglu MLP.
 
-No attention kernel lies on this path: the reference engine attends
-through jnp (layers.py:574-607), so the port attends in plain torch.
-``scaled_dot_product_attention`` is not used. The ring-paged and split-KV
-branches wait (ROADMAP queue 1, item 6); QAT waits for the training slice.
+One-token decode over an int8 or int4 pool goes through the registry's
+``paged_attention`` (kv_splits 1) or ``paged_attention_splitkv`` (kv_splits
+> 1) op, whose CUDA kernels replace the reference's Pallas pair; the
+reference's own engine attends through jnp there (layers.py:515-607), and
+the op's plain version is that math. An unquantized pool (the smoke
+configs) has no kernel: it attends in plain torch, as the reference does.
+``scaled_dot_product_attention`` is not used. Ring-paged local layers wait
+(ROADMAP queue 1, item 6); QAT waits for the training slice.
 
 Paged cache updates happen in place: ``attn_apply`` scatters the new K/V
 rows into the shared pool tensors instead of returning a new pool.
@@ -22,8 +27,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import packing
 from repro_torch.core.qlinear import QuantizedWeight, dense_serve
 from repro_torch.core.qplan import plan_backend
+from repro_torch.kernels import registry
+from repro_torch.kernels.paged_attention import merge_splitkv_partials, split_partition
 
 _NEG = -1e30
 
@@ -138,7 +146,22 @@ def dequantize_kv(q: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
     return q.float() * sc[..., None]
 
 
-KV_QUANT = {"int8": (quantize_kv, dequantize_kv)}
+def quantize_kv4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, KV, hd) -> (4-bit codes packed two per byte along hd, low
+    nibble first, (B, S, KV, hd/2) uint8; per-(token, head) f32 scales)."""
+    xf = x.float()
+    sc = torch.clamp(xf.abs().amax(dim=-1) / 7.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / sc[..., None]), -8, 7)
+    return packing.pack((q + 8).to(torch.uint8), 4), sc
+
+
+def dequantize_kv4(packed: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
+    return (packing.unpack(packed, 4).float() - 8.0) * sc[..., None]
+
+
+KV_QUANT = {"int8": (quantize_kv, dequantize_kv),
+            "int4": (quantize_kv4, dequantize_kv4)}
+KV_BITS = {"int8": 8, "int4": 4}
 
 
 def _cache_update(view: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -161,14 +184,50 @@ def _scatter_pool_rows(pool: torch.Tensor, new: torch.Tensor, blk: torch.Tensor,
         B * S, *new.shape[2:]).to(pool.dtype)
 
 
+def _splitkv_decode(q: torch.Tensor, cache: dict, block_tables: torch.Tensor,
+                    pos: torch.Tensor, kv_splits: int) -> torch.Tensor:
+    """Split-KV decode over an unquantized pool (reference layers.py:
+    537-564): the table in ns chunks, one blocked masked softmax giving
+    per-chunk unnormalised partials, merged exactly. q (B, 1, KV, G, hd);
+    the new row is already in the pool."""
+    B, nb = block_tables.shape
+    bs_tok = cache["k"].shape[1]
+    hd = q.shape[-1]
+    ns, nbc = split_partition(nb, kv_splits)
+    tblp = torch.nn.functional.pad(block_tables, (0, ns * nbc - nb))
+
+    def cgather(pool):                                   # (B, ns, nbc*bs, ..)
+        return pool[tblp].reshape(B, ns, nbc * bs_tok, *pool.shape[2:]).float()
+
+    idx = torch.arange(ns * nbc * bs_tok, device=q.device).reshape(ns, nbc * bs_tok)
+    cvalid = idx[None] <= pos[:, None, None]
+    s = torch.einsum("begh,bnseh->bnegs", q[:, 0].float(),
+                     cgather(cache["k"])) * hd ** -0.5
+    s = torch.where(cvalid[:, :, None, None, :], s, _NEG)
+    m_c = s.amax(-1)                                     # (B, ns, KV, G)
+    pr = torch.exp(s - m_c[..., None])
+    acc = torch.einsum("bnegs,bnseh->bnegh", pr, cgather(cache["v"]))
+    return merge_splitkv_partials(acc, m_c, pr.sum(-1))[:, None].to(q.dtype)
+
+
 def attn_apply(p: dict, x: torch.Tensor, *, cfg, cache: Optional[dict] = None,
                pos: Optional[torch.Tensor] = None,
-               block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+               block_tables: Optional[torch.Tensor] = None,
+               kv_splits: int = 1, attn_backend: str = "auto") -> torch.Tensor:
     """Self-attention layer. x (B, S, D). Without a cache: causal prefill
     over the whole sequence. With a paged cache (pool dict) and block
-    tables (B, nb): gather each row's blocks into a dense view, update rows
-    [pos, pos+S), attend (decode when S == 1, chunked prefill otherwise),
-    then scatter the new rows into the pool in place."""
+    tables (B, nb), rows [pos, pos+S) are written into the pool in place:
+
+    - one-token decode (S == 1) over an int8/int4 pool: scatter the new row,
+      then the registry's ``paged_attention`` (kv_splits 1) or
+      ``paged_attention_splitkv`` op with lengths pos + 1, on
+      ``attn_backend`` ('auto': the kernel for CUDA tensors; 'ref': the
+      plain version);
+    - one-token decode over an unquantized pool with kv_splits > 1: scatter,
+      then the split einsum;
+    - otherwise: gather each row's blocks into a dense view, update it,
+      attend (decode, or a chunked prefill with a per-row causal mask),
+      then scatter."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     G = H // KV
@@ -189,40 +248,61 @@ def attn_apply(p: dict, x: torch.Tensor, *, cfg, cache: Optional[dict] = None,
             raise NotImplementedError("dense slot caches are not ported; "
                                       "the port serves through the paged pool")
         bs_tok = cache["k"].shape[1]
-        int8_cache = cfg.kv_cache_dtype in KV_QUANT and "k_sc" in cache
-        if int8_cache:
+        quant_cache = cfg.kv_cache_dtype in KV_QUANT and "k_sc" in cache
+        if quant_cache:
             qf, dqf = KV_QUANT[cfg.kv_cache_dtype]
             k, k_sc = qf(k)
             v, v_sc = qf(v)
         nb = block_tables.shape[1]
-        S_view = nb * bs_tok
         rows = pos[:, None] + ar[None, :]                        # (B, S)
         blk = torch.gather(block_tables, 1,
                            torch.clamp(rows // bs_tok, max=nb - 1))
         offs = rows % bs_tok
 
-        def gather(pool):
-            return pool[block_tables].reshape(B, S_view, *pool.shape[2:])
+        def scatter():
+            _scatter_pool_rows(cache["k"], k, blk, offs)
+            _scatter_pool_rows(cache["v"], v, blk, offs)
+            if quant_cache:
+                _scatter_pool_rows(cache["k_sc"], k_sc, blk, offs)
+                _scatter_pool_rows(cache["v_sc"], v_sc, blk, offs)
 
-        kc = _cache_update(gather(cache["k"]), k, pos)
-        vc = _cache_update(gather(cache["v"]), v, pos)
-        if int8_cache:
-            ksc = _cache_update(gather(cache["k_sc"]), k_sc, pos)
-            vsc = _cache_update(gather(cache["v_sc"]), v_sc, pos)
-            kd, vd = dqf(kc, ksc), dqf(vc, vsc)
+        if S == 1 and quant_cache:
+            scatter()
+            ops = (q[:, 0], cache["k"], cache["k_sc"], cache["v"], cache["v_sc"],
+                   block_tables, pos + 1)
+            bits = KV_BITS[cfg.kv_cache_dtype]
+            if kv_splits > 1:
+                o = registry.dispatch("paged_attention_splitkv", *ops,
+                                      backend=attn_backend, bits=bits,
+                                      kv_splits=kv_splits)
+            else:
+                o = registry.dispatch("paged_attention", *ops,
+                                      backend=attn_backend, bits=bits)
+            out = o[:, None].to(q.dtype)
+        elif S == 1 and kv_splits > 1:
+            scatter()
+            out = _splitkv_decode(q, cache, block_tables, pos, kv_splits)
         else:
-            kd, vd = kc, vc
-        if S == 1:
-            valid = torch.arange(S_view, device=x.device)[None, :] <= pos[:, None]
-            out = decode_attention(q, kd, vd, valid)
-        else:
-            # the per-row causal mask also blanks the not-yet-written tail
-            out = flash_attention(q, kd, vd, causal=True, q_offset=pos)
-        _scatter_pool_rows(cache["k"], k, blk, offs)
-        _scatter_pool_rows(cache["v"], v, blk, offs)
-        if int8_cache:
-            _scatter_pool_rows(cache["k_sc"], k_sc, blk, offs)
-            _scatter_pool_rows(cache["v_sc"], v_sc, blk, offs)
+            S_view = nb * bs_tok
+
+            def gather(pool):
+                return pool[block_tables].reshape(B, S_view, *pool.shape[2:])
+
+            kc = _cache_update(gather(cache["k"]), k, pos)
+            vc = _cache_update(gather(cache["v"]), v, pos)
+            if quant_cache:
+                ksc = _cache_update(gather(cache["k_sc"]), k_sc, pos)
+                vsc = _cache_update(gather(cache["v_sc"]), v_sc, pos)
+                kd, vd = dqf(kc, ksc), dqf(vc, vsc)
+            else:
+                kd, vd = kc, vc
+            if S == 1:
+                valid = torch.arange(S_view, device=x.device)[None, :] <= pos[:, None]
+                out = decode_attention(q, kd, vd, valid)
+            else:
+                # the per-row causal mask also blanks the not-yet-written tail
+                out = flash_attention(q, kd, vd, causal=True, q_offset=pos)
+            scatter()
     out = out.reshape(B, S, H * hd)
     return dense(p["wo"], out, policy=pol)
 

@@ -1,10 +1,12 @@
 """Decoder-only LM assembly (dense family) for the port.
 
 The port's counterpart of ``repro/models/lm.py``. Parameters are a plain
-dict: ``tok_embed`` (V, D), ``final_norm``, and ``layers``, a list with one
-dict per layer (``ln1``, ``attn`` {wq, wk, wv, wo}, ``ln2``, ``mlp``
-{w_gate, w_up, w_down}); dense weights keep the reference's (in, out)
-layout. The reference's ``lax.scan`` over stacked superblocks is a Python
+dict: the input embedding (V, D), ``tok_embed`` when the head is tied to
+it or ``in_embed`` beside an untied ``lm_head`` {"w": (D, V)}, which every
+plan keeps bf16 (``qplan.KEEP_BF16``); ``final_norm``; and ``layers``, a
+list with one dict per layer (``ln1``, ``attn`` {wq, wk, wv, wo},
+``ln2``, ``mlp`` {w_gate, w_up, w_down}); dense weights keep the
+reference's (in, out) layout. The reference's ``lax.scan`` over stacked superblocks is a Python
 loop over ``layers`` here. Serving caches are a list of per-layer pool
 dicts (serving/cache.py), updated in place.
 """
@@ -31,9 +33,14 @@ def _check_supported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: only the dense family with global attention is "
             "ported; other layer types follow ROADMAP queue 1, items 4 and 9")
-    if cfg.pos_embed != "rope" or not cfg.tie_embeddings:
-        raise NotImplementedError(f"{cfg.name}: learned positions / untied "
-                                  "heads are not ported yet")
+    if cfg.pos_embed != "rope":
+        raise NotImplementedError(f"{cfg.name}: learned positions are not "
+                                  "ported yet")
+
+
+def embed_table(params: dict) -> torch.Tensor:
+    """The input embedding (V, D): ``tok_embed`` (tied) or ``in_embed``."""
+    return params["tok_embed"] if "tok_embed" in params else params["in_embed"]
 
 
 def init_params(cfg, generator: torch.Generator, device="cuda") -> dict:
@@ -70,44 +77,55 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> dict:
             "mlp": {"w_gate": dense(D, F), "w_up": dense(D, F),
                     "w_down": dense(F, D)},
         })
-    return {"tok_embed": normal(cfg.vocab_size, D, std=0.02),
-            "final_norm": norm(), "layers": layers}
+    embed = normal(cfg.vocab_size, D, std=0.02)
+    if cfg.tie_embeddings:
+        return {"tok_embed": embed, "final_norm": norm(), "layers": layers}
+    return {"in_embed": embed, "final_norm": norm(), "layers": layers,
+            "lm_head": {"w": normal(D, cfg.vocab_size, std=D ** -0.5)}}
 
 
 def apply_layer(p: dict, x: torch.Tensor, *, cfg, cache: Optional[dict] = None,
                 pos: Optional[torch.Tensor] = None,
-                block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+                block_tables: Optional[torch.Tensor] = None,
+                kv_splits: int = 1, attn_backend: str = "auto") -> torch.Tensor:
     """One pre-norm decoder layer: x + attn(ln1(x)), then + mlp(ln2(.))."""
     h = L.norm_apply(p["ln1"], x, cfg.norm)
     x = x + L.attn_apply(p["attn"], h, cfg=cfg, cache=cache, pos=pos,
-                         block_tables=block_tables)
+                         block_tables=block_tables, kv_splits=kv_splits,
+                         attn_backend=attn_backend)
     h2 = L.norm_apply(p["ln2"], x, cfg.norm)
     return x + L.mlp_apply(p["mlp"], h2, cfg=cfg)
 
 
 def forward(params: dict, cfg, tokens: torch.Tensor, *,
             caches: Optional[list] = None, pos: Optional[torch.Tensor] = None,
-            block_tables: Optional[torch.Tensor] = None):
+            block_tables: Optional[torch.Tensor] = None, kv_splits: int = 1,
+            attn_backend: str = "auto"):
     """Token ids (B, S) -> (final hidden states (B, S, D), caches).
 
     Without caches: a causal forward over the whole sequence. With paged
     caches and block tables (B, nb): S == 1 is a batched decode step, S > 1
     a chunk with per-row start positions ``pos`` (B,); the pools are
-    updated in place and returned."""
+    updated in place and returned. ``kv_splits`` (> 1: split-KV decode)
+    and ``attn_backend`` (the registry backend of the decode attention op)
+    reach every layer's attention."""
     _check_supported(cfg)
-    x = params["tok_embed"][tokens].to(torch_dtype(cfg.dtype))
+    x = embed_table(params)[tokens].to(torch_dtype(cfg.dtype))
     for i, lp in enumerate(params["layers"]):
         x = apply_layer(lp, x, cfg=cfg,
                         cache=None if caches is None else caches[i],
-                        pos=pos, block_tables=block_tables)
+                        pos=pos, block_tables=block_tables, kv_splits=kv_splits,
+                        attn_backend=attn_backend)
     return L.norm_apply(params["final_norm"], x, cfg.norm), caches
 
 
 def logits_fn(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
-    """(B, S, D) -> (B, S, V) f32 logits against the tied embedding: a plain
-    f32 product outside any kernel, as the reference's einsum with an f32
-    accumulator."""
-    return torch.matmul(hidden.float(), params["tok_embed"].float().T)
+    """(B, S, D) -> (B, S, V) f32 logits against the tied embedding or the
+    untied ``lm_head``: a plain f32 product outside any kernel, as the
+    reference's einsum with an f32 accumulator."""
+    if cfg.tie_embeddings:
+        return torch.matmul(hidden.float(), params["tok_embed"].float().T)
+    return torch.matmul(hidden.float(), params["lm_head"]["w"].float())
 
 
 def quantize_tree(params: dict, cfg) -> dict:

@@ -8,6 +8,9 @@ Layout per attention layer (``n_blocks`` blocks of ``block_size`` rows):
 
   unquantized : k, v        (n_blocks, block_size, KV, hd) in the model dtype
   int8        : k, v int8   (n_blocks, block_size, KV, hd) + k_sc/v_sc f32
+                (n_blocks, block_size, KV)
+  int4        : k, v uint8  (n_blocks, block_size, KV, hd/2), two 4-bit
+                codes per byte (low nibble first) + k_sc/v_sc f32
 
 Physical block 0 is the NULL block: free table entries point at it, writes
 from inactive decode rows and pad rows land there, and its contents are
@@ -75,9 +78,11 @@ class BlockPool:
 def _paged_attn_cache(cfg, n_blocks: int, block_size: int, dtype, device) -> dict:
     KV, hd = cfg.n_kv_heads, cfg.hd
     shape = (n_blocks, block_size, KV, hd)
-    if cfg.kv_cache_dtype == "int8":
-        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
-                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+    packed = {"int8": (torch.int8, hd), "int4": (torch.uint8, hd // 2)}
+    if cfg.kv_cache_dtype in packed:
+        code_dtype, width = packed[cfg.kv_cache_dtype]
+        return {"k": torch.zeros(shape[:3] + (width,), dtype=code_dtype, device=device),
+                "v": torch.zeros(shape[:3] + (width,), dtype=code_dtype, device=device),
                 "k_sc": torch.zeros(shape[:3], dtype=torch.float32, device=device),
                 "v_sc": torch.zeros(shape[:3], dtype=torch.float32, device=device)}
     if cfg.kv_cache_dtype != "bfloat16":

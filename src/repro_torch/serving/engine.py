@@ -19,10 +19,18 @@ The reference jit-compiles two fixed-shape step functions; the port runs
 eagerly, calling the same forward on the same fixed shapes ((n_slots, 1)
 decode, (1, chunk_size) prefill). Pools are updated in place.
 
+Decode steps attend through the registry's paged attention ops on an int8
+or int4 pool: ``paged_attention`` with ``kv_splits`` 1, the split-KV
+``paged_attention_splitkv`` above 1 ("auto": one split per 4096 rows of
+``max_len``, at most 16, as in the reference). On CUDA tensors those are
+the port's kernels; the reference's engine attends through jnp there.
+``attn_backend`` "ref" sends the attention op to its plain version on any
+device, so a run on the card can hold the kernels against it.
+
 Not ported yet (each raises): whole-prompt admission, batched prefill,
 the prefix-sharing radix cache, speculative decoding, ring-paged local
-layers, split-KV decode, tensor parallelism, the tracer, and seeded
-sampling (ROADMAP queue 1, items 5-6 and 11).
+layers, tensor parallelism, the tracer, and seeded sampling (ROADMAP
+queue 1, items 5-6 and 11).
 """
 
 from __future__ import annotations
@@ -97,7 +105,10 @@ class Engine:
     mirror the reference's: ``n_slots`` (decode batch), ``max_len`` (max
     context rows, a multiple of ``block_size``), ``n_blocks`` (pool size
     incl. the null block; default every slot can hold max_len rows),
-    ``chunk_size`` (prefill chunk, default two blocks), ``max_queue``.
+    ``chunk_size`` (prefill chunk, default two blocks), ``max_queue``,
+    ``kv_splits`` ("auto" or an int >= 1; decode forwards only). The
+    port's own ``attn_backend`` ("auto" or "ref") is the registry backend
+    of the decode attention op.
     """
 
     def __init__(self, cfg, params, *, n_slots: int, max_len: int,
@@ -106,7 +117,7 @@ class Engine:
                  prefill: str = "chunked", prefill_batch: int = 1,
                  prefix_cache: bool = False,
                  sampler: Optional[S.SamplerConfig] = None,
-                 kv_splits="auto"):
+                 kv_splits="auto", attn_backend: str = "auto"):
         if prefill != "chunked":
             raise _not_ported("whole-prompt admission", "queue 1, item 6")
         if prefill_batch != 1:
@@ -125,15 +136,20 @@ class Engine:
         if chunk_size % block_size or max_len % chunk_size:
             raise ValueError(f"chunk_size {chunk_size} must be a multiple of "
                              f"block_size and divide max_len")
-        kv = max(1, min(16, max_len // 4096)) if kv_splits == "auto" \
-            else int(kv_splits)
-        if kv != 1:
-            raise _not_ported("split-KV decode (kv_splits > 1)",
-                              "queue 1, item 6")
+        if kv_splits == "auto":
+            self.kv_splits = max(1, min(16, max_len // 4096))
+        else:
+            self.kv_splits = int(kv_splits)
+            if self.kv_splits < 1:
+                raise ValueError(f"kv_splits must be >= 1: {kv_splits!r}")
+        if attn_backend not in ("auto", "ref"):
+            raise ValueError(f"attn_backend must be 'auto' or 'ref': "
+                             f"{attn_backend!r}")
+        self.attn_backend = attn_backend
 
         self.cfg = cfg
         self.params = params
-        self.device = params["tok_embed"].device
+        self.device = lm.embed_table(params).device
         self.n_slots = n_slots
         self.max_len = max_len
         self.block_size = block_size
@@ -174,7 +190,9 @@ class Engine:
         tables (n_slots, nb_max). Returns (n_slots, V) f32 logits."""
         with obs_metrics.scoped(registry=self.obs):
             h, _ = lm.forward(self.params, self.cfg, tokens, caches=self.caches,
-                              pos=pos, block_tables=tables)
+                              pos=pos, block_tables=tables,
+                              kv_splits=self.kv_splits,
+                              attn_backend=self.attn_backend)
             return lm.logits_fn(self.params, self.cfg, h[:, -1:])[:, -1]
 
     @torch.inference_mode()

@@ -1,0 +1,147 @@
+"""The port's paged-attention CUDA kernels against their plain PyTorch
+versions on the card (every test marked ``gpu``; each skips, from a
+fixture, without a card). Run on the H100 with ``PYTHONPATH=src python -m
+pytest -q -m gpu tests/test_torch_attention_gpu.py``. This file imports no
+jax.
+
+Tolerance: 1e-5 relative to max|plain| plus 1e-6 absolute. The kernels
+sum f32 products and exponentials in another order than the plain
+version's dense masked softmax, and factor the K scale out of the dot
+product.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import paged_attention as PA
+
+RTOL = 1e-5
+ATOL = 1e-6
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run the gpu-marked tests on the H100)")
+    return torch.device("cuda")
+
+
+def _operands(seed, *, bits, G, hd, lengths, nb, bs, KV=2, spare=3, dev,
+              q_dtype=torch.float32):
+    """A pool with shuffled physical blocks, NULL-padded int64 tables and
+    lengths, on ``dev``."""
+    rng = np.random.default_rng(seed)
+    B = len(lengths)
+    need = [-(-n // bs) for n in lengths]
+    n_blocks = 1 + sum(need) + spare
+    ids = rng.permutation(np.arange(1, n_blocks))
+    tables = np.zeros((B, nb), np.int64)
+    o = 0
+    for b, k in enumerate(need):
+        tables[b, :k] = ids[o:o + k]
+        o += k
+    width = hd * bits // 8
+    if bits == 8:
+        pools = [rng.integers(-127, 128, size=(n_blocks, bs, KV, width)).astype(np.int8)
+                 for _ in range(2)]
+    else:
+        pools = [rng.integers(0, 256, size=(n_blocks, bs, KV, width)).astype(np.uint8)
+                 for _ in range(2)]
+    scs = [rng.uniform(0.005, 0.05, size=(n_blocks, bs, KV)).astype(np.float32)
+           for _ in range(2)]
+    q = torch.from_numpy(rng.normal(size=(B, KV, G, hd)).astype(np.float32)).to(q_dtype)
+    ops = [q, pools[0], scs[0], pools[1], scs[1], tables, np.asarray(lengths, np.int64)]
+    return [x.to(dev) if torch.is_tensor(x) else torch.from_numpy(x).to(dev) for x in ops]
+
+
+def _check(got, want):
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=ATOL + RTOL * want.abs().max().item())
+
+
+def _both(ops, bits, kv_splits):
+    if kv_splits == 1:
+        before = PA.paged_attention_cuda.launches
+        got = PA.paged_attention_cuda(*ops, bits=bits)
+        torch.cuda.synchronize()
+        assert PA.paged_attention_cuda.launches == before + 1
+        return got, PA.paged_attention_plain(*ops, bits=bits)
+    before = PA.paged_attention_splitkv_cuda.launches
+    got = PA.paged_attention_splitkv_cuda(*ops, bits=bits, kv_splits=kv_splits)
+    torch.cuda.synchronize()
+    assert PA.paged_attention_splitkv_cuda.launches == before + 1
+    return got, PA.paged_attention_splitkv_plain(*ops, bits=bits, kv_splits=kv_splits)
+
+
+_GRID = [(bits, G, hd, ks) for bits in (8, 4) for G in (1, 2, 8)
+         for hd in (16, 64, 128) for ks in (1, 2, 3, 4, 5)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,G,hd,kv_splits", _GRID)
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_kernels_match_plain_on_card(cuda, bits, G, hd, kv_splits, q_dtype):
+    """bs 16, nb 6: lengths 1, 37 (not a multiple of bs) and 96 (the full
+    table); kv_splits 4 and 5 leave chunks past every length."""
+    ops = _operands(bits * 1000 + G * 100 + hd + kv_splits, bits=bits, G=G, hd=hd,
+                    lengths=(1, 37, 96), nb=6, bs=16, dev=cuda, q_dtype=q_dtype)
+    _check(*_both(ops, bits, kv_splits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_splits", [1, 3, 8])
+@pytest.mark.parametrize("bits,hd", [(8, 64), (4, 128), (8, 128)])
+@pytest.mark.parametrize("G", [1, 4])
+def test_kernels_match_plain_at_block_512_on_card(cuda, bits, hd, kv_splits, G):
+    ops = _operands(kv_splits + hd, bits=bits, G=G, hd=hd, lengths=(700, 2048, 5),
+                    nb=8, bs=512, KV=4, dev=cuda)
+    _check(*_both(ops, bits, kv_splits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_splits", [3, 4, 7])
+def test_split_kernel_above_table_width_on_card(cuda, kv_splits):
+    ops = _operands(31, bits=8, G=2, hd=64, lengths=(3, 40), nb=3, bs=16, dev=cuda)
+    got, _ = _both(ops, 8, kv_splits)
+    _check(got, PA.paged_attention_plain(*ops, bits=8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_splits", [1, 2])
+def test_length_zero_returns_zero_on_card(cuda, kv_splits):
+    ops = _operands(5, bits=4, G=2, hd=64, lengths=(0, 17), nb=2, bs=16, dev=cuda)
+    got, want = _both(ops, 4, kv_splits)
+    assert (got[0] == 0).all()
+    _check(got[1:], want[1:])
+
+
+@pytest.mark.gpu
+def test_kernels_reject_bad_operands_on_card(cuda):
+    ops = _operands(2, bits=8, G=2, hd=64, lengths=(5, 30), nb=2, bs=16, dev=cuda)
+    q, kp, ksc, vp, vsc, tbl, lens = ops
+    with pytest.raises(TypeError):
+        PA.paged_attention_cuda(q.half(), *ops[1:], bits=8)
+    with pytest.raises(TypeError):
+        PA.paged_attention_cuda(*ops, bits=4)             # int8 codes as a 4-bit pool
+    with pytest.raises(NotImplementedError):
+        PA.paged_attention_cuda(*ops, bits=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        PA.paged_attention_cuda(q.transpose(0, 1).contiguous().transpose(0, 1),
+                                *ops[1:], bits=8)
+    with pytest.raises(ValueError, match="int64"):
+        PA.paged_attention_cuda(*ops[:5], tbl.int(), lens, bits=8)
+    with pytest.raises(ValueError, match="scales"):
+        PA.paged_attention_cuda(q, kp, ksc[:, :8].contiguous(), vp, vsc, tbl, lens,
+                                bits=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        PA.paged_attention_cuda(q, kp.cpu(), ksc, vp, vsc, tbl, lens, bits=8)
+    with pytest.raises(NotImplementedError):
+        wide = torch.zeros((2, 2, 9, 64), device=cuda)      # G = 9
+        PA.paged_attention_cuda(wide, *ops[1:], bits=8)
+    with pytest.raises(ValueError, match="kv_splits"):
+        PA.paged_attention_splitkv_cuda(*ops, bits=8, kv_splits=0)
+    with pytest.raises(NotImplementedError, match="block size"):
+        PA.paged_attention_cuda(q, kp[:, :12].contiguous(), ksc[:, :12].contiguous(),
+                                vp[:, :12].contiguous(), vsc[:, :12].contiguous(),
+                                tbl, lens, bits=8)

@@ -154,7 +154,7 @@ def test_preemption_matches_reference_and_ample_pool(kv, n_blocks):
 def test_engine_rejects_what_is_not_ported():
     _, tc, _, tq, _ = _setup("w2a2", "int8")
     for kw in (dict(prefill="whole"), dict(prefill_batch=2),
-               dict(prefix_cache=True), dict(kv_splits=2)):
+               dict(prefix_cache=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(tc, tq, **{**ENGINE_KW, **kw})
     eng = Engine(tc, tq, **ENGINE_KW)
@@ -173,7 +173,7 @@ def test_serve_cli_smoke_on_cpu_exits_zero():
 
 @pytest.mark.parametrize("flags", [
     [], ["--prefix-cache"], ["--prefill-batch", "2"], ["--spec-draft-plan", "w2a2"],
-    ["--ring"], ["--kv-splits", "2"], ["--tp", "2"], ["--trace-out", "t.json"],
+    ["--ring"], ["--tp", "2"], ["--trace-out", "t.json"],
     ["--a-scale", "static"], ["--nonuniform"], ["--temperature", "0.7"],
     ["--plan", "legacy"]])
 def test_serve_rejects_unported_flags_loudly(flags):

@@ -19,7 +19,14 @@ Phases, each printing its lines:
               (length 1, lengths off the block size, null-padded tables,
               kv_splits above the table width, chunks past every length),
               the library time being scaled_dot_product_attention over the
-              pre-dequantized bf16 view
+              pre-dequantized bf16 view; and the two expert GEMMs at
+              moonshot-v1-16b-a3b's decode shapes (E 64, M 4, K x N =
+              2048x1408 and 1408x2048; w2 per channel and g64, w4 for the
+              dequant kernel), at M 16, and at the edges (E 1, N off the
+              warp tile, K off the word step, groups smaller than a lane
+              step and one group per row, zero rows of unfilled capacity
+              slots), the library time being torch.bmm of the bf16
+              activations against the pre-dequantized bf16 weights
   5 engine    qwen1.5-0.5b at full width with seeded random weights, packed
               under w2a2, w2a16 and w2a8_bs in turn, serving 12 requests
               through the paged engine via repro_torch.launch.serve; launch
@@ -53,6 +60,16 @@ Phases, each printing its lines:
               pool) under w2a8_bs serving the 12 requests, with the
               attention-plain comparison and a profile, after the qwen
               engines are freed
+  10 moe      moonshot-v1-16b-a3b at full width (48 layers, 64 experts,
+              top-6, two shared experts, untied head, int8 pool), drawn and
+              packed layer by layer, serving the 12 requests under w2a2
+              (expert_lut_gemm + lut_gemm) and w2a16 (expert_dequant_matmul +
+              dequant_matmul), after the codeqwen engine is freed: launch
+              counts exact (the expert op 3 x 48 per forward, the dense op
+              7 x 48, paged_attention 48 per decode step, the others 0); a
+              re-run with the expert and dense GEMMs on their plain versions
+              (w2a2: tokens and first-step logits identical; w2a16: logits
+              within the stated tolerance); a profile; peak device memory
 
 Any failure exits nonzero. The line before the last is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}. Without a CUDA
@@ -86,17 +103,20 @@ BF16_TC_FLOPS = 989e12      # bf16 tensor cores
 
 # tolerances (stated): lut_gemm with an integer LUT sums exact integers in
 # f32, so it must be bit-identical; with group scales the summation order
-# differs from the plain version's. dequant_matmul sums f32 FMAs in another
-# order than torch.matmul. lut_gemm_bs_fused quantizes the rows with the
-# plain version's arithmetic and sums exact integers, so per channel it must
-# be bit-identical; its group-scale sum runs in another order.
+# differs from the plain version's. dequant_matmul and expert_dequant_matmul
+# round each product and each sum on their own in the order their plain
+# versions repeat, so they must be bit-identical. lut_gemm_bs_fused quantizes
+# the rows with the plain version's arithmetic and sums exact integers, so per
+# channel it must be bit-identical; its group-scale sum runs in another order.
 TOL_LUT_GROUPED = 1e-5      # relative to max|plain|
-TOL_DEQUANT = 1e-5          # relative to max|plain|
 TOL_BS_GROUPED = 1e-5       # relative to max|plain|
 TOL_LOGITS = 2e-2           # w2a16 first decode step, relative to max|logit|
 # paged attention: f32 sums and exponentials in another order than the plain
 # version's dense masked softmax, the K scale factored out of the dot product
 TOL_ATTN = 1e-5             # relative to max|plain|
+# expert_lut_gemm sums exact integers per channel (bit-identical) and scales
+# each packed byte's partial sum where the plain version scales each group's
+TOL_EXPERT_GROUPED = 1e-5   # relative to max|plain|
 
 SHAPES = ((1024, 1024), (1024, 2816), (2816, 1024))   # (K, N) per projection
 ROWS = (1, 4, 32)                                      # decode / prefill chunk
@@ -110,6 +130,10 @@ LC_BLOCK = 512
 LC_SLOTS = 2
 LC_WARM, LC_GEN = 3, 12
 LC_SPLITS = 8
+# moonshot-v1-16b-a3b's expert GEMMs (E, M, K, N): gate/up and down at decode
+# (capacity 4), gate/up at a prefill-like M
+EXPERT_SHAPES = ((64, 4, 2048, 1408), (64, 4, 1408, 2048), (64, 16, 2048, 1408))
+EXPERT_REPRESENTATIVE = (64, 4, 2048, 1408)
 
 
 def fail(msg: str) -> None:
@@ -224,7 +248,7 @@ def phase_kernels(torch, dev):
                 torch.cuda.synchronize()
                 want = dequant_matmul_plain(x, wp, cb, sc, bits=wb, group_size=G)
                 err = (got - want).abs().max().item()
-                ok = err <= TOL_DEQUANT * max(1.0, want.abs().max().item())
+                ok = err == 0.0
                 w_full = cb[w_idx.long()] * (sc[:, None] if G is None else
                                             quant.expand_group_scales(sc, G))
                 w_deq = w_full.to(torch.bfloat16)
@@ -304,6 +328,99 @@ def phase_kernels(torch, dev):
             record("lut_gemm_bs_fused", "w2a8_bs bf16 cq", M, K, N, err,
                    err == 0.0, k_ms, p_ms, l_ms, b, by)
             del w_deq, planes
+    return rows
+
+
+# (label, E, M, K, N, bits, group, zero every 3rd expert's rows)
+EXPERT_EDGES = (
+    ("E 1", 1, 4, 2048, 1408, 2, None, False),
+    ("N off the warp tile", 8, 4, 2048, 1003, 2, None, False),
+    ("K off the word step", 8, 4, 1400, 512, 2, None, False),
+    ("G 8, two groups per lane word", 4, 4, 2048, 256, 2, 8, False),
+    ("one group per row", 4, 4, 2048, 256, 2, 2048, False),
+    ("unfilled capacity slots", 64, 4, 2048, 1408, 2, None, True),
+)
+
+
+def phase_experts(torch, dev):
+    """The two expert GEMMs against their plain versions: EXPERT_SHAPES at
+    w2, w2 g64 and (dequant kernel) w4, then EXPERT_EDGES. Activations are
+    bf16 as served; the LUT rows' yardstick multiplies the activation
+    levels as bf16."""
+    from repro_torch.core import packing, quant
+    from repro_torch.core.lut import product_lut
+    from repro_torch.kernels import expert_gemm as EG
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = {"expert_dequant_matmul": [], "expert_lut_gemm": []}
+    cases = []
+    for E, M, K, N in EXPERT_SHAPES:
+        label = "moonshot decode" if M == 4 else f"moonshot M {M}"
+        cases += [("expert_dequant_matmul", label, E, M, K, N, b, G, False)
+                  for b, G in ((2, None), (2, 64), (4, None))]
+        cases += [("expert_lut_gemm", label, E, M, K, N, 2, G, False)
+                  for G in (None, 64)]
+    cases += [(name, *edge) for edge in EXPERT_EDGES for name in rows]
+    for name, label, E, M, K, N, bits, G, zero in cases:
+        w_idx = torch.randint(0, 2 ** bits, (E, N, K), generator=gen, device=dev,
+                              dtype=torch.uint8)
+        wp = packing.pack(w_idx, bits)
+        levels = quant.uniform_codebook(bits, device=dev).levels
+        sc_shape = (E, N) if G is None else (E, N, K // G)
+        if name == "expert_dequant_matmul":
+            x = torch.randn((E, M, K), generator=gen, device=dev).to(torch.bfloat16)
+            if zero:
+                x[::3] = 0
+            sc = torch.rand(sc_shape, generator=gen, device=dev) * 0.1 + 0.01
+            ops, kw = (x, wp, levels, sc), dict(bits=bits, group_size=G)
+            w_scale = sc[..., None] if G is None else quant.expand_group_scales(sc, G)
+            xb, n_in, peak = x, nbytes(x, levels, sc), BF16_TC_FLOPS
+        else:
+            a_idx = torch.randint(0, 2 ** bits, (E, M, K), generator=gen, device=dev,
+                                  dtype=torch.uint8)
+            if zero:
+                a_idx[::3] = 2 ** (bits - 1)          # the code of 0.0
+            ap = packing.pack(a_idx, bits)
+            lut = product_lut(levels, levels).table
+            sc = None if G is None else (
+                torch.rand(sc_shape, generator=gen, device=dev) * 0.1 + 0.01)
+            ops, kw = (ap, wp, lut, sc), dict(w_bits=bits, a_bits=bits,
+                                             group_size=G)
+            w_scale = 1.0 if G is None else quant.expand_group_scales(sc, G)
+            xb = levels[a_idx.long()].to(torch.bfloat16)
+            n_in, peak = nbytes(ap, lut, sc), INT8_TC_OPS
+        kern, plain = getattr(EG, f"{name}_cuda"), getattr(EG, f"{name}_plain")
+        got = kern(*ops, **kw)
+        torch.cuda.synchronize()
+        want = plain(*ops, **kw)
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        exact = name == "expert_dequant_matmul" or G is None
+        ok = bool(torch.isfinite(got).all()) and (
+            err == 0.0 if exact else err <= TOL_EXPERT_GROUPED * scale)
+        zero_ok = not zero or got[::3].abs().max().item() == 0.0
+        wdq = (levels[w_idx.long()] * w_scale).to(torch.bfloat16) \
+            .transpose(1, 2).contiguous()                      # (E, K, N)
+        del w_idx
+        k_ms = graph_ms(torch, lambda: kern(*ops, **kw))
+        p_ms = graph_ms(torch, lambda: plain(*ops, **kw), reps=2, replays=2)
+        l_ms = graph_ms(torch, lambda: torch.bmm(xb, wdq))
+        del wdq
+        b, by = bound_ms(nbytes(wp) + n_in + E * M * N * 4, 2 * E * M * N * K, peak)
+        cfg = f"w{bits}" + ("a16" if name == "expert_dequant_matmul" else f"a{bits}") \
+            + (f"g{G}" if G else "")
+        rows[name].append({
+            "kernel": name, "label": label, "cfg": cfg, "E": E, "M": M, "K": K,
+            "N": N, "max_abs_err": err, "max_abs_plain": scale, "ms": k_ms,
+            "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b, "bound_by": by})
+        print(f"  {name:21s} {label:30s} {cfg:8s} E={E:<2d} M={M:<2d} K={K:<4d} "
+              f"N={N:<4d} err={err:.3g} (max|plain| {scale:.3g}) kernel={k_ms:.5f}ms "
+              f"plain={p_ms:.5f}ms bmm={l_ms:.5f}ms bound={b:.5f}ms ({by})",
+              flush=True)
+        if not (ok and zero_ok):
+            fail(f"{name} {label} {cfg} disagrees with its plain version: "
+                 f"max_abs_err={err}, max|plain|={scale}, zero rows kept zero: "
+                 f"{zero_ok}")
     return rows
 
 
@@ -473,12 +590,16 @@ def profile_steps(torch, step, steps: int, label: str) -> dict:
         by_dev[e.name] = by_dev.get(e.name, 0.0) + e.time_range.elapsed_us()
     top_dev = sorted(by_dev.items(), key=lambda kv: -kv[1])[:5]
     top_cpu = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:6]
-    attn_ms = {k: sum(us for n, us in by_dev.items() if k in n) / 1e3 / steps
-               for k in ("paged_attn_kernel", "merge_kernel")}
+    fam_ms = {k: sum(us for n, us in by_dev.items() if k in n) / 1e3 / steps
+              for k in ("paged_attn_kernel", "merge_kernel",
+                        "expert_dequant_kernel", "expert_lut_kernel")}
+    attn_ms = {k: fam_ms[k] for k in ("paged_attn_kernel", "merge_kernel")}
+    expert_ms = fam_ms["expert_dequant_kernel"] + fam_ms["expert_lut_kernel"]
     out = {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
            "idle_share": 1.0 - busy_ms / wall_ms,
            "kernels_per_step": len(dev) / steps,
            "attention_device_ms_per_step": attn_ms,
+           "expert_device_ms_per_step": expert_ms,
            "top_device_ms_per_step": [(n[:60], us / 1e3 / steps) for n, us in top_dev],
            "top_host_self_ms_per_step": [(a.key[:60], a.self_cpu_time_total / 1e3 / steps)
                                          for a in top_cpu]}
@@ -486,7 +607,8 @@ def profile_steps(torch, step, steps: int, label: str) -> dict:
           f"{busy_ms:.2f} ms/step (idle share {out['idle_share']:.3f}), "
           f"{out['kernels_per_step']:.0f} kernels/step, attention kernels "
           f"{attn_ms['paged_attn_kernel']:.3f} ms/step (+ merge "
-          f"{attn_ms['merge_kernel']:.3f})", flush=True)
+          f"{attn_ms['merge_kernel']:.3f}), expert kernels {expert_ms:.3f} "
+          "ms/step", flush=True)
     print("  top device: " + "; ".join(f"{n} {ms:.3f}ms" for n, ms in
                                        out["top_device_ms_per_step"]), flush=True)
     print("  top host (self): " + "; ".join(f"{n} {ms:.3f}ms" for n, ms in
@@ -635,6 +757,8 @@ def main() -> int:
         fail(f"{SRC / 'repro_torch'} is missing: run from a checkout of the repo")
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import build
+    from repro_torch.kernels.expert_gemm import (expert_dequant_matmul_cuda,
+                                                 expert_lut_gemm_cuda)
     from repro_torch.kernels.lut_dequant_matmul import dequant_matmul_cuda
     from repro_torch.kernels.lut_gemm import lut_gemm_cuda
     from repro_torch.kernels.lut_gemm_bitsliced import lut_gemm_bs_fused_cuda
@@ -672,15 +796,19 @@ def main() -> int:
 
     print("[4 kernels] kernel vs plain at the serving shapes "
           f"(tolerances: lut_gemm exact / grouped {TOL_LUT_GROUPED} rel, "
-          f"dequant_matmul {TOL_DEQUANT} rel, lut_gemm_bs_fused exact / "
-          f"grouped {TOL_BS_GROUPED} rel, paged attention {TOL_ATTN} rel)",
-          flush=True)
+          f"dequant_matmul exact, lut_gemm_bs_fused exact / "
+          f"grouped {TOL_BS_GROUPED} rel, paged attention {TOL_ATTN} rel, "
+          f"expert_lut_gemm exact / grouped {TOL_EXPERT_GROUPED} rel, "
+          "expert_dequant_matmul exact)", flush=True)
     rows = phase_kernels(torch, dev)
     rows.update(phase_attention(torch, dev))
+    rows.update(phase_experts(torch, dev))
     print(f"[4 kernels] done at {time.perf_counter() - t_start:.1f}s", flush=True)
 
     gemms = {"lut_gemm": lut_gemm_cuda, "dequant_matmul": dequant_matmul_cuda,
-             "lut_gemm_bs_fused": lut_gemm_bs_fused_cuda}
+             "lut_gemm_bs_fused": lut_gemm_bs_fused_cuda,
+             "expert_dequant_matmul": expert_dequant_matmul_cuda,
+             "expert_lut_gemm": expert_lut_gemm_cuda}
     attns = {"paged_attention": paged_attention_cuda,
              "paged_attention_splitkv": paged_attention_splitkv_cuda}
     wrappers = {**gemms, **attns}
@@ -691,11 +819,9 @@ def main() -> int:
         for w in wrappers.values():
             w.launches = 0
 
-    def expect_launches(what, launches, gemm_op, gemm_n, attn_op, attn_n):
-        want = {name: 0 for name in wrappers}
-        want[gemm_op] = gemm_n
-        if attn_op is not None:
-            want[attn_op] = attn_n
+    def expect_launches(what, launches, counts: dict):
+        """The named wrappers launched exactly ``counts``, the others 0."""
+        want = {name: counts.get(name, 0) for name in wrappers}
         if launches != want:
             fail(f"{what}: launches {launches}, expected {want}")
 
@@ -717,8 +843,8 @@ def main() -> int:
               f"{res_k['decode_step_ms']:.3f} ms on {smi} | launches {launches} "
               f"over {forwards} forwards, {m['decode_steps']} decode steps",
               flush=True)
-        expect_launches(plan, launches, op, 7 * cfg.n_layers * forwards,
-                        "paged_attention", cfg.n_layers * m["decode_steps"])
+        expect_launches(plan, launches, {op: 7 * cfg.n_layers * forwards,
+                                         "paged_attention": cfg.n_layers * m["decode_steps"]})
 
         # 6: the same run with the registry's GEMMs forced onto the plain
         # versions; attention stays on its kernel
@@ -750,9 +876,8 @@ def main() -> int:
                            attn_backend="ref")
         ma = res_a["metrics"]
         expect_launches(f"{plan} attention-plain run",
-                        {name: w.launches for name, w in wrappers.items()}, op,
-                        7 * cfg.n_layers * (ma["decode_steps"] + ma["prefill_chunks"]),
-                        None, 0)
+                        {name: w.launches for name, w in wrappers.items()},
+                        {op: 7 * cfg.n_layers * (ma["decode_steps"] + ma["prefill_chunks"])})
         same_a = sum(a == r.out for a, r in zip(toks_k, res_a["requests"]))
         rel_a = rel_diff(cap_k["first_logits"], cap_a["first_logits"])
         print(f"[6 plain] {plan}: attention-plain run {res_a['tok_per_s']:.1f} "
@@ -784,13 +909,14 @@ def main() -> int:
                                attn_backend="ref", warm=1, gen_steps=0,
                                profile=False)
         n = cfg.n_layers
-        expect_launches(f"ctx {ctx} split", split["launches"], "lut_gemm_bs_fused",
-                        7 * n * split["steps"], "paged_attention_splitkv",
-                        n * split["steps"])
-        expect_launches(f"ctx {ctx} single", single["launches"], "lut_gemm_bs_fused",
-                        7 * n * single["steps"], "paged_attention", n * single["steps"])
+        expect_launches(f"ctx {ctx} split", split["launches"],
+                        {"lut_gemm_bs_fused": 7 * n * split["steps"],
+                         "paged_attention_splitkv": n * split["steps"]})
+        expect_launches(f"ctx {ctx} single", single["launches"],
+                        {"lut_gemm_bs_fused": 7 * n * single["steps"],
+                         "paged_attention": n * single["steps"]})
         expect_launches(f"ctx {ctx} attention-plain", ref["launches"],
-                        "lut_gemm_bs_fused", 7 * n * ref["steps"], None, 0)
+                        {"lut_gemm_bs_fused": 7 * n * ref["steps"]})
         call_err = max(split["first_step_call_errs"] + single["first_step_call_errs"])
         n_calls = len(split["first_step_call_errs"]) + len(single["first_step_call_errs"])
         if n_calls != 2 * n or call_err > TOL_ATTN:
@@ -861,18 +987,17 @@ def main() -> int:
           f"tokens, {res_k['tok_per_s']:.1f} tok/s, decode-only step "
           f"{res_k['decode_step_ms']:.3f} ms | launches {launches} over "
           f"{forwards} forwards, {m['decode_steps']} decode steps", flush=True)
-    expect_launches("codeqwen", launches, "lut_gemm_bs_fused",
-                    7 * cfg.n_layers * forwards, "paged_attention",
-                    cfg.n_layers * m["decode_steps"])
+    expect_launches("codeqwen", launches,
+                    {"lut_gemm_bs_fused": 7 * cfg.n_layers * forwards,
+                     "paged_attention": cfg.n_layers * m["decode_steps"]})
     cap_a = {}
     reset_launches()
     res_a = run_engine(torch, serve, cfg, qparams, args, cap_a, attn_backend="ref")
     ma = res_a["metrics"]
     expect_launches("codeqwen attention-plain run",
                     {name: w.launches for name, w in wrappers.items()},
-                    "lut_gemm_bs_fused",
-                    7 * cfg.n_layers * (ma["decode_steps"] + ma["prefill_chunks"]),
-                    None, 0)
+                    {"lut_gemm_bs_fused":
+                     7 * cfg.n_layers * (ma["decode_steps"] + ma["prefill_chunks"])})
     same_a = sum(a.out == b.out for a, b in zip(res_k["requests"], res_a["requests"]))
     rel_a = rel_diff(cap_k["first_logits"], cap_a["first_logits"])
     print(f"[9 codeqwen] attention-plain run {res_a['tok_per_s']:.1f} tok/s; "
@@ -888,6 +1013,79 @@ def main() -> int:
         "attn_plain_tokens_identical": same_a, "attn_plain_logits_rel_diff": rel_a,
         "profile": phase_profile(torch, serve, cfg, qparams, args,
                                  "[9 codeqwen profile] w2a8_bs")}
+
+    # 10: moonshot-v1-16b-a3b at full width, int8 pool, w2a2 and w2a16
+    del qparams, res_k, res_a, cap_k, cap_a
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[10 moe] started at {time.perf_counter() - t_start:.1f}s", flush=True)
+    moe_ops = {"w2a2": ("expert_lut_gemm", "lut_gemm"),
+               "w2a16": ("expert_dequant_matmul", "dequant_matmul")}
+    moe = {}
+    for plan, (eop, dop) in moe_ops.items():
+        args = serve.build_parser().parse_args(
+            ["--arch", "moonshot-v1-16b-a3b", "--paged", "--plan", plan,
+             "--device", "cuda"])
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 1e9     # held before packing
+        t0 = time.perf_counter()
+        cfg, qparams = serve.prepare(args)
+        pack_s = time.perf_counter() - t0
+        packed_gb = torch.cuda.memory_allocated() / 1e9 - base_gb
+        pack_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n, E = cfg.n_layers, cfg.moe.n_experts
+        cap_k = {}
+        reset_launches()
+        res_k = run_engine(torch, serve, cfg, qparams, args, cap_k)
+        launches = {name: w.launches for name, w in wrappers.items()}
+        m = res_k["metrics"]
+        forwards = m["decode_steps"] + m["prefill_chunks"]
+        print(f"[10 moe] {cfg.name} {plan} ({n} layers, {E} experts top-"
+              f"{cfg.moe.top_k}, int8 pool, full width): {len(res_k['requests'])} "
+              f"requests, {res_k['tokens']} tokens, {res_k['tok_per_s']:.1f} tok/s, "
+              f"decode-only step {res_k['decode_step_ms']:.3f} ms on {smi} | "
+              f"launches {launches} over {forwards} forwards, {m['decode_steps']} "
+              f"decode steps | drawn and packed in {pack_s:.1f}s, packed "
+              f"{packed_gb:.2f} GB on top of {base_gb:.2f} GB held before, "
+              f"peak while packing {pack_peak_gb:.2f} GB", flush=True)
+        expect_launches(f"moonshot {plan}", launches,
+                        {eop: 3 * n * forwards, dop: 7 * n * forwards,
+                         "paged_attention": n * m["decode_steps"]})
+        cfg_p = dataclasses.replace(
+            cfg, quant=dataclasses.replace(cfg.quant, backend="ref"))
+        cap_p = {}
+        reset_launches()
+        res_p = run_engine(torch, serve, cfg_p, qparams, args, cap_p)
+        if any(gemms[name].launches for name in gemms):
+            fail(f"moonshot {plan}: the plain-GEMM run launched a GEMM kernel")
+        toks_k = [r.out for r in res_k["requests"]]
+        same = sum(a == r.out for a, r in zip(toks_k, res_p["requests"]))
+        rel = rel_diff(cap_k["first_logits"], cap_p["first_logits"])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[10 moe] {plan}: plain-GEMM run {res_p['tok_per_s']:.1f} tok/s; "
+              f"greedy tokens identical for {same}/{len(toks_k)} requests; first "
+              f"decode step logits max rel diff {rel:.3g}; peak device memory "
+              f"{peak_gb:.2f} GB", flush=True)
+        if plan == "w2a2" and (same != len(toks_k) or rel != 0.0):
+            fail(f"moonshot w2a2: kernel and plain paths differ (tokens identical "
+                 f"for {same}/{len(toks_k)} requests, first-step logits by {rel})")
+        if plan == "w2a16" and rel > TOL_LOGITS:
+            fail(f"moonshot w2a16 first-step logits differ by {rel} > {TOL_LOGITS}")
+        moe[plan] = {
+            "launches": launches, "tok_per_s": res_k["tok_per_s"],
+            "decode_step_ms": res_k["decode_step_ms"],
+            "plain_tok_per_s": res_p["tok_per_s"],
+            "plain_decode_step_ms": res_p["decode_step_ms"],
+            "tokens_identical": same, "logits_rel_diff": rel,
+            "pack_s": pack_s, "base_gb": base_gb, "packed_gb": packed_gb,
+            "pack_peak_gb": pack_peak_gb,
+            "peak_gb": peak_gb,
+            "profile": phase_profile(torch, serve, cfg, qparams, args,
+                                     f"[10 moe profile] {plan}")}
+        del qparams, res_k, res_p, cap_k, cap_p
+        gc.collect()
+        torch.cuda.empty_cache()
+    results["moonshot"] = moe
 
     print("[results] " + json.dumps({"engine": results}), flush=True)
     lc_split = long_ctx[LC_CONTEXTS[-1]]["split_launches"]
@@ -908,13 +1106,23 @@ def main() -> int:
                                    None),
                "paged_attention_splitkv": ("src/repro_torch/csrc/paged_attention.cu",
                                            "src/repro/kernels/paged_attention.py:210",
-                                           lc_split["paged_attention_splitkv"], None)}
+                                           lc_split["paged_attention_splitkv"], None),
+               "expert_dequant_matmul": (
+                   "src/repro_torch/csrc/expert_gemm.cu",
+                   "src/repro/kernels/expert_dequant_matmul.py:75",
+                   moe["w2a16"]["launches"]["expert_dequant_matmul"], "w2a16"),
+               "expert_lut_gemm": ("src/repro_torch/csrc/expert_gemm.cu",
+                                   "src/repro/kernels/expert_dequant_matmul.py:167",
+                                   moe["w2a2"]["launches"]["expert_lut_gemm"], "w2a2")}
     kernels = []
     for name, (src, replaces, launches, cfg_name) in sources.items():
         if name in REPRESENTATIVE_ATTN:
             label, ks = REPRESENTATIVE_ATTN[name]
             rep = next(r for r in rows[name] if r["label"] == label
                        and r["kv_splits"] == ks)
+        elif name.startswith("expert_"):
+            rep = next(r for r in rows[name] if r["cfg"] == cfg_name
+                       and (r["E"], r["M"], r["K"], r["N"]) == EXPERT_REPRESENTATIVE)
         else:
             rep = next(r for r in rows[name] if r["cfg"] == cfg_name
                        and (r["M"], r["K"], r["N"]) == REPRESENTATIVE)

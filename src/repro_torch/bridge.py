@@ -9,7 +9,11 @@ neither ``jax`` nor ``repro``:
                     whose ``QuantizedWeight`` leaves arrive as objects with
                     the same field names (numpy arrays + aux ints/strings);
                     bit-plane leaves (scheme 'bs') keep their
-                    (bits, N, K/4) planes, and ``a_sc`` comes along where set
+                    (bits, N, K/4) planes, and ``a_sc`` comes along where set;
+                    an MoE layer's expert leaves arrive stacked as
+                    (n_superblocks, E, N, K/f) and leave as (E, N, K/f), its
+                    f32 router and shared expert like any other array / dense
+                    leaf
 
 The reference stacks the superblock scan axis first (``blocks``: every
 array carries a leading ``n_superblocks`` axis, one entry per repeat of the

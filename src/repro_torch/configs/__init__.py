@@ -1,17 +1,19 @@
 """Config registry of the port: the dense family's qwen1.5-0.5b (tied
-embeddings, int8 pool) and codeqwen1.5-7b (untied embeddings, int4 pool).
-The reference's other architectures come with their families (ROADMAP
-queue 1, items 4 and 9)."""
+embeddings, int8 pool) and codeqwen1.5-7b (untied embeddings, int4 pool),
+and the MoE family's moonshot-v1-16b-a3b (64 experts, top-6, two shared
+experts, int8 pool). The reference's other architectures come with their
+families (ROADMAP queue 1, items 4 and 9)."""
 
 from __future__ import annotations
 
 import importlib
 
-from .base import ModelConfig, reduce_for_smoke  # noqa: F401
+from .base import ModelConfig, MoEConfig, reduce_for_smoke  # noqa: F401
 
 _MODULES = {
     "qwen1.5-0.5b": "qwen15_05b",
     "codeqwen1.5-7b": "codeqwen15_7b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
 }
 ARCHS = tuple(_MODULES)
 

@@ -1,7 +1,7 @@
-"""Model config (``ModelConfig``) and the smoke reduction, dense family.
+"""Model config (``ModelConfig``, ``MoEConfig``) and the smoke reduction.
 
-The port's copy of ``repro/configs/base.py`` for the fields the dense
-decoder path reads. Other families (MoE, recurrent, encoder-decoder,
+The port's copy of ``repro/configs/base.py`` for the fields the dense and
+MoE decoder paths read. Other families (recurrent, encoder-decoder,
 vision) come with their slices of the port.
 """
 
@@ -14,9 +14,20 @@ from repro_torch.core.qplan import PLANS, QuantPlan
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    group_size: int = 128          # tokens per dispatch group (memory knob)
+    router_dtype: str = "float32"  # router stays high precision (mixed prec.)
+    n_shared: int = 0              # shared-expert multiplier (deepseek/llama4)
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense (the only family ported so far)
+    family: str                    # dense | moe (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -31,6 +42,8 @@ class ModelConfig:
     mlp: str = "swiglu"
     norm: str = "rmsnorm"
     tie_embeddings: bool = True
+    moe: Optional[MoEConfig] = None
+    moe_pattern: Optional[tuple] = None   # per-pattern-slot: MoE mlp? (None => all)
     # The reference defaults to a legacy single QuantPolicy (dequant-einsum
     # serving), which the port does not carry; its default is the bf16 plan.
     quant: QuantPlan = PLANS["bf16"]
@@ -46,16 +59,29 @@ class ModelConfig:
     def n_remainder(self) -> int:
         return self.n_layers % len(self.pattern)
 
+    def moe_flags(self) -> tuple:
+        """Per-layer MoE flag, aligned with the layers."""
+        if self.moe is None:
+            return (False,) * self.n_layers
+        mp = self.moe_pattern or (True,) * len(self.pattern)
+        reps = -(-self.n_layers // len(mp))
+        return (mp * reps)[: self.n_layers]
+
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
-    """Same family, tiny dims — the dense-family part of the reference's
+    """Same family, tiny dims — the dense and MoE parts of the reference's
     ``reduce_for_smoke`` (identical widths, so the two stay comparable)."""
     n_layers = min(len(cfg.pattern) + (1 if cfg.n_remainder else 0), cfg.n_layers)
     kv = min(cfg.n_kv_heads, 2)
     heads = max(4, kv)
+    moe = None
+    if cfg.moe:
+        moe = dataclasses.replace(
+            cfg.moe, n_experts=min(cfg.moe.n_experts, 4),
+            top_k=min(cfg.moe.top_k, 2), d_ff_expert=64, group_size=16)
     return dataclasses.replace(
         cfg,
         n_layers=n_layers, d_model=64, n_heads=heads, n_kv_heads=kv,
-        head_dim=16, d_ff=128, vocab_size=512,
+        head_dim=16, d_ff=128, vocab_size=512, moe=moe,
         kv_cache_dtype="bfloat16",
     )

@@ -3,8 +3,10 @@
 The port's counterpart of ``repro/core/qlinear.py`` for serving:
 ``QuantPolicy`` (per-layer-class quantization), ``QuantizedWeight`` (packed
 codes + codebook + scales + the offline activation codebook and product
-LUT), ``quantize_weight`` / ``dequant_weight``, and ``dense_serve``, which
-routes a planned leaf to its kernel op:
+LUT), ``quantize_weight`` / ``quantize_expert_weight`` (an (E, in, out)
+expert stack) / ``dequant_weight``, and ``dense_serve``, which routes a
+planned leaf to its kernel op (the MoE layer routes expert leaves itself,
+models/layers.py::_expert_matmul):
 
   w{b}a16   -> ``dequant_matmul`` (codebook dequant + matmul + scale)
   w{b}a{b}  -> per-row dynamic activation quantization (or the leaf's static
@@ -154,6 +156,19 @@ def _act_tables(policy: QuantPolicy, w_levels: torch.Tensor):
     return a_levels, product_lut(w_levels, a_levels).table
 
 
+def _codes(wt: torch.Tensor, bits: int, signed: bool, group_size):
+    """(..., out, K) f32 -> (scales (..., out) or (..., out, K/G), unsigned
+    storage indices (..., out, K))."""
+    if group_size is None:
+        scales = quant.group_scales(wt, bits, None, signed=signed)
+        sfull = scales[..., None]
+    else:
+        scales = quant.group_scales(wt, bits, group_size, signed=signed)
+        sfull = quant.expand_group_scales(scales, group_size)
+    q = quant.quantize(wt, sfull, bits=bits, signed=signed)
+    return scales, quant.to_index(q, bits, signed)
+
+
 def quantize_weight(w: torch.Tensor, policy: QuantPolicy, *,
                     a_static: Optional[float] = None) -> QuantizedWeight:
     """Offline quantize+pack of one dense weight: w (in, out) -> packed
@@ -172,14 +187,7 @@ def quantize_weight(w: torch.Tensor, policy: QuantPolicy, *,
                          "quantization")
     G = policy.group_size
     wt = _pad_k(w.T.to(torch.float32).contiguous(), _k_multiple(policy))  # (out, in_pad)
-    if G is None:
-        scales = quant.group_scales(wt, bits, None, signed=policy.signed)
-        sfull = scales[..., None]
-    else:
-        scales = quant.group_scales(wt, bits, G, signed=policy.signed)
-        sfull = quant.expand_group_scales(scales, G)
-    q = quant.quantize(wt, sfull, bits=bits, signed=policy.signed)
-    idx = quant.to_index(q, bits, policy.signed)
+    scales, idx = _codes(wt, bits, policy.signed, G)
     levels = quant.uniform_codebook(bits, policy.signed, device=w.device).levels
     a_levels, plut = _act_tables(policy, levels)
     a_sc = None
@@ -200,9 +208,39 @@ def quantize_weight(w: torch.Tensor, policy: QuantPolicy, *,
         a_levels=a_levels, plut=plut, a_sc=a_sc)
 
 
+def quantize_expert_weight(w: torch.Tensor, policy: QuantPolicy) -> QuantizedWeight:
+    """Offline quantize+pack of stacked expert weights: w (E, in, out) ->
+    packed (E, out, in_pad/f) in the natural byte layout, scales (E, out)
+    per expert and channel or (E, out, in_pad/G). A 'lut_gemm' plan keeps
+    the LUT route (``a_bits``, the activation codebook and the product LUT
+    on the leaf); every other plan, the bit-sliced ones included, leaves
+    ``a_bits`` unset, and the MoE forward runs it through
+    ``expert_dequant_matmul``."""
+    bits = policy.w_bits
+    if bits is None or w.ndim != 3:
+        raise ValueError("quantize_expert_weight needs w_bits and an (E, in, "
+                         f"out) weight, got {tuple(w.shape)}")
+    if policy.nonuniform:
+        raise NotImplementedError("k-means (non-uniform) codebooks are not "
+                                  "ported yet: ROADMAP queue 1, item 2")
+    G = policy.group_size
+    wt = _pad_k(w.transpose(1, 2).to(torch.float32).contiguous(),
+                _k_multiple(policy))                       # (E, out, in_pad)
+    scales, idx = _codes(wt, bits, policy.signed, G)
+    del wt
+    levels = quant.uniform_codebook(bits, policy.signed, device=w.device).levels
+    kern = policy.resolved_kernel() if policy.kernel else None
+    a_levels, plut = _act_tables(policy, levels)
+    return QuantizedWeight(
+        packed=packing.pack(idx, bits), codebook=levels, scales=scales,
+        bits=bits, in_features=w.shape[1], out_features=w.shape[2],
+        group_size=G, a_bits=policy.a_bits if kern == "lut_gemm" else None,
+        scheme=policy.scheme, kernel=kern, a_levels=a_levels, plut=plut)
+
+
 def dequant_weight(qw: QuantizedWeight) -> torch.Tensor:
     """Full dequantization (codebook gather + per-channel or group scale),
-    returned as (in, out)."""
+    returned as (in, out), or (E, in, out) for an expert leaf."""
     w = qw.codebook[qw.unpacked_idx().long()]                    # (out, in_pad)
     if qw.group_size is not None:
         w = w * quant.expand_group_scales(qw.scales, qw.group_size)

@@ -16,9 +16,13 @@
 // packed weight row coalesced along K, decode the codes in registers
 // (shift, mask, codebook read, optional group scale) and reuse each decoded
 // weight for all MT rows, upcasting the bf16/f32 activations to f32 and
-// accumulating with FMA in f32; a warp-shuffle reduction finishes each
-// (m, n) and the per-channel scale is the epilogue. No tensor cores, TMA
-// or wgmma: a mixed-input wgmma GEMM is later work.
+// accumulating in f32; a warp-shuffle reduction finishes each (m, n) and
+// the per-channel scale is the epilogue. Each product and each sum is
+// rounded on its own (__fmul_rn / __fadd_rn, no fused multiply-add), in an
+// order the plain version repeats (ref.py::warp_order_matmul, one packed
+// byte a lane step), so the two agree bit for bit: through a model, last-
+// ulp differences grow, most of all where a router picks experts. No
+// tensor cores, TMA or wgmma: a mixed-input wgmma GEMM is later work.
 
 #include <cuda_bf16.h>
 
@@ -70,7 +74,8 @@ dequant_matmul_kernel(const TA* __restrict__ a, const uint8_t* __restrict__ w,
             if (m < M) {
                 const TA* arow = a + static_cast<size_t>(m) * K + c * F;
 #pragma unroll
-                for (int j = 0; j < F; ++j) acc[i] = fmaf(to_f32(arow[j]), wv[j], acc[i]);
+                for (int j = 0; j < F; ++j)
+                    acc[i] = __fadd_rn(acc[i], __fmul_rn(to_f32(arow[j]), wv[j]));
             }
         }
     }

@@ -42,6 +42,8 @@ SIGNATURES = {
     ("paged_attention", "paged_attention_launch"): [_P] * 8 + [_I] * 8 + [_P],
     ("paged_attention", "paged_attention_splitkv_launch"): [_P] * 11 + [_I] * 10
                                                            + [_P],
+    ("expert_gemm", "expert_dequant_matmul_launch"): [_P] * 5 + [_I] * 7 + [_P],
+    ("expert_gemm", "expert_lut_gemm_launch"): [_P] * 5 + [_I] * 6 + [_P],
 }
 
 _LOCK = threading.Lock()

@@ -10,8 +10,10 @@ for CPU tensors and the kernel (``dequant_matmul_cuda``, which launches or
 raises) for CUDA tensors.
 
 Bound on the H100 and design: see the note at the top of the CUDA source
-(f32 FMA- and launch-bound at the serving shapes; one warp per output
-column, codebook in shared memory, decoded weights reused across the rows).
+(f32 multiply-add- and launch-bound at the serving shapes; one warp per
+output column, codebook in shared memory, decoded weights reused across the
+rows; products and sums rounded one by one, in an order the plain version
+repeats).
 """
 
 from __future__ import annotations
@@ -20,16 +22,18 @@ import torch
 
 from repro_torch.core import packing
 from . import build
-from .ref import ref_dequant_matmul
+from .ref import warp_order_dequant_matmul
 
 KERNEL_BITS = (2, 4)
 
 
 def dequant_matmul_plain(a, w_packed, codebook, scales, *, bits: int,
                          group_size=None) -> torch.Tensor:
-    """The plain PyTorch version (any device)."""
-    return ref_dequant_matmul(a, w_packed, codebook, scales, bits,
-                              group_size=group_size)
+    """The plain PyTorch version (any device): ``ref_dequant_matmul``
+    summed in the kernel's order, one packed byte a lane step, so the two
+    agree bit for bit."""
+    return warp_order_dequant_matmul(a, w_packed, codebook, scales, bits,
+                                     group_size, step=packing.PACK_FACTOR[bits])
 
 
 def _check(a, w_packed, codebook, scales, bits, group_size):

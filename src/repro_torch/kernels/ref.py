@@ -7,6 +7,8 @@ Layouts, shared with the CUDA kernels:
   product LUT    : flat (2^(w_bits+a_bits),) -- entry [w_idx << a_bits | a_idx]
   bit planes     : (bits, N, K/4) uint8 -- see packing.pack_bitplanes_signed
   out            : (M, N) float32
+  expert GEMMs   : the same with a leading expert axis, (E, M, K/f) x
+                   (E, N, K/f) -> (E, M, N)
   KV pool        : (n_blocks, bs, KV, hd) int8 codes, or (..., hd/2) uint8
                    with two 4-bit codes per byte (low nibble first), plus
                    (n_blocks, bs, KV) f32 per-(token, head) scales
@@ -17,12 +19,14 @@ and ``chip_smoke.py`` holds the kernels against them on the card.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core import packing, quant
 from repro_torch.core.lut import ProductLUT
 
-# elements of the (M, N, k-chunk) gather one step of ref_lut_gemm holds
+# elements of the (..., M, N, k-chunk) gather one step of ref_lut_gemm holds
 _GATHER_BUDGET = 1 << 24
 _G = packing.BITPLANE_GROUP  # activation codes per bit-plane pattern
 
@@ -30,43 +34,104 @@ _G = packing.BITPLANE_GROUP  # activation codes per bit-plane pattern
 def ref_lut_gemm(a_packed: torch.Tensor, w_packed: torch.Tensor,
                  lut: ProductLUT, w_scales: torch.Tensor | None = None,
                  group_size: int | None = None) -> torch.Tensor:
-    """out[m, n] = sum_k lut[w_idx[n, k] << a_bits | a_idx[m, k]], f32.
-    With group-wise weight scales (N, K/G): out = sum_g s[n, g] * sum_{k in
-    g} lut[...]. K is walked in chunks (whole groups when scaled) so the
-    (M, N, chunk) index tensor stays bounded at full-width shapes."""
-    a_idx = packing.unpack(a_packed, lut.a_bits).long()          # (M, K)
-    w_idx = packing.unpack(w_packed, lut.w_bits).long()          # (N, K)
-    M, K = a_idx.shape
-    N = w_idx.shape[0]
+    """out[..., m, n] = sum_k lut[w_idx[..., n, k] << a_bits | a_idx[..., m,
+    k]], f32, over any leading axes the two operands share (the expert axis
+    of ``ref_expert_lut_gemm``). With group-wise weight scales (..., N, K/G):
+    out = sum_g s[n, g] * sum_{k in g} lut[...]. K is walked in chunks
+    (whole groups when scaled) so the (..., M, N, chunk) index tensor stays
+    bounded at full-width shapes."""
+    a_idx = packing.unpack(a_packed, lut.a_bits).long()          # (..., M, K)
+    w_idx = packing.unpack(w_packed, lut.w_bits).long()          # (..., N, K)
+    *lead, M, K = a_idx.shape
+    N = w_idx.shape[-2]
     table = lut.table.float()
     unit = group_size if w_scales is not None else 1
-    kc = max(unit, _GATHER_BUDGET // max(M * N, 1) // unit * unit)
-    out = torch.zeros((M, N), dtype=torch.float32, device=a_packed.device)
+    cells = math.prod(lead) * M * N
+    kc = max(unit, _GATHER_BUDGET // max(cells, 1) // unit * unit)
+    out = torch.zeros((*lead, M, N), dtype=torch.float32, device=a_packed.device)
     for k0 in range(0, K, kc):
         k1 = min(K, k0 + kc)
-        idx = (w_idx[None, :, k0:k1] << lut.a_bits) | a_idx[:, None, k0:k1]
-        prods = table[idx]                                       # (M, N, kc)
+        idx = (w_idx[..., None, :, k0:k1] << lut.a_bits) | a_idx[..., :, None, k0:k1]
+        prods = table[idx]                                       # (..., M, N, kc)
         if w_scales is None:
             out += prods.sum(dim=-1)
         else:
-            pg = prods.reshape(M, N, -1, group_size).sum(dim=-1)
-            sc = w_scales[:, k0 // group_size:k1 // group_size].float()
-            out += (pg * sc[None]).sum(dim=-1)
+            pg = prods.reshape(*prods.shape[:-1], -1, group_size).sum(dim=-1)
+            sc = w_scales[..., k0 // group_size:k1 // group_size].float()
+            out += (pg * sc.unsqueeze(-3)).sum(dim=-1)
     return out
+
+
+def _dequant(w_packed: torch.Tensor, codebook: torch.Tensor, scales: torch.Tensor,
+             bits: int, group_size: int | None) -> torch.Tensor:
+    """(..., N, K/f) codes -> (..., N, K) f32 codebook levels, times the
+    group scales when grouped (per-channel scales are the epilogue)."""
+    w_deq = codebook.float()[packing.unpack(w_packed, bits).long()]
+    if group_size is not None:
+        w_deq = w_deq * quant.expand_group_scales(scales.float(), group_size)
+    return w_deq
 
 
 def ref_dequant_matmul(a: torch.Tensor, w_packed: torch.Tensor,
                        codebook: torch.Tensor, scales: torch.Tensor, bits: int,
                        group_size: int | None = None) -> torch.Tensor:
-    """unpack -> codebook dequant -> matmul -> scale, f32 out (M, N).
-    Group-wise scales (N, K/G) fold into the dequantized weight before the
-    contraction; per-channel scales (N,) are the epilogue."""
-    w_idx = packing.unpack(w_packed, bits).long()                # (N, K)
-    w_deq = codebook.float()[w_idx]                              # (N, K)
-    if group_size is not None:
-        w_deq = w_deq * quant.expand_group_scales(scales.float(), group_size)
-        return a.float() @ w_deq.T
-    return (a.float() @ w_deq.T) * scales.float()[None, :]
+    """unpack -> codebook dequant -> matmul -> scale, f32 out (..., M, N),
+    over any leading axes the operands share (the expert axis of
+    ``ref_expert_dequant_matmul``). Group-wise scales (..., N, K/G) fold
+    into the dequantized weight before the contraction; per-channel scales
+    (..., N) are the epilogue."""
+    y = a.float() @ _dequant(w_packed, codebook, scales, bits,
+                             group_size).transpose(-1, -2)
+    return y if group_size is not None else y * scales.float().unsqueeze(-2)
+
+
+# the per-expert oracles (reference ref.py:290-322): the general ones over
+# the leading expert axis, x (E, M, K) or a (E, M, K/f), w (E, N, K/f)
+ref_expert_dequant_matmul = ref_dequant_matmul
+ref_expert_lut_gemm = ref_lut_gemm
+
+
+WARP = 32
+
+
+def warp_order_matmul(a: torch.Tensor, w: torch.Tensor, step: int) -> torch.Tensor:
+    """a (..., M, K) f32 @ w (..., N, K).T f32 -> (..., M, N), summed in the
+    order of the CUDA dequant kernels: lane l of a warp takes the K slices
+    [s*step, (s+1)*step) for s = l, l + 32, l + 64, ... and adds their
+    products one at a time (each product and each sum rounded to f32: no
+    fused multiply-add), then the 32 lane sums meet in warp_sum's xor
+    butterfly (lane i with i + 16, then i + 8, ...). K is padded with zeros
+    to whole warp steps, which adds exact zeros. This replays the kernels'
+    present schedule: a kernel that changes its K walk, its reduction or
+    its rounding must change this function with it."""
+    pad = (-a.shape[-1]) % (WARP * step)
+    if pad:
+        a = torch.nn.functional.pad(a, (0, pad))
+        w = torch.nn.functional.pad(w, (0, pad))
+    T = a.shape[-1] // (WARP * step)
+    ar = a.reshape(*a.shape[:-1], T, WARP, step)
+    wr = w.reshape(*w.shape[:-1], T, WARP, step)
+    acc = torch.zeros((*a.shape[:-1], w.shape[-2], WARP), dtype=torch.float32,
+                      device=a.device)
+    for t in range(T):
+        for j in range(step):
+            acc += ar[..., t, :, j].unsqueeze(-2) * wr[..., t, :, j].unsqueeze(-3)
+    while acc.shape[-1] > 1:
+        half = acc.shape[-1] // 2
+        acc = acc[..., :half] + acc[..., half:]
+    return acc[..., 0]
+
+
+def warp_order_dequant_matmul(a: torch.Tensor, w_packed: torch.Tensor,
+                              codebook: torch.Tensor, scales: torch.Tensor,
+                              bits: int, group_size: int | None, *,
+                              step: int) -> torch.Tensor:
+    """``ref_dequant_matmul`` with its contraction in the CUDA kernels' order
+    (``warp_order_matmul`` with ``step`` codes a lane step), so the kernels
+    agree with it bit for bit."""
+    y = warp_order_matmul(a.float(), _dequant(w_packed, codebook, scales, bits,
+                                              group_size), step)
+    return y if group_size is not None else y * scales.float().unsqueeze(-2)
 
 
 def _bitplane_pattern_matrix(device=None) -> torch.Tensor:

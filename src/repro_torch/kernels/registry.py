@@ -15,11 +15,13 @@ Backends:
 
 Every dispatch records ``kernel_dispatch_total{op,backend,m_bucket,bits}``
 (obs/metrics.py), counted per call. Registered: the GEMMs ``lut_gemm``,
-``dequant_matmul`` and ``lut_gemm_bs_fused``, and paged decode attention,
-``paged_attention`` and ``paged_attention_splitkv``. Tensor-parallel rules
-wait for the distributed slice (ROADMAP queue 1, item 11); the ops not yet
-ported (the two-step ``lut_gemm_bitsliced``, the dense-cache
-``kv_cache_attention``, the expert kernels and LUT-65k) are not registered.
+``dequant_matmul`` and ``lut_gemm_bs_fused``, the per-expert GEMMs of the
+MoE path, ``expert_dequant_matmul`` and ``expert_lut_gemm``, and paged
+decode attention, ``paged_attention`` and ``paged_attention_splitkv``.
+Tensor-parallel rules (the expert ones included) wait for the distributed
+slice (ROADMAP queue 1, item 11); the ops not yet ported (the two-step
+``lut_gemm_bitsliced``, the dense-cache ``kv_cache_attention`` and LUT-65k)
+are not registered.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.obs import metrics as obs_metrics
+from .expert_gemm import (expert_dequant_matmul_cuda, expert_dequant_matmul_plain,
+                          expert_lut_gemm_cuda, expert_lut_gemm_plain)
 from .lut_dequant_matmul import dequant_matmul_cuda, dequant_matmul_plain
 from .lut_gemm import lut_gemm_cuda, lut_gemm_plain
 from .lut_gemm_bitsliced import lut_gemm_bs_fused_cuda, lut_gemm_bs_fused_plain
@@ -112,6 +116,19 @@ register(KernelOp(
         "core and the full weight x activation scale epilogue in one kernel; "
         "raw bf16/f32 activations in, scaled f32 out. "
         "arrays: (x, w_planes, w_scales, a_sc|None)"))
+
+register(KernelOp(
+    name="expert_dequant_matmul", plain=expert_dequant_matmul_plain,
+    kernel=expert_dequant_matmul_cuda,
+    doc="Grouped per-expert packed matmul (MoE serving hot-spot): "
+        "out[e] = (x[e] @ dequant(w[e]).T) * scales[e]. "
+        "arrays: (x, w_packed, codebook, scales)"))
+
+register(KernelOp(
+    name="expert_lut_gemm", plain=expert_lut_gemm_plain,
+    kernel=expert_lut_gemm_cuda,
+    doc="Activation-quantized per-expert LUT GEMM (paper-faithful w{b}a{b} "
+        "MoE path). arrays: (a_packed, w_packed, lut_table, w_scales|None)"))
 
 register(KernelOp(
     name="paged_attention", plain=paged_attention_plain,

@@ -6,6 +6,9 @@ a stream of mixed-length requests admitted through chunked prefill into the
 paged pool and decoded greedily, every planned projection running through
 its kernel (``lut_gemm`` for w{b}a{b}, ``dequant_matmul`` for w{b}a16,
 ``lut_gemm_bs_fused`` for the bit-sliced w2a8_bs, w2a8_bs_g64 and w4a8_bs).
+On an MoE model every expert projection runs through ``expert_lut_gemm``
+(w{b}a{b}) or ``expert_dequant_matmul`` (w{b}a16 and the bit-sliced plans).
+Weights are drawn and packed one layer at a time.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --paged --plan w2a2                      # full width, on the card
@@ -13,8 +16,12 @@ its kernel (``lut_gemm`` for w{b}a{b}, ``dequant_matmul`` for w{b}a16,
       --paged --plan w2a8_bs                   # bit-sliced, on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \
       --paged --plan w2a8_bs                   # int4 pool, untied head
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch moonshot-v1-16b-a3b --paged --plan w2a2   # MoE, 48 layers
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --smoke --paged --device cpu             # tiny, plain versions on CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch moonshot-v1-16b-a3b --smoke --paged --device cpu --plan w2a16
 
 Decode attention over the int8/int4 pool runs through ``paged_attention``,
 or with ``--kv-splits N`` (N > 1; "auto" gives one split per 4096 rows of
@@ -208,8 +215,7 @@ def prepare(args):
     print(f"[serve] {cfg.name} on {device}: packing weights under {desc}")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     t0 = time.perf_counter()
-    params = lm.init_params(cfg, gen, device)
-    qparams = lm.quantize_tree(params, cfg)
+    qparams = lm.init_params(cfg, gen, device, pack=True)   # layer by layer
     _sync(device)
     print(f"  initialised and packed in {time.perf_counter() - t0:.2f}s")
     return cfg, qparams

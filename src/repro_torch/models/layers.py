@@ -1,12 +1,15 @@
-"""Transformer building blocks of the dense family, in torch.
+"""Transformer building blocks of the dense and MoE families, in torch.
 
 The port's counterpart of ``repro/models/layers.py``: ``dense`` (plain or
 packed-serving dispatch), RMSNorm, RoPE, the attention math (the same
 masked softmax as the reference: an online softmax over key chunks for
 prefill, a dense masked softmax for one-token decode), the int8 and int4
 KV codecs, the attention layer's no-cache prefill branch and its paged
-branches (chunked prefill, single-pass decode and split-KV decode), and
-the swiglu MLP.
+branches (chunked prefill, single-pass decode and split-KV decode), the
+swiglu MLP, and the GShard-style MoE layer (``moe_apply``: f32 router,
+top-k with capacity dropping, per-expert planned projections through the
+registry's ``expert_dequant_matmul`` / ``expert_lut_gemm``, and the shared
+expert).
 
 One-token decode over an int8 or int4 pool goes through the registry's
 ``paged_attention`` (kv_splits 1) or ``paged_attention_splitkv`` (kv_splits
@@ -23,11 +26,12 @@ rows into the shared pool tensors instead of returning a new pool.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
-from repro_torch.core import packing
+from repro_torch.core import packing, quant
 from repro_torch.core.qlinear import QuantizedWeight, dense_serve
 from repro_torch.core.qplan import plan_backend
 from repro_torch.kernels import registry
@@ -313,8 +317,125 @@ def mlp_apply(p: dict, x: torch.Tensor, *, cfg) -> torch.Tensor:
     pol = cfg.quant
     up = dense(p["w_up"], x, policy=pol)
     g = dense(p["w_gate"], x, policy=pol)
-    # jax.nn.silu(g) * up, with the reference's sigmoid lowering
-    # 1 / (1 + exp(-g)) rounded op by op in g's dtype (torch.sigmoid rounds
-    # once, which differs in bf16)
-    h = g * (1 / (1 + torch.exp(-g))) * up
-    return dense(p["w_down"], h, policy=pol)
+    return dense(p["w_down"], _silu_mul(g, up), policy=pol)
+
+
+def _silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """jax.nn.silu(g) * u, with the reference's sigmoid lowering
+    1 / (1 + exp(-g)) rounded op by op in g's dtype (torch.sigmoid rounds
+    once, which differs in bf16)."""
+    return g * (1 / (1 + torch.exp(-g))) * u
+
+
+def _expert_matmul(qw: QuantizedWeight, x: torch.Tensor, backend: str) -> torch.Tensor:
+    """Planned expert projection: x (E, M, in) -> (E, M, out) f32 through
+    the per-expert kernels, after the K padding ``quantize_expert_weight``
+    applied. w{b}a{b} leaves ('lut_gemm' with a product LUT) quantize each
+    (e, m) row with its own dynamic scale, pack the codes and run
+    ``expert_lut_gemm``; the per-channel weight scale and the activation
+    scale are the epilogue here (a grouped leaf's K-group scales run in the
+    op). Every other leaf, the bit-sliced plans' included, runs
+    ``expert_dequant_matmul``. Unlike the reference, whose 'ref' backend
+    computes the LUT route as a dequant einsum, the LUT route always
+    dispatches the op; its plain version sums the same exact integer
+    products per channel."""
+    k_pad = qw.k_padded
+    if k_pad != qw.in_features:
+        x = torch.nn.functional.pad(x, (0, k_pad - qw.in_features))
+    G = qw.group_size
+    if qw.kernel == "lut_gemm" and qw.a_bits is not None and qw.plut is not None:
+        a_scale = quant.group_scales(x.float(), qw.a_bits, None)[..., None]  # (E, M, 1)
+        aq = quant.quantize(x, a_scale, bits=qw.a_bits, signed=True)
+        a_idx = quant.to_index(aq, qw.a_bits, True)
+        y = registry.dispatch(
+            "expert_lut_gemm", packing.pack(a_idx, qw.a_bits), qw.packed, qw.plut,
+            qw.scales if G is not None else None, w_bits=qw.bits,
+            a_bits=qw.a_bits, scheme=qw.scheme, group_size=G, backend=backend)
+        return y * a_scale if G is not None else y * qw.scales[:, None, :] * a_scale
+    return registry.dispatch("expert_dequant_matmul", x.contiguous(), qw.packed,
+                             qw.codebook, qw.scales, bits=qw.bits, group_size=G,
+                             backend=backend)
+
+
+def moe_capacity(moe, T: int) -> tuple[int, int]:
+    """(dispatch group size, capacity per expert and group) for T tokens:
+    the largest divisor of T not above ``moe.group_size``, and
+    C = min(max(4, 2^ceil(log2(max(gs*K*cf/E, 1)))), gs)."""
+    gs = min(moe.group_size, T)
+    while T % gs:
+        gs -= 1
+    C = max(4, 2 ** math.ceil(math.log2(max(
+        gs * moe.top_k * moe.capacity_factor / moe.n_experts, 1.0))))
+    return gs, min(C, gs)
+
+
+def moe_route(p: dict, xg: torch.Tensor, top_k: int):
+    """f32 router over (G, gs, D) tokens: softmax probabilities, the top_k
+    experts of each token (ties to the lower index, as ``jax.lax.top_k``)
+    and their renormalised gates, both (G, gs, top_k)."""
+    logits = xg.float() @ p["w_router"].float()                 # (G, gs, E)
+    ex = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = ex / ex.sum(dim=-1, keepdim=True)
+    gate_k, idx_k = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_k, idx_k = gate_k[..., :top_k], idx_k[..., :top_k]
+    gate_k = gate_k / torch.clamp(gate_k.sum(-1, keepdim=True), min=1e-9)
+    return gate_k, idx_k
+
+
+def moe_apply(p: dict, x: torch.Tensor, *, cfg) -> torch.Tensor:
+    """x: (B, S, D). GShard dense-capacity dispatch, as the reference's
+    ``moe_apply``: tokens in groups of gs, top-k routing, capacity C per
+    expert and group filled slot by slot (every token's first choice in
+    token order, then every second choice, ...) with the overflow dropped;
+    the experts run on (E, G*C, D) in the activation dtype (rows of
+    unfilled slots are zero), gate and up in f32 from a planned leaf,
+    silu(gate) * up cast back to the activation dtype before the down
+    projection; the gate-weighted combine is f32. The reference's one-hot
+    dispatch and combine einsums are index gathers here: each kept
+    assignment owns one (e, g, c) slot, so they move the same values. Pad
+    rows of a prefill chunk and inactive decode rows take capacity as real
+    tokens do, in the order the caller lays them out. A shared expert adds
+    ``mlp_apply`` of x."""
+    moe, pol = cfg.moe, cfg.quant
+    B, S, D = x.shape
+    E, K = moe.n_experts, moe.top_k
+    T = B * S
+    gs, C = moe_capacity(moe, T)
+    Gn = T // gs
+    dev = x.device
+    gate_k, idx_k = moe_route(p, x.reshape(Gn, gs, D), K)
+
+    # assignments in slot-major order: position q = j * gs + s of group g
+    order = idx_k.transpose(1, 2).reshape(Gn, K * gs)
+    oh = torch.nn.functional.one_hot(order, E)                  # (G, K*gs, E)
+    pos = (oh.cumsum(dim=1) - 1).gather(-1, order[..., None])[..., 0]
+    g_ix = torch.arange(Gn, device=dev)[:, None]
+    n_slots = E * Gn * C
+    slot = torch.where(pos < C, (order * Gn + g_ix) * C + pos, n_slots)
+    tok = g_ix * gs + torch.arange(gs, device=dev).repeat(K)[None]
+    src = torch.full((n_slots + 1,), T, dtype=torch.long, device=dev)
+    src.scatter_(0, slot.reshape(-1), tok.reshape(-1))
+    xs = torch.cat([x.reshape(T, D), x.new_zeros((1, D))])
+    xe = xs[src[:n_slots]].reshape(E, Gn * C, D)                # (E, G*C, D)
+
+    be = plan_backend(pol)
+
+    def proj(name, xin):                                        # -> (E, M, N)
+        leaf = p[name]
+        if isinstance(leaf, QuantizedWeight):
+            if leaf.kernel is None:
+                raise NotImplementedError(
+                    "legacy (kernel=None) dequant-einsum leaves are not ported; "
+                    "pack under a QuantPlan")
+            return _expert_matmul(leaf, xin.to(x.dtype), be)          # f32
+        return xin.to(x.dtype) @ leaf.to(x.dtype)
+
+    h = _silu_mul(proj("we_gate", xe), proj("we_up", xe))
+    eo = proj("we_down", h).reshape(n_slots, D).float()
+    eo = torch.cat([eo, eo.new_zeros((1, D))])
+    gates = gate_k.transpose(1, 2).reshape(Gn, K * gs)
+    out = (eo[slot] * gates[..., None]).reshape(Gn, K, gs, D).sum(dim=1)
+    out = out.reshape(B, S, D).to(x.dtype)
+    if "shared" in p:
+        out = out + mlp_apply(p["shared"], x, cfg=cfg)
+    return out

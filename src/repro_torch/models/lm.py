@@ -1,14 +1,16 @@
-"""Decoder-only LM assembly (dense family) for the port.
+"""Decoder-only LM assembly (dense and MoE families) for the port.
 
 The port's counterpart of ``repro/models/lm.py``. Parameters are a plain
 dict: the input embedding (V, D), ``tok_embed`` when the head is tied to
 it or ``in_embed`` beside an untied ``lm_head`` {"w": (D, V)}, which every
 plan keeps bf16 (``qplan.KEEP_BF16``); ``final_norm``; and ``layers``, a
 list with one dict per layer (``ln1``, ``attn`` {wq, wk, wv, wo},
-``ln2``, ``mlp`` {w_gate, w_up, w_down}); dense weights keep the
-reference's (in, out) layout. The reference's ``lax.scan`` over stacked superblocks is a Python
-loop over ``layers`` here. Serving caches are a list of per-layer pool
-dicts (serving/cache.py), updated in place.
+``ln2``, and ``mlp`` {w_gate, w_up, w_down} or, on the layers
+``cfg.moe_flags()`` marks, ``moe`` {w_router (D, E) f32, we_gate/we_up
+(E, D, F), we_down (E, F, D), shared {w_gate, w_up, w_down}}); weights
+keep the reference's (in, out) layout. The reference's ``lax.scan`` over
+stacked superblocks is a Python loop over ``layers`` here. Serving caches
+are a list of per-layer pool dicts (serving/cache.py), updated in place.
 """
 
 from __future__ import annotations
@@ -29,10 +31,11 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def _check_supported(cfg) -> None:
-    if cfg.family != "dense" or any(t != "global" for t in cfg.pattern):
+    if cfg.family not in ("dense", "moe") or any(t != "global" for t in cfg.pattern):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family with global attention is "
-            "ported; other layer types follow ROADMAP queue 1, items 4 and 9")
+            f"{cfg.name}: only the dense and MoE families with global "
+            "attention are ported; other layer types follow ROADMAP queue 1, "
+            "items 4 and 9")
     if cfg.pos_embed != "rope":
         raise NotImplementedError(f"{cfg.name}: learned positions are not "
                                   "ported yet")
@@ -43,18 +46,25 @@ def embed_table(params: dict) -> torch.Tensor:
     return params["tok_embed"] if "tok_embed" in params else params["in_embed"]
 
 
-def init_params(cfg, generator: torch.Generator, device="cuda") -> dict:
+def init_params(cfg, generator: torch.Generator, device="cuda", *,
+                pack: bool = False) -> dict:
     """Random parameters from ``generator`` (which must live on ``device``):
-    the reference's distributions (normal * fan_in^-0.5 dense weights, zero
-    biases, normal * 0.02 embeddings, unit norm scales), not its bits."""
+    the reference's distributions (normal * fan_in^-0.5 dense and expert
+    weights, an f32 router, zero biases, normal * 0.02 embeddings, unit
+    norm scales), not its bits. Layers are MoE where ``cfg.moe_flags()``
+    says so. With ``pack`` each layer goes through the plan's packer right
+    after it is drawn, so the dense tree of a full-width model never exists
+    at once (moonshot-v1-16b-a3b's bf16 experts alone are ~53 GB); the
+    generator is drawn in the same order, so the result equals
+    ``quantize_tree(init_params(...), cfg)``."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     D, H, KV, hd, F = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
 
-    def normal(*shape, std):
+    def normal(*shape, std, dt=dtype):
         return (torch.randn(shape, generator=generator, device=dev,
-                            dtype=torch.float32) * std).to(dtype)
+                            dtype=torch.float32) * std).to(dt)
 
     def dense(din, dout, bias=False):
         p = {"w": normal(din, dout, std=din ** -0.5)}
@@ -65,35 +75,58 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> dict:
     def norm():
         return {"scale": torch.ones((D,), dtype=dtype, device=dev)}
 
+    def mlp(d_ff):
+        return {"w_gate": dense(D, d_ff), "w_up": dense(D, d_ff),
+                "w_down": dense(d_ff, D)}
+
+    def moe():
+        m = cfg.moe
+        E, Fe = m.n_experts, m.d_ff_expert
+        p = {"w_router": normal(D, E, std=D ** -0.5, dt=torch.float32),
+             "we_gate": normal(E, D, Fe, std=D ** -0.5),
+             "we_up": normal(E, D, Fe, std=D ** -0.5),
+             "we_down": normal(E, Fe, D, std=Fe ** -0.5)}
+        if m.n_shared:
+            p["shared"] = mlp(m.n_shared * Fe)
+        return p
+
     layers = []
-    for _ in range(cfg.n_layers):
-        layers.append({
-            "ln1": norm(),
-            "attn": {"wq": dense(D, H * hd, cfg.qkv_bias),
-                     "wk": dense(D, KV * hd, cfg.qkv_bias),
-                     "wv": dense(D, KV * hd, cfg.qkv_bias),
-                     "wo": dense(H * hd, D)},
-            "ln2": norm(),
-            "mlp": {"w_gate": dense(D, F), "w_up": dense(D, F),
-                    "w_down": dense(F, D)},
-        })
+    for i, is_moe in enumerate(cfg.moe_flags()):
+        lp = {"ln1": norm(),
+              "attn": {"wq": dense(D, H * hd, cfg.qkv_bias),
+                       "wk": dense(D, KV * hd, cfg.qkv_bias),
+                       "wv": dense(D, KV * hd, cfg.qkv_bias),
+                       "wo": dense(H * hd, D)},
+              "ln2": norm()}
+        if is_moe:
+            lp["moe"] = moe()
+        else:
+            lp["mlp"] = mlp(F)
+        layers.append(quantize_tree(lp, cfg, f"layers.{i}") if pack else lp)
     embed = normal(cfg.vocab_size, D, std=0.02)
     if cfg.tie_embeddings:
-        return {"tok_embed": embed, "final_norm": norm(), "layers": layers}
-    return {"in_embed": embed, "final_norm": norm(), "layers": layers,
-            "lm_head": {"w": normal(D, cfg.vocab_size, std=D ** -0.5)}}
+        top = {"tok_embed": embed, "final_norm": norm()}
+    else:
+        top = {"in_embed": embed, "final_norm": norm(),
+               "lm_head": {"w": normal(D, cfg.vocab_size, std=D ** -0.5)}}
+    if pack:
+        top = quantize_tree(top, cfg)
+    return {**top, "layers": layers}
 
 
 def apply_layer(p: dict, x: torch.Tensor, *, cfg, cache: Optional[dict] = None,
                 pos: Optional[torch.Tensor] = None,
                 block_tables: Optional[torch.Tensor] = None,
                 kv_splits: int = 1, attn_backend: str = "auto") -> torch.Tensor:
-    """One pre-norm decoder layer: x + attn(ln1(x)), then + mlp(ln2(.))."""
+    """One pre-norm decoder layer: x + attn(ln1(x)), then + mlp(ln2(.)) or
+    + moe(ln2(.))."""
     h = L.norm_apply(p["ln1"], x, cfg.norm)
     x = x + L.attn_apply(p["attn"], h, cfg=cfg, cache=cache, pos=pos,
                          block_tables=block_tables, kv_splits=kv_splits,
                          attn_backend=attn_backend)
     h2 = L.norm_apply(p["ln2"], x, cfg.norm)
+    if "moe" in p:
+        return x + L.moe_apply(p["moe"], h2, cfg=cfg)
     return x + L.mlp_apply(p["mlp"], h2, cfg=cfg)
 
 
@@ -128,36 +161,41 @@ def logits_fn(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
     return torch.matmul(hidden.float(), params["lm_head"]["w"].float())
 
 
-def quantize_tree(params: dict, cfg) -> dict:
+def quantize_tree(tree, cfg, path: str = ""):
     """Replace every plan-covered dense ``{"w": ...}`` with ``{"qw":
-    QuantizedWeight}`` (the paper's offline pack step), per layer on the
-    weights' device. Tags are path components ("layers.3.attn.wq"), matched
-    by the plan's rules as in the reference."""
+    QuantizedWeight}`` and every plan-covered expert stack (``we_gate``,
+    ``we_up``, ``we_down``) with a ``QuantizedWeight`` (the paper's offline
+    pack step), per layer on the weights' device. Tags are path components
+    ("layers.3.attn.wq"), matched by the plan's rules as in the reference;
+    expert stacks resolve under the canonical "...moe.experts.<leaf>" tag,
+    and the f32 router stays a raw array that no plan touches. ``path`` is
+    the tag of ``tree`` itself when it is a subtree ("layers.3")."""
     plan = cfg.quant
-
-    def walk(tree, path=""):
-        if isinstance(tree, list):
-            return [walk(v, f"{path}.{i}") for i, v in enumerate(tree)]
-        if not isinstance(tree, dict):
-            return tree
-        out = {}
-        for k, v in tree.items():
-            tag = f"{path}.{k}" if path else k
-            lp = plan.policy_for(tag)
-            if isinstance(v, dict) and "w" in v and v["w"].ndim == 2 and lp is not None:
-                # When calibration is ported, keep the reference's rule
-                # (lm.py:588-590 there): a static scale is stamped only on
-                # lut_gemm leaves; bit-sliced leaves stay dynamic.
-                if lp.a_scale == "static":
-                    raise NotImplementedError(
-                        "static activation scales need the calibration pass, "
-                        "which is not ported yet (ROADMAP queue 1, item 2)")
-                q = {"qw": qlinear.quantize_weight(v["w"], lp)}
-                if "b" in v:
-                    q["b"] = v["b"]
-                out[k] = q
-            else:
-                out[k] = walk(v, tag)
-        return out
-
-    return walk(params)
+    if isinstance(tree, list):
+        return [quantize_tree(v, cfg, f"{path}.{i}") for i, v in enumerate(tree)]
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        tag = f"{path}.{k}" if path else k
+        if k in ("we_gate", "we_up", "we_down"):
+            lp = plan.policy_for(f"{path}.experts.{k}" if path else f"experts.{k}")
+            out[k] = qlinear.quantize_expert_weight(v, lp) \
+                if lp is not None and v.ndim == 3 else v
+            continue
+        lp = plan.policy_for(tag)
+        if isinstance(v, dict) and "w" in v and v["w"].ndim == 2 and lp is not None:
+            # When calibration is ported, keep the reference's rule
+            # (lm.py:588-590 there): a static scale is stamped only on
+            # lut_gemm leaves; bit-sliced leaves stay dynamic.
+            if lp.a_scale == "static":
+                raise NotImplementedError(
+                    "static activation scales need the calibration pass, "
+                    "which is not ported yet (ROADMAP queue 1, item 2)")
+            q = {"qw": qlinear.quantize_weight(v["w"], lp)}
+            if "b" in v:
+                q["b"] = v["b"]
+            out[k] = q
+        else:
+            out[k] = quantize_tree(v, cfg, tag)
+    return out

@@ -10,7 +10,10 @@ policy:
           prefilling slots) -> run one batched decode step over all slots.
 
 Inactive decode rows and pad rows of a chunk write the null block and are
-masked out. A preempted request frees its blocks and is requeued at the
+masked out. Under an MoE model they still compete for expert capacity
+(rows are dispatched in token order), so they are fed exactly as the
+reference feeds them: token 0, position 0 for an inactive slot, token 0
+past the prompt in a chunk of fixed ``chunk_size`` rows. A preempted request frees its blocks and is requeued at the
 front with its generated tokens folded into the prompt. The first decode
 step of a request re-feeds its last prompt token at row P, as in the
 reference, so the two engines feed identical token streams.

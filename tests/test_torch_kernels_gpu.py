@@ -6,8 +6,8 @@ runs where only PyTorch is installed.
 
 Tolerances: lut_gemm with an integer LUT is bit-identical to the plain
 version (exact integer partial sums in f32); with group scales 1e-5
-relative. dequant_matmul sums its f32 FMAs in another order than
-torch.matmul: 1e-4 relative and absolute. lut_gemm_bs_fused quantizes the
+relative. dequant_matmul rounds each product and each sum on its own, in
+the order its plain version repeats: bit-identical. lut_gemm_bs_fused quantizes the
 rows with the plain version's arithmetic and sums exact integers, so per
 channel it is bit-identical; with group scales 1e-5 relative to the
 largest output (the f32 sum over groups runs in another order).
@@ -122,7 +122,7 @@ def test_dequant_matmul_kernel_matches_plain_on_card(cuda, M, K, N, bits, group,
     got = dequant_matmul_cuda(*ops, bits=bits, group_size=group)
     torch.cuda.synchronize()
     want = dequant_matmul_plain(*ops, bits=bits, group_size=group)
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.gpu

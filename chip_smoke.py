@@ -26,7 +26,12 @@ Phases, each printing its lines:
               warp tile, K off the word step, groups smaller than a lane
               step and one group per row, zero rows of unfilled capacity
               slots), the library time being torch.bmm of the bf16
-              activations against the pre-dequantized bf16 weights
+              activations against the pre-dequantized bf16 weights; and
+              kv_cache_attention over a dense slot cache at the fixed
+              loop's serve shapes (qwen int8 and codeqwen int4, S 48), a
+              GQA shape with S 1000, and 8k / 32k context, the library
+              time being scaled_dot_product_attention over the
+              pre-dequantized bf16 view
   5 engine    qwen1.5-0.5b at full width with seeded random weights, packed
               under w2a2, w2a16 and w2a8_bs in turn, serving 12 requests
               through the paged engine via repro_torch.launch.serve; launch
@@ -70,6 +75,23 @@ Phases, each printing its lines:
               re-run with the expert and dense GEMMs on their plain versions
               (w2a2: tokens and first-step logits identical; w2a16: logits
               within the stated tolerance); a profile; peak device memory
+  11 fixed    the fixed-batch loop (serve.py without --paged: 4 prompts of
+              32 tokens, 16 generated) at full width and depth:
+              qwen1.5-0.5b (int8 slot cache) under w2a2, w2a16 and w2a8_bs,
+              and codeqwen1.5-7b (int4 cache, hd 128) under w2a8_bs.
+              Launch counts exact (kv_cache_attention layers x 15, the
+              plan's GEMM 7 x layers x 16, the paged pair 0); every
+              kv_cache_attention call of the first decode step
+              bit-identical to its plain version; a plain-GEMM re-run
+              (w2a2 and w2a8_bs: tokens and first-step logits identical;
+              w2a16: logits within the stated tolerance), an
+              attention-plain re-run (logits within the stated tolerance)
+              and a profile of 4 decode steps
+  12 moe g64  moonshot-v1-16b-a3b at full width and depth under the grouped
+              w2a2g64 plan through the fixed-batch loop: expert_lut_gemm
+              launches exactly 3 x 48 x 16 times; a plain-GEMM re-run gives
+              identical greedy tokens and first-step logits within the
+              stated tolerance
 
 Any failure exits nonzero. The line before the last is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}. Without a CUDA
@@ -112,7 +134,9 @@ TOL_LUT_GROUPED = 1e-5      # relative to max|plain|
 TOL_BS_GROUPED = 1e-5       # relative to max|plain|
 TOL_LOGITS = 2e-2           # w2a16 first decode step, relative to max|logit|
 # paged attention: f32 sums and exponentials in another order than the plain
-# version's dense masked softmax, the K scale factored out of the dot product
+# version's dense masked softmax, the K scale factored out of the dot product.
+# kv_cache_attention's plain version replays its kernel's walk operation for
+# operation (kernels/kv_cache_attention.py), so the two must be bit-identical
 TOL_ATTN = 1e-5             # relative to max|plain|
 # expert_lut_gemm sums exact integers per channel (bit-identical) and scales
 # each packed byte's partial sum where the plain version scales each group's
@@ -134,6 +158,20 @@ LC_SPLITS = 8
 # (capacity 4), gate/up at a prefill-like M
 EXPERT_SHAPES = ((64, 4, 2048, 1408), (64, 4, 1408, 2048), (64, 16, 2048, 1408))
 EXPERT_REPRESENTATIVE = (64, 4, 2048, 1408)
+# kv_cache_attention: (label, B, KV, G, hd, bits, S, lengths, q dtype); the
+# serve shapes are the fixed loop's (P 32 + gen 16 rows, lengths 33-47)
+KV_CACHE_ROWS = (
+    ("qwen serve", 4, 16, 1, 64, 8, 48, (33, 38, 42, 47), "bf16"),
+    ("codeqwen serve", 4, 32, 1, 128, 4, 48, (33, 38, 42, 47), "bf16"),
+    ("GQA G 4, S 1000", 2, 4, 4, 64, 8, 1000, (999, 517), "f32"),
+    ("long 8k", 2, 16, 1, 64, 8, 8192, (8192, 8192), "bf16"),
+    ("long 32k", 2, 16, 1, 64, 8, 32768, (32768, 32768), "bf16"),
+)
+# the fixed-batch loop's runs: (arch, plan, the plan's dense GEMM op)
+FIXED_RUNS = (("qwen1.5-0.5b", "w2a2", "lut_gemm"),
+              ("qwen1.5-0.5b", "w2a16", "dequant_matmul"),
+              ("qwen1.5-0.5b", "w2a8_bs", "lut_gemm_bs_fused"),
+              ("codeqwen1.5-7b", "w2a8_bs", "lut_gemm_bs_fused"))
 
 
 def fail(msg: str) -> None:
@@ -474,8 +512,6 @@ REPRESENTATIVE_ATTN = {"paged_attention": ("qwen serve", 1),
 
 def phase_attention(torch, dev):
     """The paged-attention pair against its plain versions (ATTN_ROWS)."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels.ref import dequant_kv_tile
 
@@ -514,19 +550,12 @@ def phase_attention(torch, dev):
         p_ms = graph_ms(torch, plain, reps=3, replays=3)
         # library: SDPA over the pre-dequantized bf16 view (outside the timing)
         q, kp, ksc, vp, vsc, tbl, lens = ops
-        L = nb * bs
 
         def view(pool, sc):
             d = dequant_kv_tile(pool[tbl], sc[tbl], bits)      # (B, nb, bs, KV, hd)
-            d = d.reshape(B, L, KV, hd).permute(0, 2, 1, 3)
-            return d.repeat_interleave(G, dim=1).to(torch.bfloat16).contiguous()
+            return d.reshape(B, nb * bs, KV, hd)
 
-        kd, vd = view(kp, ksc), view(vp, vsc)
-        qs = q.reshape(B, KV * G, 1, hd).to(torch.bfloat16)
-        mask = (torch.arange(L, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-        l_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
-            qs, kd, vd, attn_mask=mask))
-        del kd, vd
+        l_ms = sdpa_ms(torch, q, view(kp, ksc), view(vp, vsc), lens, G)
         n_rows = sum(lengths)
         n_bytes = (n_rows * KV * (hd * bits // 8 + 4) * 2 + nbytes(q)
                    + B * KV * G * hd * 4)
@@ -546,6 +575,78 @@ def phase_attention(torch, dev):
             fail(f"{name} {label} disagrees with its plain version: "
                  f"max_abs_err={err}, max|plain|={scale}")
     return rows
+
+
+def sdpa_ms(torch, q, kd, vd, lens, G: int) -> float:
+    """scaled_dot_product_attention over a dequantized (B, L, KV, hd) view
+    in bf16, masked to the lengths (the library yardstick)."""
+    import torch.nn.functional as F
+
+    B, L, KV, hd = kd.shape
+
+    def heads(d):
+        return d.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).to(
+            torch.bfloat16).contiguous()
+
+    k, v = heads(kd), heads(vd)
+    qs = q.reshape(B, KV * G, 1, hd).to(torch.bfloat16)
+    mask = (torch.arange(L, device=q.device)[None, :] < lens[:, None])[:, None, None, :]
+    return graph_ms(torch, lambda: F.scaled_dot_product_attention(qs, k, v,
+                                                                  attn_mask=mask))
+
+
+def phase_kv_cache_attention(torch, dev):
+    """kv_cache_attention against its plain version (KV_CACHE_ROWS)."""
+    from repro_torch.kernels import kv_cache_attention as KA
+    from repro_torch.kernels.ref import dequant_kv_tile
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+    for label, B, KV, G, hd, bits, S, lengths, qdt in KV_CACHE_ROWS:
+        shape = (B, S, KV, hd * bits // 8)
+        if bits == 8:
+            codes = [torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                   dtype=torch.int8) for _ in range(2)]
+        else:
+            codes = [torch.randint(0, 256, shape, generator=gen, device=dev,
+                                   dtype=torch.uint8) for _ in range(2)]
+        scs = [torch.rand(shape[:3], generator=gen, device=dev) * 0.045 + 0.005
+               for _ in range(2)]
+        q = torch.randn((B, KV, G, hd), generator=gen, device=dev).to(
+            torch.bfloat16 if qdt == "bf16" else torch.float32)
+        lens = torch.tensor(lengths, dtype=torch.int64, device=dev)
+        ops = (q, codes[0], scs[0], codes[1], scs[1], lens)
+        got = KA.kv_cache_attention_cuda(*ops, bits=bits)
+        torch.cuda.synchronize()
+        want = KA.kv_cache_attention_plain(*ops, bits=bits)
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and err == 0.0
+        k_ms = graph_ms(torch, lambda: KA.kv_cache_attention_cuda(*ops, bits=bits))
+        p_ms = graph_ms(torch, lambda: KA.kv_cache_attention_plain(*ops, bits=bits),
+                        reps=3, replays=3)
+        kd, vd = (dequant_kv_tile(c, sc, bits) for c, sc in zip(codes, scs))
+        l_ms = sdpa_ms(torch, q, kd, vd, lens, G)
+        del kd, vd
+        n_rows = sum(lengths)
+        n_bytes = (n_rows * KV * (hd * bits // 8 + 4) * 2 + nbytes(q)
+                   + B * KV * G * hd * 4)
+        b, by = bound_ms(n_bytes, 4 * n_rows * KV * G * hd, BF16_TC_FLOPS)
+        rows.append({"kernel": "kv_cache_attention", "label": label, "B": B,
+                     "KV": KV, "G": G, "hd": hd, "bits": bits, "S": S,
+                     "lengths": list(lengths), "q": qdt, "max_abs_err": err,
+                     "max_abs_plain": scale, "ms": k_ms, "plain_ms": p_ms,
+                     "library_ms": l_ms, "bound_ms": b, "bound_by": by})
+        print(f"  kv_cache_attention      {label:26s} B={B} KV={KV} G={G} hd={hd} "
+              f"int{bits} S={S} len={list(lengths) if len(set(lengths)) > 1 else lengths[0]} "
+              f"q={qdt} err={err:.3g} (max|plain| {scale:.3g}) kernel={k_ms:.5f}ms "
+              f"plain={p_ms:.5f}ms sdpa={l_ms:.5f}ms bound={b:.5f}ms ({by}); "
+              f"{B * KV} blocks on 132 SMs", flush=True)
+        if not ok:
+            fail(f"kv_cache_attention {label} disagrees with its plain version: "
+                 f"max_abs_err={err}, max|plain|={scale}")
+        del codes, scs
+    return {"kv_cache_attention": rows}
 
 
 def run_engine(torch, serve, cfg, qparams, args, capture: dict, **engine_kw):
@@ -591,9 +692,10 @@ def profile_steps(torch, step, steps: int, label: str) -> dict:
     top_dev = sorted(by_dev.items(), key=lambda kv: -kv[1])[:5]
     top_cpu = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:6]
     fam_ms = {k: sum(us for n, us in by_dev.items() if k in n) / 1e3 / steps
-              for k in ("paged_attn_kernel", "merge_kernel",
+              for k in ("paged_attn_kernel", "merge_kernel", "kv_cache_attn_kernel",
                         "expert_dequant_kernel", "expert_lut_kernel")}
-    attn_ms = {k: fam_ms[k] for k in ("paged_attn_kernel", "merge_kernel")}
+    attn_ms = {k: fam_ms[k] for k in ("paged_attn_kernel", "merge_kernel",
+                                      "kv_cache_attn_kernel")}
     expert_ms = fam_ms["expert_dequant_kernel"] + fam_ms["expert_lut_kernel"]
     out = {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
            "idle_share": 1.0 - busy_ms / wall_ms,
@@ -607,8 +709,9 @@ def profile_steps(torch, step, steps: int, label: str) -> dict:
           f"{busy_ms:.2f} ms/step (idle share {out['idle_share']:.3f}), "
           f"{out['kernels_per_step']:.0f} kernels/step, attention kernels "
           f"{attn_ms['paged_attn_kernel']:.3f} ms/step (+ merge "
-          f"{attn_ms['merge_kernel']:.3f}), expert kernels {expert_ms:.3f} "
-          "ms/step", flush=True)
+          f"{attn_ms['merge_kernel']:.3f}; dense-cache "
+          f"{attn_ms['kv_cache_attn_kernel']:.3f}), expert kernels "
+          f"{expert_ms:.3f} ms/step", flush=True)
     print("  top device: " + "; ".join(f"{n} {ms:.3f}ms" for n, ms in
                                        out["top_device_ms_per_step"]), flush=True)
     print("  top host (self): " + "; ".join(f"{n} {ms:.3f}ms" for n, ms in
@@ -675,8 +778,8 @@ def checked_attention_calls(errs: list):
     max|kernel - plain| / max|plain| of each call is appended to ``errs``."""
     from repro_torch.kernels import registry
 
-    saved = {name: registry.get(name)
-             for name in ("paged_attention", "paged_attention_splitkv")}
+    saved = {name: registry.get(name) for name in
+             ("paged_attention", "paged_attention_splitkv", "kv_cache_attention")}
 
     def checking(op):
         def kernel(*arrays, **static):
@@ -692,6 +795,52 @@ def checked_attention_calls(errs: list):
         yield
     finally:
         registry._REGISTRY.update(saved)
+
+
+def fixed_run(torch, serve, cfg, qparams, args, attn_backend: str = "auto",
+              call_errs: list | None = None) -> dict:
+    """One fixed-batch serve through the CLI's code path (``serve_fixed``);
+    checks every decode step's logits are finite. With ``call_errs`` the
+    first decode step runs with every attention call checked against its
+    plain version."""
+    from repro_torch.launch import steps as St
+
+    inner = St.make_decode_step(cfg, attn_backend=attn_backend)
+    done = []
+
+    def decode(params, caches, batch):
+        check = call_errs is not None and not done
+        with checked_attention_calls(call_errs) if check else contextlib.nullcontext():
+            logits, caches = inner(params, caches, batch)
+        done.append(1)
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"{cfg.name} {cfg.quant} produced non-finite logits")
+        return logits, caches
+
+    return serve.serve_fixed(cfg, qparams, args, decode_step=decode)
+
+
+def fixed_profile(torch, cfg, qparams, args, label: str, steps: int = 4) -> dict:
+    """Profile ``steps`` decode steps of the fixed loop, after its prefill
+    and one decode step."""
+    from repro_torch.launch import steps as St
+
+    B, P = args.batch, args.prompt_len
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device="cuda")
+    decode = St.make_decode_step(cfg)
+    logits, caches = St.make_prefill_step(cfg, max_len=P + args.gen)(
+        qparams, {"tokens": tokens})
+    state = {"tok": logits[:, -1].argmax(-1), "pos": P, "caches": caches}
+
+    def step():
+        pos = torch.full((B,), state["pos"], dtype=torch.int64, device="cuda")
+        lg, state["caches"] = decode(qparams, state["caches"],
+                                     {"tokens": state["tok"][:, None], "pos": pos})
+        state["tok"], state["pos"] = lg[:, -1].argmax(-1), state["pos"] + 1
+
+    step()
+    return profile_steps(torch, step, steps, label)
 
 
 def long_context_run(torch, cfg, qparams, ctx: int, kv_splits: int, wrappers,
@@ -759,6 +908,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.expert_gemm import (expert_dequant_matmul_cuda,
                                                  expert_lut_gemm_cuda)
+    from repro_torch.kernels.kv_cache_attention import kv_cache_attention_cuda
     from repro_torch.kernels.lut_dequant_matmul import dequant_matmul_cuda
     from repro_torch.kernels.lut_gemm import lut_gemm_cuda
     from repro_torch.kernels.lut_gemm_bitsliced import lut_gemm_bs_fused_cuda
@@ -798,10 +948,12 @@ def main() -> int:
           f"(tolerances: lut_gemm exact / grouped {TOL_LUT_GROUPED} rel, "
           f"dequant_matmul exact, lut_gemm_bs_fused exact / "
           f"grouped {TOL_BS_GROUPED} rel, paged attention {TOL_ATTN} rel, "
+          "kv_cache_attention exact, "
           f"expert_lut_gemm exact / grouped {TOL_EXPERT_GROUPED} rel, "
           "expert_dequant_matmul exact)", flush=True)
     rows = phase_kernels(torch, dev)
     rows.update(phase_attention(torch, dev))
+    rows.update(phase_kv_cache_attention(torch, dev))
     rows.update(phase_experts(torch, dev))
     print(f"[4 kernels] done at {time.perf_counter() - t_start:.1f}s", flush=True)
 
@@ -810,7 +962,8 @@ def main() -> int:
              "expert_dequant_matmul": expert_dequant_matmul_cuda,
              "expert_lut_gemm": expert_lut_gemm_cuda}
     attns = {"paged_attention": paged_attention_cuda,
-             "paged_attention_splitkv": paged_attention_splitkv_cuda}
+             "paged_attention_splitkv": paged_attention_splitkv_cuda,
+             "kv_cache_attention": kv_cache_attention_cuda}
     wrappers = {**gemms, **attns}
     plan_op = {"w2a2": "lut_gemm", "w2a16": "dequant_matmul",
                "w2a8_bs": "lut_gemm_bs_fused"}
@@ -1087,6 +1240,109 @@ def main() -> int:
         torch.cuda.empty_cache()
     results["moonshot"] = moe
 
+    # 11: the fixed-batch loop at full width and depth
+    print(f"[11 fixed] started at {time.perf_counter() - t_start:.1f}s", flush=True)
+    fixed = {}
+    for arch, plan, op in FIXED_RUNS:
+        args = serve.build_parser().parse_args(
+            ["--arch", arch, "--plan", plan, "--device", "cuda"])
+        cfg, qparams = serve.prepare(args)
+        n, B, gen = cfg.n_layers, args.batch, args.gen
+        what = f"{arch} {plan} ({cfg.kv_cache_dtype} cache)"
+        call_errs: list = []
+        reset_launches()
+        res_k = fixed_run(torch, serve, cfg, qparams, args, call_errs=call_errs)
+        launches = {name: w.launches for name, w in wrappers.items()}
+        print(f"[11 fixed] {what}, B {B} x P {args.prompt_len}, gen {gen}: prefill "
+              f"{res_k['prefill_ms']:.1f} ms, decode {res_k['tok_per_s']:.1f} tok/s, "
+              f"decode-only step {res_k['decode_step_ms']:.3f} ms on {smi} | "
+              f"launches {launches}", flush=True)
+        expect_launches(f"fixed {what}", launches,
+                        {op: 7 * n * gen, "kv_cache_attention": n * (gen - 1)})
+        if len(call_errs) != n or max(call_errs) != 0.0:
+            fail(f"fixed {what}: {len(call_errs)} checked attention calls (want "
+                 f"{n}), max rel err {max(call_errs, default=None)} (want 0)")
+        cfg_p = dataclasses.replace(
+            cfg, quant=dataclasses.replace(cfg.quant, backend="ref"))
+        reset_launches()
+        res_p = fixed_run(torch, serve, cfg_p, qparams, args)
+        if any(gemms[name].launches for name in gemms):
+            fail(f"fixed {what}: the plain-GEMM run launched a GEMM kernel")
+        same = int((res_k["tokens"] == res_p["tokens"]).all(axis=1).sum())
+        rel = rel_diff(res_k["first_logits"], res_p["first_logits"])
+        reset_launches()
+        res_a = fixed_run(torch, serve, cfg, qparams, args, attn_backend="ref")
+        expect_launches(f"fixed {what} attention-plain run",
+                        {name: w.launches for name, w in wrappers.items()},
+                        {op: 7 * n * gen})
+        same_a = int((res_k["tokens"] == res_a["tokens"]).all(axis=1).sum())
+        rel_a = rel_diff(res_k["first_logits"], res_a["first_logits"])
+        print(f"[11 fixed] {what}: the first decode step's {len(call_errs)} "
+              f"kv_cache_attention calls each within {max(call_errs):.3g} of their "
+              "plain version (relative to max|plain|); plain-GEMM run "
+              f"{res_p['tok_per_s']:.1f} tok/s, tokens "
+              f"identical for {same}/{B} rows, first-step logits max rel diff "
+              f"{rel:.3g}; attention-plain run {res_a['tok_per_s']:.1f} tok/s, "
+              f"tokens identical for {same_a}/{B} rows, logits {rel_a:.3g}",
+              flush=True)
+        if plan != "w2a16" and (same != B or rel != 0.0):
+            fail(f"fixed {what}: kernel and plain paths differ (tokens identical "
+                 f"for {same}/{B} rows, first-step logits by {rel})")
+        if plan == "w2a16" and rel > TOL_LOGITS:
+            fail(f"fixed {what}: first-step logits differ by {rel} > {TOL_LOGITS}")
+        if rel_a > TOL_LOGITS:
+            fail(f"fixed {what}: attention kernel and plain first-step logits "
+                 f"differ by {rel_a} > {TOL_LOGITS}")
+        fixed[f"{arch} {plan}"] = {
+            "launches": launches, "prefill_ms": res_k["prefill_ms"],
+            "tok_per_s": res_k["tok_per_s"], "decode_step_ms": res_k["decode_step_ms"],
+            "first_step_attention_call_max_rel_err": max(call_errs),
+            "plain_tok_per_s": res_p["tok_per_s"], "tokens_identical": same,
+            "logits_rel_diff": rel, "attn_plain_decode_step_ms": res_a["decode_step_ms"],
+            "attn_plain_tokens_identical": same_a, "attn_plain_logits_rel_diff": rel_a,
+            "profile": fixed_profile(torch, cfg, qparams, args,
+                                     f"[11 fixed profile] {arch} {plan}")}
+        del qparams, res_k, res_p, res_a
+        gc.collect()
+        torch.cuda.empty_cache()
+    results["fixed"] = fixed
+
+    # 12: moonshot-v1-16b-a3b under the grouped w2a2g64 plan, fixed loop
+    print(f"[12 moe g64] started at {time.perf_counter() - t_start:.1f}s", flush=True)
+    args = serve.build_parser().parse_args(
+        ["--arch", "moonshot-v1-16b-a3b", "--plan", "w2a2g64", "--device", "cuda"])
+    cfg, qparams = serve.prepare(args)
+    n, B, gen = cfg.n_layers, args.batch, args.gen
+    reset_launches()
+    res_k = fixed_run(torch, serve, cfg, qparams, args)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    print(f"[12 moe g64] {cfg.name} w2a2g64, B {B} x P {args.prompt_len}, gen {gen}: "
+          f"prefill {res_k['prefill_ms']:.1f} ms, decode {res_k['tok_per_s']:.1f} "
+          f"tok/s, decode-only step {res_k['decode_step_ms']:.3f} ms | launches "
+          f"{launches}", flush=True)
+    expect_launches("moonshot w2a2g64 fixed", launches,
+                    {"expert_lut_gemm": 3 * n * gen, "lut_gemm": 7 * n * gen,
+                     "kv_cache_attention": n * (gen - 1)})
+    cfg_p = dataclasses.replace(cfg, quant=dataclasses.replace(cfg.quant, backend="ref"))
+    reset_launches()
+    res_p = fixed_run(torch, serve, cfg_p, qparams, args)
+    if any(gemms[name].launches for name in gemms):
+        fail("moonshot w2a2g64: the plain-GEMM run launched a GEMM kernel")
+    same = int((res_k["tokens"] == res_p["tokens"]).all(axis=1).sum())
+    rel = rel_diff(res_k["first_logits"], res_p["first_logits"])
+    print(f"[12 moe g64] plain-GEMM run {res_p['tok_per_s']:.1f} tok/s; greedy tokens "
+          f"identical for {same}/{B} rows; first decode step logits max rel diff "
+          f"{rel:.3g}", flush=True)
+    if same != B or rel > TOL_LOGITS:
+        fail(f"moonshot w2a2g64: kernel and plain paths differ (tokens identical "
+             f"for {same}/{B} rows, first-step logits by {rel} of max|logit|)")
+    results["moonshot_g64_fixed"] = {
+        "launches": launches, "prefill_ms": res_k["prefill_ms"],
+        "tok_per_s": res_k["tok_per_s"], "decode_step_ms": res_k["decode_step_ms"],
+        "plain_tok_per_s": res_p["tok_per_s"], "tokens_identical": same,
+        "logits_rel_diff": rel}
+    del qparams, res_k, res_p
+
     print("[results] " + json.dumps({"engine": results}), flush=True)
     lc_split = long_ctx[LC_CONTEXTS[-1]]["split_launches"]
     sources = {"lut_gemm": ("src/repro_torch/csrc/lut_gemm.cu",
@@ -1113,13 +1369,20 @@ def main() -> int:
                    moe["w2a16"]["launches"]["expert_dequant_matmul"], "w2a16"),
                "expert_lut_gemm": ("src/repro_torch/csrc/expert_gemm.cu",
                                    "src/repro/kernels/expert_dequant_matmul.py:167",
-                                   moe["w2a2"]["launches"]["expert_lut_gemm"], "w2a2")}
+                                   moe["w2a2"]["launches"]["expert_lut_gemm"], "w2a2"),
+               "kv_cache_attention": (
+                   "src/repro_torch/csrc/kv_cache_attention.cu",
+                   "src/repro/kernels/kv_cache_attention.py:81",
+                   fixed["qwen1.5-0.5b w2a2"]["launches"]["kv_cache_attention"],
+                   None)}
     kernels = []
     for name, (src, replaces, launches, cfg_name) in sources.items():
         if name in REPRESENTATIVE_ATTN:
             label, ks = REPRESENTATIVE_ATTN[name]
             rep = next(r for r in rows[name] if r["label"] == label
                        and r["kv_splits"] == ks)
+        elif name == "kv_cache_attention":
+            rep = next(r for r in rows[name] if r["label"] == "qwen serve")
         elif name.startswith("expert_"):
             rep = next(r for r in rows[name] if r["cfg"] == cfg_name
                        and (r["E"], r["M"], r["K"], r["N"]) == EXPERT_REPRESENTATIVE)

@@ -1,6 +1,7 @@
-"""Carry the JAX reference's parameter trees across to the port.
+"""Carry the JAX reference's parameter trees and decode caches across to
+the port.
 
-Both functions take the reference's tree with its arrays already turned
+Every function takes the reference's tree with its arrays already turned
 into numpy (``jax.tree.map(np.asarray, tree)``), so this module needs
 neither ``jax`` nor ``repro``:
 
@@ -14,6 +15,12 @@ neither ``jax`` nor ``repro``:
                     (n_superblocks, E, N, K/f) and leave as (E, N, K/f), its
                     f32 router and shared expert like any other array / dense
                     leaf
+  cache_from_jax    the fixed-batch loop's dense decode cache from
+                    ``repro.models.lm.init_cache`` or ``prefill_to_cache``
+                    ({"blocks": {"l<j>": {"attn": {k, v[, k_sc, v_sc]}}},
+                    "rem": {"r<i>": ...}}, the blocks stacked over
+                    superblocks) -> the port's flat list with one
+                    {k, v[, k_sc, v_sc]} dict per layer
 
 The reference stacks the superblock scan axis first (``blocks``: every
 array carries a leading ``n_superblocks`` axis, one entry per repeat of the
@@ -113,3 +120,10 @@ def qparams_from_jax(np_tree: dict, cfg, device="cpu") -> dict:
     """The reference's quantize_tree'd tree (numpy leaves; packed leaves
     stacked over superblocks) -> the port's packed parameter dict."""
     return params_from_jax(np_tree, cfg, device)
+
+
+def cache_from_jax(np_tree: dict, cfg, device="cpu") -> list:
+    """The reference's dense decode cache (numpy leaves) -> the port's
+    per-layer list, in forward order, bit for bit (int8 / u8 codes, f32
+    scales, or k/v in the model dtype)."""
+    return [layer["attn"] for layer in _layers(np_tree, cfg, device)]

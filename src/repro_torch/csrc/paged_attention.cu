@@ -25,7 +25,8 @@
 // TB/s). The operations, 4 * H * hd per row, are far below the tensor
 // cores' rate. Reaching the byte rate needs enough loads in flight on
 // enough SMs; the design keeps it simple and right and takes two steps
-// towards that:
+// towards that (the walk, attend_rows in attn_common.cuh, is shared with
+// the dense-cache kernel in kv_cache_attention.cu):
 //   - the walk stops at lengths[b]: rows past it are never read (the
 //     reference walks every table entry and masks them to exact zeros);
 //   - each tile of kTile tokens is staged into shared memory by all 256
@@ -55,57 +56,17 @@
 //
 // Build without --use_fast_math: expf stays accurate.
 
-#include <cuda_bf16.h>
-#include <cmath>
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "attn_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;                 // 8 warps per block
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 128;                    // tokens per tile
-constexpr int kMaxG = 8;                      // query rows per KV head
-constexpr int kMaxHd = 128;
-constexpr int kTileWords = kTile * kMaxHd / 8;        // 8-byte words, int8 at hd 128
-constexpr int kWordsPerThread = kTileWords / kThreads;
-constexpr float kNeg = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
-}
-
-// The 64 / BITS codes of one 8-byte word, as floats, in row order.
-template <int BITS>
-__device__ __forceinline__ void decode_word(uint2 w, float* c) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-        const unsigned byte = ((j < 4 ? w.x : w.y) >> (8 * (j & 3))) & 0xffu;
-        if (BITS == 8) {
-            c[j] = static_cast<float>(static_cast<int8_t>(byte));
-        } else {
-            c[2 * j] = static_cast<float>(static_cast<int>(byte & 0xfu) - 8);
-            c[2 * j + 1] = static_cast<float>(static_cast<int>(byte >> 4) - 8);
-        }
-    }
-}
 
 // grid (KV, ns, B); ns == 1 and nbc == nb for the single pass. SPLIT writes
 // the unnormalised partials acc (B, ns, KV, G, hd), m and l (B, ns, KV, G);
 // otherwise out (B, KV, G, hd) = acc / max(l, 1e-30). GT is the number of
 // query rows compiled in: 1 (G == 1, the dense models' MHA) or kMaxG (any G
-// up to it). hd and bs are powers of two (shifts: hd_shift, bs_shift).
+// up to it). hd and bs are powers of two (shifts: hd_shift, bs_shift). The
+// walk itself is attend_rows (attn_common.cuh); row t of sequence b lives
+// at offset t % bs of block tables[b, t / bs].
 template <int BITS, typename TQ, bool SPLIT, int GT>
 __global__ void __launch_bounds__(kThreads)
 paged_attn_kernel(const TQ* __restrict__ q, const uint8_t* __restrict__ k_pool,
@@ -114,183 +75,24 @@ paged_attn_kernel(const TQ* __restrict__ q, const uint8_t* __restrict__ k_pool,
                   const int64_t* __restrict__ lengths, float* __restrict__ out,
                   float* __restrict__ m_out, float* __restrict__ l_out, int KV, int G,
                   int hd_shift, int bs_shift, int nb, int nbc, float scale) {
-    constexpr int CPW = 64 / BITS;            // codes per 8-byte word
-    constexpr int CPW_SHIFT = BITS == 8 ? 3 : 4;
     const int e = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
     const int ns = gridDim.y;
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int hd = 1 << hd_shift, bs = 1 << bs_shift;
-    const int wpr_shift = hd_shift - CPW_SHIFT;
-    const int wpr = 1 << wpr_shift;           // words per K/V row: 1..16
-    const int row_bytes = wpr * 8;
-
-    __shared__ __align__(16) uint2 s_k[kTileWords];
-    __shared__ __align__(16) uint2 s_v[kTileWords];
-    __shared__ float s_ksc[kTile], s_vsc[kTile];
-    __shared__ float s_q[kMaxG * kMaxHd];
-    __shared__ float s_p[kMaxG * kTile];
-    __shared__ float s_m[kMaxG], s_l[kMaxG], s_corr[kMaxG];
-
-    const TQ* qb = q + (static_cast<size_t>(b) * KV + e) * G * hd;
-    for (int i = tid; i < G * hd; i += kThreads) s_q[i] = to_f32(qb[i]);
-    if (tid < kMaxG) {
-        s_m[tid] = kNeg;
-        s_l[tid] = 0.f;
-        s_corr[tid] = 1.f;
-    }
-
+    const int bs = 1 << bs_shift;
     const int64_t* tbl = tables + static_cast<size_t>(b) * nb;
     const int t_begin = c * nbc * bs;
     const int64_t chunk_end = static_cast<int64_t>(min((c + 1) * nbc, nb)) * bs;
     const int t_end = static_cast<int>(lengths[b] < chunk_end ? lengths[b] : chunk_end);
-
-    const int R = kThreads >> hd_shift;       // token groups of the PV step
-    const int d = tid & (hd - 1), r = tid >> hd_shift;
-    float acc[GT];
-#pragma unroll
-    for (int g = 0; g < GT; ++g) acc[g] = 0.f;
-    __syncthreads();
-
-    for (int s0 = t_begin; s0 < t_end; s0 += kTile) {
-        const int n_live = min(kTile, t_end - s0);
-        // 1. stage the tile's K/V words and scales (zeros past the live rows)
-        uint2 kr[kWordsPerThread], vr[kWordsPerThread];
-#pragma unroll
-        for (int i = 0; i < kWordsPerThread; ++i) {
-            const int w = tid + i * kThreads;
-            const int tl = w >> wpr_shift;
-            kr[i] = vr[i] = make_uint2(0u, 0u);
-            if (tl < n_live) {
-                const int t = s0 + tl;
-                const size_t row =
-                    ((static_cast<size_t>(tbl[t >> bs_shift]) << bs_shift) + (t & (bs - 1))) *
-                        KV + e;
-                const size_t off = (row << wpr_shift) + (w & (wpr - 1));
-                kr[i] = reinterpret_cast<const uint2*>(k_pool)[off];
-                vr[i] = reinterpret_cast<const uint2*>(v_pool)[off];
-            }
-        }
-        float ksc = 0.f, vsc = 0.f;
-        if (tid < n_live) {
-            const int t = s0 + tid;
-            const size_t row =
-                ((static_cast<size_t>(tbl[t >> bs_shift]) << bs_shift) + (t & (bs - 1))) * KV + e;
-            ksc = k_sc[row];
-            vsc = v_sc[row];
-        }
-        __syncthreads();                      // the previous tile is consumed
-#pragma unroll
-        for (int i = 0; i < kWordsPerThread; ++i) {
-            const int w = tid + i * kThreads;
-            if (w < kTile * wpr) {
-                s_k[w] = kr[i];
-                s_v[w] = vr[i];
-            }
-        }
-        if (tid < kTile) {
-            s_ksc[tid] = ksc;
-            s_vsc[tid] = vsc;
-        }
-        __syncthreads();
-
-        // 2. scores: a group of wpr lanes holds one token's row
-        const int tpw = 32 >> wpr_shift;
-        const int grp = lane >> wpr_shift, part = lane & (wpr - 1);
-        for (int tl0 = warp * tpw; tl0 < kTile; tl0 += kWarps * tpw) {
-            const int tl = tl0 + grp;
-            float codes[CPW];
-            decode_word<BITS>(s_k[tl * wpr + part], codes);
-            const float* qd = s_q + part * CPW;
-            float dot[GT];
-#pragma unroll
-            for (int g = 0; g < GT; ++g) {
-                dot[g] = 0.f;
-                if (GT == 1 || g < G) {
-#pragma unroll
-                    for (int j = 0; j < CPW; ++j) dot[g] = fmaf(qd[g * hd + j], codes[j], dot[g]);
-                }
-            }
-            for (int o = wpr >> 1; o > 0; o >>= 1) {
-#pragma unroll
-                for (int g = 0; g < GT; ++g)
-                    dot[g] += __shfl_xor_sync(0xffffffffu, dot[g], o);
-            }
-            if (part == 0) {
-#pragma unroll
-                for (int g = 0; g < GT; ++g)
-                    if (GT == 1 || g < G)
-                        s_p[g * kTile + tl] = tl < n_live ? dot[g] * s_ksc[tl] * scale : kNeg;
-            }
-        }
-        __syncthreads();
-
-        // 3. online softmax: one warp per query row
-        for (int g = warp; g < G; g += kWarps) {
-            float* sp = s_p + g * kTile;
-            float mx = kNeg;
-            for (int i = lane; i < kTile; i += 32) mx = fmaxf(mx, sp[i]);
-            mx = warp_max(mx);
-            const float m_prev = s_m[g];
-            const float m_new = fmaxf(m_prev, mx);
-            float sum = 0.f;
-            for (int i = lane; i < kTile; i += 32) {
-                const float p = i < n_live ? expf(sp[i] - m_new) : 0.f;
-                sp[i] = p;
-                sum += p;
-            }
-            sum = warp_sum(sum);
-            if (lane == 0) {
-                const float corr = expf(m_prev - m_new);
-                s_corr[g] = corr;
-                s_l[g] = s_l[g] * corr + sum;
-                s_m[g] = m_new;
-            }
-        }
-        __syncthreads();
-
-        // 4. PV: thread (r, d) sums tokens r, r + R, ... of the tile for dim
-        //    d, then folds the tile's sum into its running one
-        float tacc[GT];
-#pragma unroll
-        for (int g = 0; g < GT; ++g) tacc[g] = 0.f;
-        const uint8_t* vb = reinterpret_cast<const uint8_t*>(s_v);
-        for (int tl = r; tl < n_live; tl += R) {
-            float code;
-            if (BITS == 8) {
-                code = static_cast<float>(static_cast<int8_t>(vb[tl * row_bytes + d]));
-            } else {
-                const unsigned by = vb[tl * row_bytes + (d >> 1)];
-                code = static_cast<float>(static_cast<int>((d & 1) ? (by >> 4) : (by & 0xfu)) - 8);
-            }
-            const float vv = code * s_vsc[tl];
-#pragma unroll
-            for (int g = 0; g < GT; ++g)
-                if (GT == 1 || g < G) tacc[g] = fmaf(s_p[g * kTile + tl], vv, tacc[g]);
-        }
-#pragma unroll
-        for (int g = 0; g < GT; ++g)
-            if (GT == 1 || g < G) acc[g] = fmaf(acc[g], s_corr[g], tacc[g]);
-    }
-
-    // 5. reduce the R groups' sums in shared memory (over the K tile)
-    __syncthreads();
-    float* s_red = reinterpret_cast<float*>(s_k);     // R * G * hd <= 2048 floats
-#pragma unroll
-    for (int g = 0; g < GT; ++g)
-        if (GT == 1 || g < G) s_red[(r * G + g) * hd + d] = acc[g];
-    __syncthreads();
     const size_t head = SPLIT ? (static_cast<size_t>(b) * ns + c) * KV + e
                               : static_cast<size_t>(b) * KV + e;
-    for (int i = tid; i < G * hd; i += kThreads) {
-        const int g = i / hd, dd = i - g * hd;
-        float sum = 0.f;
-        for (int rr = 0; rr < R; ++rr) sum += s_red[(rr * G + g) * hd + dd];
-        out[head * G * hd + i] = SPLIT ? sum : sum / fmaxf(s_l[g], 1e-30f);
-    }
-    if (SPLIT && tid < G) {
-        m_out[head * G + tid] = s_m[tid];
-        l_out[head * G + tid] = s_l[tid];
-    }
+    const size_t gh = static_cast<size_t>(G) << hd_shift;
+    auto row_of = [=](int t) {
+        return ((static_cast<size_t>(tbl[t >> bs_shift]) << bs_shift) + (t & (bs - 1))) *
+                   KV + e;
+    };
+    attend_rows<BITS, TQ, SPLIT, GT>(
+        q + (static_cast<size_t>(b) * KV + e) * gh, k_pool, k_sc, v_pool, v_sc, row_of,
+        t_begin, t_end, G, hd_shift, scale, out + head * gh,
+        SPLIT ? m_out + head * G : nullptr, SPLIT ? l_out + head * G : nullptr);
 }
 
 // grid (KV, B): out = sum_c e^(m_c - M) acc_c / max(sum_c e^(m_c - M) l_c, 1e-30).
@@ -312,13 +114,6 @@ __global__ void merge_kernel(const float* __restrict__ acc, const float* __restr
         }
         out[(static_cast<size_t>(b) * KV + e) * G * hd + i] = num / fmaxf(den, 1e-30f);
     }
-}
-
-int log2_exact(int v) {                      // -1 unless v is a power of two
-    if (v < 1 || (v & (v - 1))) return -1;
-    int s = 0;
-    while ((1 << s) < v) ++s;
-    return s;
 }
 
 template <bool SPLIT, int BITS, typename TQ>

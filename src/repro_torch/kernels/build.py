@@ -44,6 +44,7 @@ SIGNATURES = {
                                                            + [_P],
     ("expert_gemm", "expert_dequant_matmul_launch"): [_P] * 5 + [_I] * 7 + [_P],
     ("expert_gemm", "expert_lut_gemm_launch"): [_P] * 5 + [_I] * 6 + [_P],
+    ("kv_cache_attention", "kv_cache_attention_launch"): [_P] * 7 + [_I] * 7 + [_P],
 }
 
 _LOCK = threading.Lock()

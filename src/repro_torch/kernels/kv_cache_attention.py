@@ -1,0 +1,157 @@
+"""Decode attention over a dense packed KV cache: the CUDA kernel
+(``csrc/kv_cache_attention.cu``), its wrapper, and the plain PyTorch
+version.
+
+Replaces ``src/repro/kernels/kv_cache_attention.py``:
+``kv_cache_attention_pallas``. One query row per sequence and KV head
+group: q (B, KV, G, hd) bf16/f32 against a slot-per-sequence cache of int8
+codes (B, S, KV, hd) or 4-bit codes (B, S, KV, hd/2) u8 (low nibble
+first) with (B, S, KV) f32 scales, and lengths (B,); out (B, KV, G, hd)
+f32, rows >= lengths[b] masked. The fixed-batch serve loop's decode step
+calls it in every layer with lengths pos + 1.
+
+Two formulations live here:
+  ``kv_cache_attention_walk``  the plain version (``_plain`` is the same
+                               function, under the registry's name): the
+                               kernel's walk replayed in torch, operation
+                               for operation, so that on the card the two
+                               give the same bits. Rows t < min(lengths[b],
+                               S) in tiles of ``KERNEL_TILE``; the scores of
+                               a row summed word by word and the words met
+                               in a butterfly; an online softmax whose sums
+                               run lane by lane; the PV sums in ``R``
+                               interleaved token groups. Each product and
+                               sum rounds on its own, as the kernel's
+                               ``__fmul_rn`` / ``__fadd_rn`` do. The CPU
+                               tests hold it against the reference's oracle
+                               (``ref_kv_cache_attention``) and Pallas
+                               kernel
+  ``kv_cache_attention_cuda``  the kernel wrapper; it launches or raises
+
+Why the plain version replays the kernel: in the fixed-batch loop every
+call of the kernel agreed with the oracle within 3.2e-7 of max|out|, yet
+codeqwen1.5-7b's first decode step logits moved by 0.04 of max|logit|
+against the oracle's (``chip_smoke.py`` phase 11 on an NVIDIA H100 80GB
+HBM3 at 700 W: a last-ulp change rounds a bf16 attention output the other
+way, and 32 layers of a quantized random model amplify it). Tied to the
+kernel's order the comparison reads 0; a change to the kernel's walk must
+change this replay with it.
+
+Callers go through ``kernels/registry.py``. Where lengths[b] is 0 the
+oracle averages every row (softmax of all-masked scores); the kernel and
+the walk read no row and return 0 there. The serve loop never passes 0.
+
+Bound on the H100 and design: see the notes at the top of the CUDA source
+and of ``csrc/attn_common.cuh``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import build
+from .paged_attention import KERNEL_TILE, check_codes, check_operands
+from .ref import WARP, _unpack4, butterfly_sum
+
+KERNEL_THREADS = 256        # threads per block (csrc/attn_common.cuh kThreads)
+_NEG = -1e30
+
+
+def _codes(packed: torch.Tensor, bits: int) -> torch.Tensor:
+    """(..., hd * bits / 8) codes -> (..., hd) f32 code values."""
+    if bits == 4:
+        return _unpack4(packed).to(torch.float32) - 8.0
+    return packed.to(torch.float32)
+
+
+def kv_cache_attention_walk(q, k_packed, k_sc, v_packed, v_sc, lengths, *,
+                            bits: int) -> torch.Tensor:
+    """The kernel's walk (``attend_rows`` in csrc/attn_common.cuh) in torch.
+    Tiles past a sequence's length are walked too; with every row masked
+    they leave (m, l, acc) bit for bit as they were (corr = exp(0) = 1,
+    products 0), so one loop serves every sequence."""
+    B, KV, G, hd = q.shape
+    S = k_packed.shape[1]
+    dev = q.device
+    f32 = torch.float32
+    cpw = 64 // bits                          # codes per 8-byte word
+    wpr = hd // cpw                           # words (lane parts) per row
+    R = KERNEL_THREADS // hd                  # token groups of the PV step
+    T = KERNEL_TILE
+    scale = float(torch.tensor(1.0 / math.sqrt(hd), dtype=f32))   # the kernel's f32
+    pad = (-S) % T
+    n = torch.clamp(lengths, 0, S)
+    kc = _codes(k_packed, bits)                                  # (B, S, KV, hd)
+    vc = _codes(v_packed, bits)
+    ksc, vsc = k_sc.to(f32), v_sc.to(f32)
+    if pad:
+        kc, vc = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad)) for x in (kc, vc))
+        ksc, vsc = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (ksc, vsc))
+    qw = q.to(f32).reshape(B, KV, G, wpr, cpw)
+    m = torch.full((B, KV, G), _NEG, dtype=f32, device=dev)
+    l = torch.zeros((B, KV, G), dtype=f32, device=dev)
+    acc = torch.zeros((B, KV, G, R, hd), dtype=f32, device=dev)
+    for s0 in range(0, S + pad, T):
+        live = (s0 + torch.arange(T, device=dev))[None, :] < n[:, None]   # (B, T)
+        kt = kc[:, s0:s0 + T].permute(0, 2, 1, 3).reshape(B, KV, 1, T, wpr, cpw)
+        # scores: word by word, then the butterfly over the row's words
+        dot = torch.zeros((B, KV, G, T, wpr), dtype=f32, device=dev)
+        for j in range(cpw):
+            dot = dot + qw[:, :, :, None, :, j] * kt[..., j]
+        sc = butterfly_sum(dot) * ksc[:, s0:s0 + T].transpose(1, 2)[:, :, None] * scale
+        sc = torch.where(live[:, None, None], sc, _NEG)          # (B, KV, G, T)
+        # online softmax: lane L sums p[L], p[L + 32], ...; the lanes meet
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.where(live[:, None, None], torch.exp(sc - m_new[..., None]), 0.0)
+        lanes = torch.zeros((B, KV, G, WARP), dtype=f32, device=dev)
+        for i in range(0, T, WARP):
+            lanes = lanes + p[..., i:i + WARP]
+        corr = torch.exp(m - m_new)
+        l = l * corr + butterfly_sum(lanes)
+        m = m_new
+        # PV: group r sums tokens r, r + R, ... of the tile for every dim
+        vv = vc[:, s0:s0 + T].permute(0, 2, 1, 3) * vsc[:, s0:s0 + T].transpose(1, 2)[..., None]
+        tacc = torch.zeros_like(acc)
+        for i in range(0, T, R):
+            tacc = tacc + p[..., i:i + R, None] * vv[:, :, None, i:i + R]
+        acc = acc * corr[..., None, None] + tacc
+    out = torch.zeros((B, KV, G, hd), dtype=f32, device=dev)
+    for r in range(R):
+        out = out + acc[..., r, :]
+    return out / torch.clamp(l, min=1e-30)[..., None]
+
+
+# the plain version the registry runs: the replay above, tied to the kernel
+kv_cache_attention_plain = kv_cache_attention_walk
+
+
+def kv_cache_attention_cuda(q, k_packed, k_sc, v_packed, v_sc, lengths, *,
+                            bits: int) -> torch.Tensor:
+    """Launch the kernel on the current stream (CUDA tensors only): one
+    block per (b, KV head). Lengths above S read S rows."""
+    what = "kv_cache_attention kernel"
+    ops = (q, k_packed, k_sc, v_packed, v_sc, lengths)
+    B, KV, G, hd = check_operands(what, ops, q, k_packed, v_packed, bits)
+    S = k_packed.shape[1] if k_packed.ndim == 4 else 0
+    check_codes(what, k_packed, k_sc, v_packed, v_sc, (B, S, KV, hd * bits // 8))
+    if S < 1:
+        raise ValueError(f"{what}: the cache must hold at least one row")
+    if lengths.dtype != torch.int64 or tuple(lengths.shape) != (B,):
+        raise ValueError(f"{what}: lengths must be int64 ({B},), got "
+                         f"{lengths.dtype} {tuple(lengths.shape)}")
+    out = torch.empty((B, KV, G, hd), dtype=torch.float32, device=q.device)
+    if B == 0:
+        return out
+    lib = build.library("kv_cache_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.kv_cache_attention_launch(
+        *(t.data_ptr() for t in ops), out.data_ptr(), B, S, KV, G, hd, bits,
+        int(q.dtype == torch.bfloat16), stream)
+    build.check(err, "kv_cache_attention")
+    kv_cache_attention_cuda.launches += 1
+    return out
+
+
+kv_cache_attention_cuda.launches = 0

@@ -127,13 +127,14 @@ def paged_attention_walk(q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths,
     return merge_splitkv_partials(acc, m, l)
 
 
-def _check(q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths,
-           bits) -> tuple[int, ...]:
-    what = "paged_attention kernel"
+def check_operands(what: str, tensors, q, k_codes, v_codes,
+                   bits: int) -> tuple[int, int, int, int]:
+    """The checks every decode-attention kernel shares, on the operands
+    ``tensors``: bits, one CUDA device, contiguity, q's type and shape,
+    hd and G, and the code dtype. Returns (B, KV, G, hd)."""
     if bits not in POOL_DTYPE:
         raise NotImplementedError(f"{what}: bits={bits} (the kernels take 8 "
                                   "and 4)")
-    tensors = (q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths)
     if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
         raise ValueError(f"{what}: every operand must be on the same CUDA device")
     if not all(t.is_contiguous() for t in tensors):
@@ -145,24 +146,38 @@ def _check(q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths,
     if hd not in KERNEL_HEAD_DIMS or not 1 <= G <= KERNEL_MAX_G:
         raise NotImplementedError(f"{what}: hd={hd}, G={G} (the kernels take "
                                   f"hd in {KERNEL_HEAD_DIMS}, G 1..{KERNEL_MAX_G})")
-    if k_pool.dtype != POOL_DTYPE[bits] or v_pool.dtype != POOL_DTYPE[bits]:
+    if k_codes.dtype != POOL_DTYPE[bits] or v_codes.dtype != POOL_DTYPE[bits]:
         raise TypeError(f"{what}: a {bits}-bit pool holds {POOL_DTYPE[bits]} "
-                        f"codes, got {k_pool.dtype} / {v_pool.dtype}")
-    n_blocks, bs = k_pool.shape[:2]
-    if bs < 1 or bs & (bs - 1):
-        raise NotImplementedError(f"{what}: block size {bs} (the kernels take "
-                                  "powers of two)")
-    want = (n_blocks, bs, KV, hd * bits // 8)
-    if tuple(k_pool.shape) != want or tuple(v_pool.shape) != want:
+                        f"codes, got {k_codes.dtype} / {v_codes.dtype}")
+    return B, KV, G, hd
+
+
+def check_codes(what: str, k_codes, k_sc, v_codes, v_sc, want: tuple) -> None:
+    """Codes of shape ``want`` (rows, cols, KV, hd * bits / 8) on an 8-byte
+    boundary, and f32 scales of shape ``want[:3]``."""
+    if tuple(k_codes.shape) != want or tuple(v_codes.shape) != want:
         raise ValueError(f"{what}: pools must be {want}, got "
-                         f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
-    if k_pool.data_ptr() % 8 or v_pool.data_ptr() % 8:
+                         f"{tuple(k_codes.shape)} / {tuple(v_codes.shape)}")
+    if k_codes.data_ptr() % 8 or v_codes.data_ptr() % 8:
         raise ValueError(f"{what}: pools must start on an 8-byte boundary "
                          "(the kernels read 8-byte words)")
     for sc in (k_sc, v_sc):
         if sc.dtype != torch.float32 or tuple(sc.shape) != want[:3]:
             raise ValueError(f"{what}: scales must be f32 {want[:3]}, got "
                              f"{sc.dtype} {tuple(sc.shape)}")
+
+
+def _check(q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths,
+           bits) -> tuple[int, ...]:
+    what = "paged_attention kernel"
+    B, KV, G, hd = check_operands(
+        what, (q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths), q, k_pool,
+        v_pool, bits)
+    n_blocks, bs = k_pool.shape[:2]
+    if bs < 1 or bs & (bs - 1):
+        raise NotImplementedError(f"{what}: block size {bs} (the kernels take "
+                                  "powers of two)")
+    check_codes(what, k_pool, k_sc, v_pool, v_sc, (n_blocks, bs, KV, hd * bits // 8))
     if (block_tables.dtype != torch.int64 or lengths.dtype != torch.int64
             or block_tables.ndim != 2 or block_tables.shape[0] != B
             or block_tables.shape[1] < 1 or tuple(lengths.shape) != (B,)):

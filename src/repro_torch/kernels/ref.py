@@ -116,10 +116,16 @@ def warp_order_matmul(a: torch.Tensor, w: torch.Tensor, step: int) -> torch.Tens
     for t in range(T):
         for j in range(step):
             acc += ar[..., t, :, j].unsqueeze(-2) * wr[..., t, :, j].unsqueeze(-3)
-    while acc.shape[-1] > 1:
-        half = acc.shape[-1] // 2
-        acc = acc[..., :half] + acc[..., half:]
-    return acc[..., 0]
+    return butterfly_sum(acc)
+
+
+def butterfly_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum the last axis (a power of two long) as lane 0 of a CUDA xor
+    butterfly (warp_sum) does: halves added pairwise until one is left."""
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
 
 
 def warp_order_dequant_matmul(a: torch.Tensor, w_packed: torch.Tensor,

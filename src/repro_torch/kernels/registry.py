@@ -16,12 +16,13 @@ Backends:
 Every dispatch records ``kernel_dispatch_total{op,backend,m_bucket,bits}``
 (obs/metrics.py), counted per call. Registered: the GEMMs ``lut_gemm``,
 ``dequant_matmul`` and ``lut_gemm_bs_fused``, the per-expert GEMMs of the
-MoE path, ``expert_dequant_matmul`` and ``expert_lut_gemm``, and paged
-decode attention, ``paged_attention`` and ``paged_attention_splitkv``.
-Tensor-parallel rules (the expert ones included) wait for the distributed
-slice (ROADMAP queue 1, item 11); the ops not yet ported (the two-step
-``lut_gemm_bitsliced``, the dense-cache ``kv_cache_attention`` and LUT-65k)
-are not registered.
+MoE path, ``expert_dequant_matmul`` and ``expert_lut_gemm``, paged decode
+attention, ``paged_attention`` and ``paged_attention_splitkv``, and decode
+attention over the fixed-batch loop's dense slot cache,
+``kv_cache_attention``. Tensor-parallel rules (the expert ones included)
+wait for the distributed slice (ROADMAP queue 1, item 11); the ops not yet
+ported (the two-step ``lut_gemm_bitsliced``, which only the row-TP route
+reaches, and LUT-65k, which has no kernel) are not registered.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 from repro_torch.obs import metrics as obs_metrics
 from .expert_gemm import (expert_dequant_matmul_cuda, expert_dequant_matmul_plain,
                           expert_lut_gemm_cuda, expert_lut_gemm_plain)
+from .kv_cache_attention import kv_cache_attention_cuda, kv_cache_attention_plain
 from .lut_dequant_matmul import dequant_matmul_cuda, dequant_matmul_plain
 from .lut_gemm import lut_gemm_cuda, lut_gemm_plain
 from .lut_gemm_bitsliced import lut_gemm_bs_fused_cuda, lut_gemm_bs_fused_plain
@@ -129,6 +131,12 @@ register(KernelOp(
     kernel=expert_lut_gemm_cuda,
     doc="Activation-quantized per-expert LUT GEMM (paper-faithful w{b}a{b} "
         "MoE path). arrays: (a_packed, w_packed, lut_table, w_scales|None)"))
+
+register(KernelOp(
+    name="kv_cache_attention", plain=kv_cache_attention_plain,
+    kernel=kv_cache_attention_cuda,
+    doc="Decode attention over an int8/int4-packed dense KV cache (fused "
+        "dequant). arrays: (q, k_packed, k_sc, v_packed, v_sc, lengths)"))
 
 register(KernelOp(
     name="paged_attention", plain=paged_attention_plain,

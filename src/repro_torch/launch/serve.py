@@ -1,36 +1,46 @@
-"""Serve a packed model through the port's paged continuous-batching engine.
+"""Serve a packed model through the port: the fixed-batch loop, or with
+``--paged`` the paged continuous-batching engine.
 
-The port's counterpart of ``repro/launch/serve.py`` (``--paged`` path):
-random weights from ``--seed`` -> offline quantize+pack under a plan ->
-a stream of mixed-length requests admitted through chunked prefill into the
-paged pool and decoded greedily, every planned projection running through
-its kernel (``lut_gemm`` for w{b}a{b}, ``dequant_matmul`` for w{b}a16,
-``lut_gemm_bs_fused`` for the bit-sliced w2a8_bs, w2a8_bs_g64 and w4a8_bs).
-On an MoE model every expert projection runs through ``expert_lut_gemm``
-(w{b}a{b}) or ``expert_dequant_matmul`` (w{b}a16 and the bit-sliced plans).
-Weights are drawn and packed one layer at a time.
+The port's counterpart of ``repro/launch/serve.py``: random weights from
+``--seed`` -> offline quantize+pack under a plan, every planned projection
+running through its kernel (``lut_gemm`` for w{b}a{b}, ``dequant_matmul``
+for w{b}a16, ``lut_gemm_bs_fused`` for the bit-sliced w2a8_bs, w2a8_bs_g64
+and w4a8_bs). On an MoE model every expert projection runs through
+``expert_lut_gemm`` (w{b}a{b}) or ``expert_dequant_matmul`` (w{b}a16 and
+the bit-sliced plans). Weights are drawn and packed one layer at a time.
+
+Without ``--paged`` (``serve_fixed``): ``--batch`` prompts of
+``--prompt-len`` tokens are prefilled in one batch into dense slot caches
+of prompt-len + gen rows, then decoded greedily for ``--gen`` - 1 steps;
+decode attention over the int8/int4 cache runs through
+``kv_cache_attention``. With ``--paged`` (``serve_paged``): a stream of
+``--requests`` mixed-length requests is admitted through chunked prefill
+into the paged pool; decode attention runs through ``paged_attention``,
+or with ``--kv-splits N`` (N > 1; "auto" gives one split per 4096 rows of
+context) through the split-KV ``paged_attention_splitkv``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
-      --paged --plan w2a2                      # full width, on the card
+      --plan w2a2                              # fixed batch, on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
-      --paged --plan w2a8_bs                   # bit-sliced, on the card
+      --paged --plan w2a8_bs                   # paged engine, on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b \
       --paged --plan w2a8_bs                   # int4 pool, untied head
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch moonshot-v1-16b-a3b --paged --plan w2a2   # MoE, 48 layers
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
-      --smoke --paged --device cpu             # tiny, plain versions on CPU
+      --smoke --device cpu                     # tiny, plain versions on CPU
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch moonshot-v1-16b-a3b --smoke --paged --device cpu --plan w2a16
 
-Decode attention over the int8/int4 pool runs through ``paged_attention``,
-or with ``--kv-splits N`` (N > 1; "auto" gives one split per 4096 rows of
-context) through the split-KV ``paged_attention_splitkv``.
-
-It takes the reference's flags. Those of features not ported yet are
-rejected loudly, as is running without ``--paged`` (the fixed-batch loop
-waits for ROADMAP queue 1, item 6). Prompts come from numpy's
-``default_rng(seed)``.
+It takes the reference's flags and its rules: the engine's features
+(``--prefix-cache``, ``--prefill-batch`` > 1, ``--tp`` > 1,
+``--spec-draft-plan``, an explicit ``--kv-splits``, ``--ring``,
+``--trace-out``, ``--metrics-out``) require ``--paged``. Flags of features
+not ported yet are rejected loudly. Prompts come from numpy's
+``default_rng(seed)``; the reference draws them with JAX's threefry,
+whose numbers are not reproduced. The enc-dec and vision inputs of the
+reference's fixed loop come with their families (ROADMAP queue 1, item
+9).
 """
 
 from __future__ import annotations
@@ -46,7 +56,9 @@ import torch
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.core.qplan import PLANS, get_plan, make_plan
 from repro_torch.device import resolve_device
+from repro_torch.launch import steps as St
 from repro_torch.models import lm
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.serving import Engine, Request
 
 
@@ -90,11 +102,33 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def validate_args(args) -> None:
-    """Reject flags of features the port does not carry yet, loudly."""
+    """Reject flags that need ``--paged`` without it (the reference's
+    rules), then flags of features the port does not carry yet, loudly."""
+    if not args.paged:
+        needs_paged = [
+            (args.prefix_cache, "--prefix-cache", "the radix cache shares "
+             "blocks of the paged engine's pool"),
+            (args.prefill_batch > 1, "--prefill-batch", "batched prefill "
+             "chunks are a paged-engine feature"),
+            (args.tp > 1, "--tp", "tensor-parallel serving runs through the "
+             "engine's step functions"),
+            (args.spec_draft_plan is not None, "--spec-draft-plan",
+             "speculative decoding runs through the engine"),
+            (args.kv_splits != "auto", "--kv-splits", "split-KV decode "
+             "partitions the paged engine's block tables"),
+            (args.ring, "--ring", "ring-paged local layers replace the paged "
+             "engine's block tables"),
+            (args.trace_out is not None, "--trace-out", "request-lifecycle "
+             "tracing hooks into the paged engine's loop"),
+            (args.metrics_out is not None, "--metrics-out", "the metrics "
+             "snapshot is the paged engine's registry"),
+        ]
+        for bad, flag, why in needs_paged:
+            if bad:
+                raise ValueError(f"{flag} requires --paged: {why}; the "
+                                 "fixed-batch loop has none")
     item6 = "ROADMAP queue 1, item 6"
     checks = [
-        (not args.paged, "running without --paged is not ported: the "
-         f"fixed-batch loop waits for {item6}; pass --paged"),
         (args.prefix_cache, f"--prefix-cache (radix cache) is not ported yet: {item6}"),
         (args.prefill_batch > 1, f"--prefill-batch > 1 is not ported yet: {item6}"),
         (args.prefill == "whole", f"--prefill whole is not ported yet: {item6}"),
@@ -159,6 +193,70 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _dispatch_counts(counters: dict) -> dict:
+    """``{"op:backend": calls}`` from ``kernel_dispatch_total`` counters."""
+    ops: dict = {}
+    for k, v in counters.items():
+        if k.startswith("kernel_dispatch_total"):
+            labels = dict(p.split("=", 1) for p in k[k.index("{") + 1:-1].split(","))
+            key = f"{labels['op']}:{labels['backend']}"
+            ops[key] = ops.get(key, 0) + int(v)
+    return ops
+
+
+def serve_fixed(cfg, qparams, args, decode_step=None) -> dict:
+    """The fixed-batch loop (reference serve.py:444-490): ``args.batch`` x
+    ``args.prompt_len`` prompt tokens from numpy's default_rng(seed) (the
+    reference's come from JAX's threefry and are not reproduced), one
+    batched prefill into dense slot caches of prompt_len + gen rows, the
+    greedy argmax, then gen - 1 decode steps at pos = P + i. Prints the
+    prefill time, decode tok/s and the sample generation of batch 0;
+    returns the run's numbers with the tokens (B, gen) and the first
+    decode step's logits. ``decode_step`` replaces
+    ``steps.make_decode_step(cfg)`` (a caller's attention backend or
+    checks); every step ends in a device synchronise, so the decode-only
+    step time is a mean of whole steps."""
+    dev = lm.embed_table(qparams).device
+    B, P = args.batch, args.prompt_len
+    rng = np.random.default_rng(args.seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B, P))).to(dev)
+    prefill = St.make_prefill_step(cfg, max_len=P + args.gen)
+    decode = decode_step if decode_step is not None else St.make_decode_step(cfg)
+    with obs_metrics.scoped() as reg:
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, caches = prefill(qparams, {"tokens": tokens})
+        out = [logits[:, -1].argmax(-1)]
+        _sync(dev)
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        steps, first_logits = [], None
+        for i in range(args.gen - 1):
+            ts = time.perf_counter()
+            pos = torch.full((B,), P + i, dtype=torch.int64, device=dev)
+            logits, caches = decode(qparams, caches,
+                                    {"tokens": out[-1][:, None], "pos": pos})
+            out.append(logits[:, -1].argmax(-1))
+            _sync(dev)
+            steps.append(time.perf_counter() - ts)
+            if first_logits is None:
+                first_logits = logits
+    gen = torch.stack(out, dim=1).cpu().numpy()
+    n_tok = B * (args.gen - 1)
+    t_dec = sum(steps)
+    step_ms = 1e3 * t_dec / len(steps) if steps else None
+    print(f"  prefill {B}x{P}: {prefill_ms:.1f} ms")
+    print(f"  decode: {n_tok} tokens in {1e3 * t_dec:.1f} ms "
+          f"({n_tok / max(t_dec, 1e-9):.1f} tok/s)"
+          + (f", decode-only step {step_ms:.3f} ms" if step_ms else ""))
+    print(f"  sample generation (batch 0): {gen[0].tolist()}")
+    ops = _dispatch_counts(reg.snapshot()["counters"])
+    print(f"  kernel dispatches: {ops}")
+    return {"tokens": gen, "first_logits": first_logits, "prefill_ms": prefill_ms,
+            "seconds": t_dec, "decoded": n_tok,
+            "tok_per_s": n_tok / max(t_dec, 1e-9), "decode_step_ms": step_ms,
+            "dispatches": ops}
+
+
 def serve_paged(cfg, qparams, args, engine: Engine | None = None) -> dict:
     """Run the request stream through the engine; print and return the
     run's numbers (requests, tokens, wall time, mean time of steps that
@@ -189,12 +287,7 @@ def serve_paged(cfg, qparams, args, engine: Engine | None = None) -> dict:
           f"{m['decode_steps']}, prefill chunks {m['prefill_chunks']}, "
           f"preemptions {m['preemptions']}, util {m['slot_utilization']:.2f}"
           + (f", decode-only step {step_ms:.3f} ms" if step_ms else ""))
-    ops: dict = {}
-    for k, v in m["metrics"]["counters"].items():
-        if k.startswith("kernel_dispatch_total"):
-            labels = dict(p.split("=", 1) for p in k[k.index("{") + 1:-1].split(","))
-            key = f"{labels['op']}:{labels['backend']}"
-            ops[key] = ops.get(key, 0) + int(v)
+    ops = _dispatch_counts(m["metrics"]["counters"])
     print(f"  kernel dispatches: {ops}")
     if args.metrics_out:
         with open(args.metrics_out, "w") as fh:
@@ -229,7 +322,10 @@ def main(argv=None) -> int:
     except ValueError as e:
         ap.error(str(e))
     cfg, qparams = prepare(args)
-    serve_paged(cfg, qparams, args)
+    if args.paged:
+        serve_paged(cfg, qparams, args)
+    else:
+        serve_fixed(cfg, qparams, args)
     return 0
 
 

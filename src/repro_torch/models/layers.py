@@ -4,24 +4,28 @@ The port's counterpart of ``repro/models/layers.py``: ``dense`` (plain or
 packed-serving dispatch), RMSNorm, RoPE, the attention math (the same
 masked softmax as the reference: an online softmax over key chunks for
 prefill, a dense masked softmax for one-token decode), the int8 and int4
-KV codecs, the attention layer's no-cache prefill branch and its paged
+KV codecs, the attention layer's no-cache prefill branch, its dense slot
+cache branch (the fixed-batch loop's one-token decode) and its paged
 branches (chunked prefill, single-pass decode and split-KV decode), the
 swiglu MLP, and the GShard-style MoE layer (``moe_apply``: f32 router,
 top-k with capacity dropping, per-expert planned projections through the
 registry's ``expert_dequant_matmul`` / ``expert_lut_gemm``, and the shared
 expert).
 
-One-token decode over an int8 or int4 pool goes through the registry's
-``paged_attention`` (kv_splits 1) or ``paged_attention_splitkv`` (kv_splits
-> 1) op, whose CUDA kernels replace the reference's Pallas pair; the
-reference's own engine attends through jnp there (layers.py:515-607), and
-the op's plain version is that math. An unquantized pool (the smoke
-configs) has no kernel: it attends in plain torch, as the reference does.
-``scaled_dot_product_attention`` is not used. Ring-paged local layers wait
-(ROADMAP queue 1, item 6); QAT waits for the training slice.
+One-token decode over an int8 or int4 cache goes through the registry:
+``kv_cache_attention`` over a dense slot cache, ``paged_attention``
+(kv_splits 1) or ``paged_attention_splitkv`` (kv_splits > 1) over a
+pool. Their CUDA kernels replace the reference's Pallas kernels; the
+reference itself attends through jnp on both paths (layers.py:515-607
+and :608-638), and each op's plain version is that math. An unquantized
+cache (the smoke configs) has no kernel: it attends in plain torch, as
+the reference does. ``scaled_dot_product_attention`` is not used. Local
+layers, with their ring buffer and ring-paged pool, wait for gemma3
+(ROADMAP queue 1, items 4 and 6); QAT waits for the training slice.
 
-Paged cache updates happen in place: ``attn_apply`` scatters the new K/V
-rows into the shared pool tensors instead of returning a new pool.
+Cache updates happen in place: ``attn_apply`` writes the new K/V rows into
+the slot cache or scatters them into the shared pool tensors instead of
+returning new caches.
 """
 
 from __future__ import annotations
@@ -214,13 +218,50 @@ def _splitkv_decode(q: torch.Tensor, cache: dict, block_tables: torch.Tensor,
     return merge_splitkv_partials(acc, m_c, pr.sum(-1))[:, None].to(q.dtype)
 
 
+def _dense_slot_decode(q, k, v, cache: dict, pos: torch.Tensor, cfg,
+                       attn_backend: str) -> torch.Tensor:
+    """One-token decode over a dense slot cache (reference layers.py:
+    608-638 without the ring buffer): write row ``pos`` of each sequence
+    in place, then attend over rows <= pos. q (B, 1, KV, G, hd), k/v (B,
+    1, KV, hd)."""
+    if q.shape[1] != 1:
+        raise ValueError(f"a dense slot cache takes one-token decode steps, "
+                         f"got {q.shape[1]} tokens")
+    if cfg.kv_cache_dtype in KV_QUANT and "k_sc" in cache:
+        qf = KV_QUANT[cfg.kv_cache_dtype][0]
+        (k, k_sc), (v, v_sc) = qf(k), qf(v)
+        for name, new in (("k", k), ("v", v), ("k_sc", k_sc), ("v_sc", v_sc)):
+            _cache_update(cache[name], new, pos)
+        o = registry.dispatch("kv_cache_attention", q[:, 0], cache["k"],
+                              cache["k_sc"], cache["v"], cache["v_sc"], pos + 1,
+                              backend=attn_backend,
+                              bits=KV_BITS[cfg.kv_cache_dtype])
+        return o[:, None].to(q.dtype)
+    _cache_update(cache["k"], k, pos)
+    _cache_update(cache["v"], v, pos)
+    valid = torch.arange(cache["k"].shape[1], device=q.device)[None, :] <= pos[:, None]
+    return decode_attention(q, cache["k"], cache["v"], valid)
+
+
 def attn_apply(p: dict, x: torch.Tensor, *, cfg, cache: Optional[dict] = None,
                pos: Optional[torch.Tensor] = None,
                block_tables: Optional[torch.Tensor] = None,
-               kv_splits: int = 1, attn_backend: str = "auto") -> torch.Tensor:
+               kv_splits: int = 1, attn_backend: str = "auto",
+               collect: Optional[list] = None) -> torch.Tensor:
     """Self-attention layer. x (B, S, D). Without a cache: causal prefill
-    over the whole sequence. With a paged cache (pool dict) and block
-    tables (B, nb), rows [pos, pos+S) are written into the pool in place:
+    over the whole sequence, over the raw K/V; ``collect``, where given,
+    receives {"k", "v"}: the post-RoPE, unquantized K/V (B, S, KV, hd).
+
+    With a dense slot cache (B, S_cache, ...) and no block tables: a
+    one-token decode step (S == 1) at positions ``pos`` (B,). The new row
+    is quantized (int8/int4 cache) and written at row ``pos`` in place;
+    then an int8/int4 cache attends through the registry's
+    ``kv_cache_attention`` op with lengths pos + 1 on ``attn_backend``,
+    an unquantized one through ``decode_attention`` in plain torch, as
+    the reference does.
+
+    With a paged cache (pool dict) and block tables (B, nb), rows [pos,
+    pos+S) are written into the pool in place:
 
     - one-token decode (S == 1) over an int8/int4 pool: scatter the new row,
       then the registry's ``paged_attention`` (kv_splits 1) or
@@ -246,11 +287,12 @@ def attn_apply(p: dict, x: torch.Tensor, *, cfg, cache: Optional[dict] = None,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
+        if collect is not None:
+            collect.append({"k": k, "v": v})
         out = flash_attention(q, k, v, causal=True)
+    elif block_tables is None:
+        out = _dense_slot_decode(q, k, v, cache, pos, cfg, attn_backend)
     else:
-        if block_tables is None:
-            raise NotImplementedError("dense slot caches are not ported; "
-                                      "the port serves through the paged pool")
         bs_tok = cache["k"].shape[1]
         quant_cache = cfg.kv_cache_dtype in KV_QUANT and "k_sc" in cache
         if quant_cache:

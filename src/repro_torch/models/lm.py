@@ -9,8 +9,14 @@ list with one dict per layer (``ln1``, ``attn`` {wq, wk, wv, wo},
 ``cfg.moe_flags()`` marks, ``moe`` {w_router (D, E) f32, we_gate/we_up
 (E, D, F), we_down (E, F, D), shared {w_gate, w_up, w_down}}); weights
 keep the reference's (in, out) layout. The reference's ``lax.scan`` over
-stacked superblocks is a Python loop over ``layers`` here. Serving caches
-are a list of per-layer pool dicts (serving/cache.py), updated in place.
+stacked superblocks is a Python loop over ``layers`` here.
+
+Caches are a flat list with one dict per layer, in ``layers`` order,
+updated in place: the paged engine's block pools (serving/cache.py), or
+the fixed-batch loop's dense slot caches (``init_cache``,
+``prefill_to_cache``), one (B, S) slot per sequence. Both lay a layer out
+as ``_layer_cache`` does: k/v codes with f32 scales for an int8 or int4
+cache, k/v in the model dtype otherwise.
 """
 
 from __future__ import annotations
@@ -114,16 +120,72 @@ def init_params(cfg, generator: torch.Generator, device="cuda", *,
     return {**top, "layers": layers}
 
 
+def _layer_cache(cfg, rows: int, cols: int, dtype, device) -> dict:
+    """One global attention layer's cache, zeroed: (rows, cols, KV, ...)
+    tensors (a dense slot cache is (B, S, ...), a paged pool (n_blocks,
+    block_size, ...)). int8: k/v int8 (.., KV, hd) and k_sc/v_sc f32 (..,
+    KV); int4: k/v uint8 (.., KV, hd/2), two codes a byte, low nibble
+    first, and the same scales; bfloat16: k/v in ``dtype``."""
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    shape = (rows, cols, KV)
+    packed = {"int8": (torch.int8, hd), "int4": (torch.uint8, hd // 2)}
+    if cfg.kv_cache_dtype in packed:
+        code_dtype, width = packed[cfg.kv_cache_dtype]
+        return {"k": torch.zeros(shape + (width,), dtype=code_dtype, device=device),
+                "v": torch.zeros(shape + (width,), dtype=code_dtype, device=device),
+                "k_sc": torch.zeros(shape, dtype=torch.float32, device=device),
+                "v_sc": torch.zeros(shape, dtype=torch.float32, device=device)}
+    if cfg.kv_cache_dtype != "bfloat16":
+        raise NotImplementedError(f"kv_cache_dtype {cfg.kv_cache_dtype!r} is "
+                                  "not ported yet")
+    return {"k": torch.zeros(shape + (hd,), dtype=dtype, device=device),
+            "v": torch.zeros(shape + (hd,), dtype=dtype, device=device)}
+
+
+def init_cache(cfg, batch: int, max_len: int, device="cuda") -> list:
+    """The fixed-batch loop's decode cache, zeroed: one dense slot cache of
+    ``max_len`` rows per sequence for every layer (global attention only);
+    an unquantized cache holds the model dtype."""
+    _check_supported(cfg)
+    return [_layer_cache(cfg, batch, max_len, torch_dtype(cfg.dtype),
+                         resolve_device(device)) for _ in range(cfg.n_layers)]
+
+
+def prefill_to_cache(cfg, prefill_caches: list, prefill_len: int,
+                     max_len: int) -> list:
+    """``forward(..., collect_cache=True)``'s per-layer K/V (B, P, KV, hd),
+    post-RoPE and unquantized, -> decode buffers of ``max_len`` rows: each
+    layer zero-padded along the rows, then, for an int8 or int4 cache,
+    quantized through ``layers.KV_QUANT`` (a zero row gets scale 1e-8 and
+    code 0, as in the reference)."""
+    out = []
+    for kv in prefill_caches:
+        if kv["k"].shape[1] != prefill_len:
+            raise ValueError(f"prefill K/V hold {kv['k'].shape[1]} rows, "
+                             f"expected {prefill_len}")
+        padded = {name: torch.nn.functional.pad(
+            kv[name], (0, 0, 0, 0, 0, max_len - prefill_len)) for name in ("k", "v")}
+        if cfg.kv_cache_dtype in L.KV_QUANT:
+            qf = L.KV_QUANT[cfg.kv_cache_dtype][0]
+            k, k_sc = qf(padded["k"])
+            v, v_sc = qf(padded["v"])
+            padded = {"k": k, "v": v, "k_sc": k_sc, "v_sc": v_sc}
+        out.append(padded)
+    return out
+
+
 def apply_layer(p: dict, x: torch.Tensor, *, cfg, cache: Optional[dict] = None,
                 pos: Optional[torch.Tensor] = None,
                 block_tables: Optional[torch.Tensor] = None,
-                kv_splits: int = 1, attn_backend: str = "auto") -> torch.Tensor:
+                kv_splits: int = 1, attn_backend: str = "auto",
+                collect: Optional[list] = None) -> torch.Tensor:
     """One pre-norm decoder layer: x + attn(ln1(x)), then + mlp(ln2(.)) or
-    + moe(ln2(.))."""
+    + moe(ln2(.)). ``collect`` receives the layer's K/V (see
+    ``layers.attn_apply``)."""
     h = L.norm_apply(p["ln1"], x, cfg.norm)
     x = x + L.attn_apply(p["attn"], h, cfg=cfg, cache=cache, pos=pos,
                          block_tables=block_tables, kv_splits=kv_splits,
-                         attn_backend=attn_backend)
+                         attn_backend=attn_backend, collect=collect)
     h2 = L.norm_apply(p["ln2"], x, cfg.norm)
     if "moe" in p:
         return x + L.moe_apply(p["moe"], h2, cfg=cfg)
@@ -133,23 +195,29 @@ def apply_layer(p: dict, x: torch.Tensor, *, cfg, cache: Optional[dict] = None,
 def forward(params: dict, cfg, tokens: torch.Tensor, *,
             caches: Optional[list] = None, pos: Optional[torch.Tensor] = None,
             block_tables: Optional[torch.Tensor] = None, kv_splits: int = 1,
-            attn_backend: str = "auto"):
+            attn_backend: str = "auto", collect_cache: bool = False):
     """Token ids (B, S) -> (final hidden states (B, S, D), caches).
 
-    Without caches: a causal forward over the whole sequence. With paged
-    caches and block tables (B, nb): S == 1 is a batched decode step, S > 1
-    a chunk with per-row start positions ``pos`` (B,); the pools are
-    updated in place and returned. ``kv_splits`` (> 1: split-KV decode)
-    and ``attn_backend`` (the registry backend of the decode attention op)
+    Without caches: a causal forward over the whole sequence; with
+    ``collect_cache`` the returned caches are each layer's post-RoPE,
+    unquantized K/V ({"k", "v"}, (B, S, KV, hd)) for ``prefill_to_cache``,
+    else None. With paged caches and block tables (B, nb): S == 1 is a
+    batched decode step, S > 1 a chunk with per-row start positions
+    ``pos`` (B,). With dense slot caches and no tables: a one-token decode
+    step at positions ``pos`` (B,). Caches are updated in place and
+    returned. ``kv_splits`` (> 1: split-KV decode over the paged pool) and
+    ``attn_backend`` (the registry backend of the decode attention op)
     reach every layer's attention."""
     _check_supported(cfg)
+    collected = [] if collect_cache and caches is None else None
     x = embed_table(params)[tokens].to(torch_dtype(cfg.dtype))
     for i, lp in enumerate(params["layers"]):
         x = apply_layer(lp, x, cfg=cfg,
                         cache=None if caches is None else caches[i],
                         pos=pos, block_tables=block_tables, kv_splits=kv_splits,
-                        attn_backend=attn_backend)
-    return L.norm_apply(params["final_norm"], x, cfg.norm), caches
+                        attn_backend=attn_backend, collect=collected)
+    h = L.norm_apply(params["final_norm"], x, cfg.norm)
+    return h, caches if collected is None else collected
 
 
 def logits_fn(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:

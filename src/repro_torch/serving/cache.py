@@ -28,7 +28,8 @@ from collections import deque
 from typing import Optional
 
 import numpy as np
-import torch
+
+from repro_torch.models import lm
 
 NULL_BLOCK = 0
 
@@ -75,25 +76,9 @@ class BlockPool:
                 self._free.append(b)
 
 
-def _paged_attn_cache(cfg, n_blocks: int, block_size: int, dtype, device) -> dict:
-    KV, hd = cfg.n_kv_heads, cfg.hd
-    shape = (n_blocks, block_size, KV, hd)
-    packed = {"int8": (torch.int8, hd), "int4": (torch.uint8, hd // 2)}
-    if cfg.kv_cache_dtype in packed:
-        code_dtype, width = packed[cfg.kv_cache_dtype]
-        return {"k": torch.zeros(shape[:3] + (width,), dtype=code_dtype, device=device),
-                "v": torch.zeros(shape[:3] + (width,), dtype=code_dtype, device=device),
-                "k_sc": torch.zeros(shape[:3], dtype=torch.float32, device=device),
-                "v_sc": torch.zeros(shape[:3], dtype=torch.float32, device=device)}
-    if cfg.kv_cache_dtype != "bfloat16":
-        raise NotImplementedError(f"kv_cache_dtype {cfg.kv_cache_dtype!r} is "
-                                  "not ported yet")
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
-
-
 def init_paged_cache(cfg, n_blocks: int, block_size: int, dtype,
                      device) -> list:
-    """One pool dict per layer (attention layers only in this slice)."""
-    return [_paged_attn_cache(cfg, n_blocks, block_size, dtype, device)
+    """One pool dict per layer (attention layers only in this slice), laid
+    out by ``lm._layer_cache``."""
+    return [lm._layer_cache(cfg, n_blocks, block_size, dtype, device)
             for _ in range(cfg.n_layers)]

@@ -172,14 +172,13 @@ def test_serve_cli_smoke_on_cpu_exits_zero():
 
 
 @pytest.mark.parametrize("flags", [
-    [], ["--prefix-cache"], ["--prefill-batch", "2"], ["--spec-draft-plan", "w2a2"],
-    ["--ring"], ["--tp", "2"], ["--trace-out", "t.json"],
+    ["--prefill", "whole"], ["--prefix-cache"], ["--prefill-batch", "2"],
+    ["--spec-draft-plan", "w2a2"], ["--ring"], ["--tp", "2"], ["--trace-out", "t.json"],
     ["--a-scale", "static"], ["--nonuniform"], ["--temperature", "0.7"],
     ["--plan", "legacy"]])
 def test_serve_rejects_unported_flags_loudly(flags):
-    paged = [] if flags == [] else ["--paged"]
     args = serve.build_parser().parse_args(
-        ["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu", *paged, *flags])
+        ["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu", "--paged", *flags])
     with pytest.raises(ValueError, match="not ported|ROADMAP"):
         serve.validate_args(args)
 

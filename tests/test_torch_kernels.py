@@ -169,9 +169,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 def test_registry_dispatch_backends_and_counter():
     assert registry.op_names() == ("dequant_matmul", "expert_dequant_matmul",
-                                   "expert_lut_gemm", "lut_gemm",
-                                   "lut_gemm_bs_fused", "paged_attention",
-                                   "paged_attention_splitkv")
+                                   "expert_lut_gemm", "kv_cache_attention",
+                                   "lut_gemm", "lut_gemm_bs_fused",
+                                   "paged_attention", "paged_attention_splitkv")
     ap, wp, lut, _ = _lut_operands(3, 4, 64, 16, 2, 2)
     t = [torch.from_numpy(x) for x in (ap, wp, lut)]
     with obs_metrics.scoped(isolate=True) as reg:

@@ -14,6 +14,12 @@ Phases, each printing its lines:
               codeqwen1.5-7b (4096x4096, 4096x13440, 13440x4096; M = 1, 4),
               with kernel, plain, library (torch.matmul of bf16 activations
               against the pre-dequantized bf16 weight) and bound times; the
+              two-step lut_gemm_bitsliced (the row-parallel route of phase
+              13) at qwen's shapes and at the K slices tp=2 gives it (512 x
+              1024, 1408 x 1024), M 1, 4, 32, w2 and w4, per channel and g64,
+              and at the edges (M 1, one group per row, N off the warp tile,
+              K off the table chunk, groups of one pattern byte, a group
+              spanning chunks); the
               paged-attention pair at the qwen and codeqwen serve shapes,
               at 8k and 32k context (block 512), with G = 8 and at the edges
               (length 1, lengths off the block size, null-padded tables,
@@ -92,6 +98,23 @@ Phases, each printing its lines:
               launches exactly 3 x 48 x 16 times; a plain-GEMM re-run gives
               identical greedy tokens and first-step logits within the
               stated tolerance
+  13 tp       tensor-parallel serving (serve.py --tp 2 --paged): 2 ranks
+              spawned on this card through the port's launcher (gloo: NCCL
+              refuses two ranks on one card), qwen1.5-0.5b at full width
+              and depth serving phase 5's 12 requests under w2a8_bs. Launch
+              counts exact on each rank (lut_gemm_bitsliced 2 x 24 and
+              lut_gemm_bs_fused 5 x 24 per forward, paged_attention 24 per
+              decode step, the others 0); both ranks' greedy tokens and
+              first-decode-step logits identical to each other and to phase
+              5's w2a8_bs run, bit for bit; every lut_gemm_bitsliced call of
+              the first decode step identical to its plain version on the
+              same local inputs; each rank's packed planes exactly half of
+              the single-rank tree's. Then w2a8_bs_g64 the same way against a
+              single-rank g64 run: first-step calls within the grouped
+              tolerance, first-step logits within the stated tolerance.
+              Prints the backend, the decode-only step, tok/s and the bytes
+              per rank: two ranks sharing one card through gloo measure
+              correctness, not tensor-parallel speed
 
 Any failure exits nonzero. The line before the last is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}. Without a CUDA
@@ -367,6 +390,72 @@ def phase_kernels(torch, dev):
                    err == 0.0, k_ms, p_ms, l_ms, b, by)
             del w_deq, planes
     return rows
+
+
+# lut_gemm_bitsliced: the K slices a tp=2 serve gives it (wo 1024 -> 512,
+# w_down 2816 -> 1408), and (label, M, K, N, bits, group) edges
+TP_SLICES = ((512, 1024), (1408, 1024))
+BITSLICED_EDGES = (
+    ("M 1, K of one pattern group", 1, 4, 16, 2, None),
+    ("one group per row", 4, 1024, 256, 2, 1024),
+    ("N off the warp tile", 4, 1024, 1003, 2, None),
+    ("K off the chunk", 3, 1412, 64, 4, None),
+    ("one pattern group per scale group", 5, 512, 40, 2, 4),
+    ("group spans chunks", 32, 2048, 72, 4, 512),
+)
+
+
+def phase_bitsliced(torch, dev):
+    """The two-step lut_gemm_bitsliced against its plain version at qwen's
+    projection shapes and the tp=2 K slices (M 1, 4, 32; w2 and w4; per
+    channel and g64) and at the edges, with kernel, plain, library and
+    bound times."""
+    from repro_torch.core import packing, quant
+    from repro_torch.kernels.lut_gemm_bitsliced import (lut_gemm_bitsliced_cuda,
+                                                        lut_gemm_bitsliced_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+    cases = [("qwen", M, K, N, wb, G) for K, N in SHAPES + TP_SLICES
+             for M in ROWS for wb in (2, 4) for G in (None, 64)]
+    cases += [(label, M, K, N, wb, G) for label, M, K, N, wb, G in BITSLICED_EDGES]
+    for label, M, K, N, wb, G in cases:
+        codes = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
+                              dtype=torch.int8)
+        w_idx = torch.randint(0, 2 ** wb, (N, K), generator=gen, device=dev,
+                              dtype=torch.uint8)
+        planes = packing.pack_bitplanes_signed(w_idx, wb)
+        sc = None if G is None else (
+            torch.rand((N, K // G), generator=gen, device=dev) * 0.02 + 0.01)
+        kw = dict(w_bits=wb, group_size=G)
+        got = lut_gemm_bitsliced_cuda(codes, planes, sc, **kw)
+        torch.cuda.synchronize()
+        want = lut_gemm_bitsliced_plain(codes, planes, sc, **kw)
+        err = (got - want).abs().max().item()
+        ok = err == 0.0 if G is None else \
+            err <= TOL_BS_GROUPED * max(1.0, want.abs().max().item())
+        w_full = (w_idx.float() - 2 ** (wb - 1)) * (
+            1.0 if G is None else quant.expand_group_scales(sc, G))
+        w_deq, x = w_full.to(torch.bfloat16), codes.to(torch.bfloat16)
+        k_ms = graph_ms(torch, lambda: lut_gemm_bitsliced_cuda(codes, planes, sc, **kw))
+        p_ms = graph_ms(torch, lambda: lut_gemm_bitsliced_plain(codes, planes, sc, **kw),
+                        reps=3, replays=3)
+        l_ms = graph_ms(torch, lambda: torch.matmul(x, w_deq.T))
+        b, by = bound_ms(nbytes(codes, planes, sc) + M * N * 4, 2 * M * N * K,
+                         INT8_TC_OPS)
+        cfg = f"w{wb}" + (f"g{G}" if G else "")
+        rows.append({"kernel": "lut_gemm_bitsliced", "cfg": cfg, "label": label,
+                     "M": M, "K": K, "N": N, "max_abs_err": err, "ms": k_ms,
+                     "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b,
+                     "bound_by": by})
+        print(f"  lut_gemm_bitsliced {label:33s} {cfg:6s} M={M:<3d} K={K:<5d} "
+              f"N={N:<5d} err={err:.3g} kernel={k_ms:.5f}ms plain={p_ms:.5f}ms "
+              f"library={l_ms:.5f}ms bound={b:.5f}ms ({by})", flush=True)
+        if not ok:
+            fail(f"lut_gemm_bitsliced {label} {cfg} M={M} K={K} N={N} disagrees "
+                 f"with its plain version: max_abs_err={err}")
+        del w_full, w_deq
+    return {"lut_gemm_bitsliced": rows}
 
 
 # (label, E, M, K, N, bits, group, zero every 3rd expert's rows)
@@ -666,7 +755,7 @@ def run_engine(torch, serve, cfg, qparams, args, capture: dict, **engine_kw):
     res = serve.serve_paged(cfg, qparams, args, engine=engine)
     if not all(r.done for r in res["requests"]):
         fail("not every request finished")
-    res.pop("engine")
+    res["weight_bytes"] = res.pop("engine").per_device_weight_bytes()
     return res
 
 
@@ -771,30 +860,15 @@ def plant_long_context(torch, engine, ctx: int, steps: int, seed: int) -> list:
     return reqs
 
 
-@contextlib.contextmanager
+ATTN_OPS = ("paged_attention", "paged_attention_splitkv", "kv_cache_attention")
+
+
 def checked_attention_calls(errs: list):
     """While active, every attention op the registry sends to its kernel is
     also run through its plain version on the same inputs (no launch), and
     max|kernel - plain| / max|plain| of each call is appended to ``errs``."""
     from repro_torch.kernels import registry
-
-    saved = {name: registry.get(name) for name in
-             ("paged_attention", "paged_attention_splitkv", "kv_cache_attention")}
-
-    def checking(op):
-        def kernel(*arrays, **static):
-            out = op.kernel(*arrays, **static)
-            want = op.plain(*arrays, **static)
-            errs.append(((out - want).abs().max() / want.abs().max()).item())
-            return out
-        return kernel
-
-    for name, op in saved.items():
-        registry._REGISTRY[name] = dataclasses.replace(op, kernel=checking(op))
-    try:
-        yield
-    finally:
-        registry._REGISTRY.update(saved)
+    return registry.checked_against_plain(ATTN_OPS, errs)
 
 
 def fixed_run(torch, serve, cfg, qparams, args, attn_backend: str = "auto",
@@ -911,10 +985,12 @@ def main() -> int:
     from repro_torch.kernels.kv_cache_attention import kv_cache_attention_cuda
     from repro_torch.kernels.lut_dequant_matmul import dequant_matmul_cuda
     from repro_torch.kernels.lut_gemm import lut_gemm_cuda
-    from repro_torch.kernels.lut_gemm_bitsliced import lut_gemm_bs_fused_cuda
+    from repro_torch.kernels.lut_gemm_bitsliced import (lut_gemm_bitsliced_cuda,
+                                                        lut_gemm_bs_fused_cuda)
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                      paged_attention_splitkv_cuda)
-    from repro_torch.launch import serve
+    from repro_torch.launch import mesh, serve
+    from repro_torch.models import lm
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -946,12 +1022,13 @@ def main() -> int:
 
     print("[4 kernels] kernel vs plain at the serving shapes "
           f"(tolerances: lut_gemm exact / grouped {TOL_LUT_GROUPED} rel, "
-          f"dequant_matmul exact, lut_gemm_bs_fused exact / "
-          f"grouped {TOL_BS_GROUPED} rel, paged attention {TOL_ATTN} rel, "
+          f"dequant_matmul exact, lut_gemm_bs_fused and lut_gemm_bitsliced exact "
+          f"/ grouped {TOL_BS_GROUPED} rel, paged attention {TOL_ATTN} rel, "
           "kv_cache_attention exact, "
           f"expert_lut_gemm exact / grouped {TOL_EXPERT_GROUPED} rel, "
           "expert_dequant_matmul exact)", flush=True)
     rows = phase_kernels(torch, dev)
+    rows.update(phase_bitsliced(torch, dev))
     rows.update(phase_attention(torch, dev))
     rows.update(phase_kv_cache_attention(torch, dev))
     rows.update(phase_experts(torch, dev))
@@ -959,6 +1036,7 @@ def main() -> int:
 
     gemms = {"lut_gemm": lut_gemm_cuda, "dequant_matmul": dequant_matmul_cuda,
              "lut_gemm_bs_fused": lut_gemm_bs_fused_cuda,
+             "lut_gemm_bitsliced": lut_gemm_bitsliced_cuda,
              "expert_dequant_matmul": expert_dequant_matmul_cuda,
              "expert_lut_gemm": expert_lut_gemm_cuda}
     attns = {"paged_attention": paged_attention_cuda,
@@ -998,6 +1076,12 @@ def main() -> int:
               flush=True)
         expect_launches(plan, launches, {op: 7 * cfg.n_layers * forwards,
                                          "paged_attention": cfg.n_layers * m["decode_steps"]})
+        if plan == "w2a8_bs":         # phase 13's single-rank reference
+            tp1_bs = {"tokens": [r.out for r in res_k["requests"]],
+                      "first_logits": cap_k["first_logits"].cpu(),
+                      "packed_bytes": {p: qw.packed.numel() * qw.packed.element_size()
+                                       for p, qw in lm.qweights(qparams).items()},
+                      "weight_bytes": res_k["weight_bytes"]}
 
         # 6: the same run with the registry's GEMMs forced onto the plain
         # versions; attention stays on its kernel
@@ -1342,6 +1426,110 @@ def main() -> int:
         "plain_tok_per_s": res_p["tok_per_s"], "tokens_identical": same,
         "logits_rel_diff": rel}
     del qparams, res_k, res_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13: tensor-parallel serving, 2 ranks on this card through --tp's own
+    # launcher: w2a8_bs against phase 5's single-rank run, then w2a8_bs_g64
+    # against a single-rank run here
+    print(f"[13 tp] started at {time.perf_counter() - t_start:.1f}s", flush=True)
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen1.5-0.5b")
+    tp = {}
+    for plan in ("w2a8_bs", "w2a8_bs_g64"):
+        argv = ["--arch", "qwen1.5-0.5b", "--paged", "--plan", plan, "--device",
+                "cuda"]
+        args = serve.build_parser().parse_args(argv + ["--tp", "2"])
+        if plan == "w2a8_bs":
+            ref = tp1_bs
+        else:
+            cfg_1, qparams = serve.prepare(args)
+            cap = {}
+            res_1 = run_engine(torch, serve, cfg_1, qparams, args, cap)
+            ref = {"tokens": [r.out for r in res_1["requests"]],
+                   "first_logits": cap["first_logits"].cpu(),
+                   "packed_bytes": {p: qw.packed.numel() * qw.packed.element_size()
+                                    for p, qw in lm.qweights(qparams).items()},
+                   "weight_bytes": res_1["weight_bytes"]}
+            del qparams, res_1, cap
+            gc.collect()
+            torch.cuda.empty_cache()
+        backend = mesh.backend_for(2, dev)
+        t0 = time.perf_counter()
+        res = mesh.run_ranks(serve.serve_rank, 2, args, ("lut_gemm_bitsliced",),
+                             device="cuda")
+        wall_s = time.perf_counter() - t0
+        n = cfg.n_layers
+        forwards = res["decode_steps"] + res["prefill_chunks"]
+        for r, rk in enumerate(res["ranks"]):
+            expect_launches(f"tp {plan} rank {r}", rk["launches"],
+                            {"lut_gemm_bitsliced": 2 * n * forwards,
+                             "lut_gemm_bs_fused": 5 * n * forwards,
+                             "paged_attention": n * res["decode_steps"]})
+        errs = [rk["first_step_errs"]["lut_gemm_bitsliced"] for rk in res["ranks"]]
+        calls = [rk["first_step_calls"]["lut_gemm_bitsliced"] for rk in res["ranks"]]
+        toks = res["tokens"]
+        same = sum(a == b for a, b in zip(toks, ref["tokens"]))
+        first = torch.from_numpy(res["first_logits"])
+        rel = rel_diff(first, ref["first_logits"])
+        identical = torch.equal(first, ref["first_logits"])
+        half = [sum(rk["role_packed_bytes"].values()) for rk in res["ranks"]]
+        whole = sum(ref["packed_bytes"][p] for p in res["ranks"][0]["role_packed_bytes"])
+        exact_half = all(2 * b == ref["packed_bytes"][p] for rk in res["ranks"]
+                         for p, b in rk["role_packed_bytes"].items())
+        n_roles = len(res["ranks"][0]["role_packed_bytes"])
+        print(f"[13 tp] {cfg.name} {plan}, --tp 2 on one card: backend {backend} "
+              f"({res['backend']} in the ranks, on {res['device']}); the column "
+              f"gather ran as a gloo all_gather on CUDA tensors: "
+              f"{res['backend'] == 'gloo' and res['device'].startswith('cuda')}; "
+              f"{len(toks)} requests, {sum(map(len, toks))} tokens, "
+              f"{res['tok_per_s']:.1f} tok/s, decode-only step "
+              f"{res['decode_step_ms']:.3f} ms on {smi}; {wall_s:.1f}s wall with "
+              f"the ranks' start | launches per rank {[rk['launches'] for rk in res['ranks']]} "
+              f"over {forwards} forwards, {res['decode_steps']} decode steps",
+              flush=True)
+        print(f"[13 tp] {plan}: ranks agree on tokens and first-step logits: "
+              f"{res['ranks_agree']}; tokens identical to the single-rank run for "
+              f"{same}/{len(toks)} requests; first decode step logits identical "
+              f"{identical} (max rel diff {rel:.3g}); the first step's {calls} "
+              f"lut_gemm_bitsliced calls per rank within {errs} of their plain "
+              f"version (relative to max|plain|); packed bytes of the {n_roles} "
+              f"role-stamped leaves per rank {half} of {whole} at tp=1 (each "
+              f"exactly half: {exact_half}); parameter bytes per rank "
+              f"{[rk['weight_bytes'] for rk in res['ranks']]}, "
+              f"{ref['weight_bytes']} at tp=1", flush=True)
+        if not res["ranks_agree"]:
+            fail(f"tp {plan}: the ranks disagree on tokens or first-step logits")
+        if calls != [2 * n] * 2:
+            fail(f"tp {plan}: checked {calls} first-step lut_gemm_bitsliced calls, "
+                 f"want {2 * n} per rank")
+        if plan == "w2a8_bs":
+            if max(errs) != 0.0:
+                fail(f"tp {plan}: a first-step lut_gemm_bitsliced call differs "
+                     f"from its plain version by {max(errs)}")
+            if same != len(toks) or not identical:
+                fail(f"tp {plan}: tokens identical for {same}/{len(toks)} "
+                     f"requests, first-step logits identical {identical} (rel "
+                     f"{rel}) against phase 5's single-rank run")
+            if n_roles != 7 * n or not exact_half:
+                fail(f"tp {plan}: {n_roles} role-stamped leaves (want {7 * n}), "
+                     f"per-rank packed bytes exactly half: {exact_half}")
+        else:
+            if max(errs) > TOL_BS_GROUPED:
+                fail(f"tp {plan}: a first-step lut_gemm_bitsliced call differs "
+                     f"from its plain version by {max(errs)} > {TOL_BS_GROUPED}")
+            if rel > TOL_LOGITS:
+                fail(f"tp {plan}: first-step logits differ from the single-rank "
+                     f"run by {rel} > {TOL_LOGITS}")
+        tp[plan] = {"launches": [rk["launches"] for rk in res["ranks"]],
+                    "backend": res["backend"], "tok_per_s": res["tok_per_s"],
+                    "decode_step_ms": res["decode_step_ms"], "wall_s": wall_s,
+                    "tokens_identical": same, "logits_identical": identical,
+                    "logits_rel_diff": rel, "first_step_call_max_rel_err": max(errs),
+                    "role_packed_bytes_per_rank": half, "role_packed_bytes_tp1": whole,
+                    "weight_bytes_per_rank": [rk["weight_bytes"] for rk in res["ranks"]],
+                    "weight_bytes_tp1": ref["weight_bytes"]}
+    results["tp"] = tp
 
     print("[results] " + json.dumps({"engine": results}), flush=True)
     lc_split = long_ctx[LC_CONTEXTS[-1]]["split_launches"]
@@ -1370,6 +1558,10 @@ def main() -> int:
                "expert_lut_gemm": ("src/repro_torch/csrc/expert_gemm.cu",
                                    "src/repro/kernels/expert_dequant_matmul.py:167",
                                    moe["w2a2"]["launches"]["expert_lut_gemm"], "w2a2"),
+               "lut_gemm_bitsliced": ("src/repro_torch/csrc/lut_gemm_bitsliced.cu",
+                                      "src/repro/kernels/lut_gemm_bitsliced.py:155",
+                                      tp["w2a8_bs"]["launches"][0]["lut_gemm_bitsliced"],
+                                      "w2"),
                "kv_cache_attention": (
                    "src/repro_torch/csrc/kv_cache_attention.cu",
                    "src/repro/kernels/kv_cache_attention.py:81",

@@ -15,16 +15,24 @@ models/layers.py::_expert_matmul):
                quantizes each row, runs the bit-plane core and applies
                every scale (bit-plane leaves, scheme 'bs')
 
+  row-parallel w{b}a8_bs under ``use_tp`` -> the rows are quantized once
+               on the replicated activations, then the two-step
+               ``lut_gemm_bitsliced`` runs on the rank's K slice and the
+               scale epilogue follows the sum over ranks
+
+Tensor parallelism: ``quantize_weight(..., tp_role, tp_shards)`` records a
+leaf's Megatron role and pads a row leaf's K so every shard holds whole
+packed bytes and scale groups; ``shard_weight`` keeps one rank's slice of
+a role-stamped leaf (where the op's TP rule divides, else the whole leaf);
+``dense_serve`` passes the role to the registry, which gathers or sums.
+
 One difference from the reference: under the 'ref' backend the reference
 runs the w{b}a{b} route as a dequant dot (the GSPMD-shardable form); the
 port always dispatches ``lut_gemm`` and its 'ref' backend is the plain LUT
 sum. Both sum the same exact integer products per channel.
 
-Not ported yet, and raising: k-means codebooks, QAT, and tensor-parallel
-roles and autotuned tiles. The reference's two-step bit-sliced route
-(``lut_gemm_bitsliced``) serves only row-parallel leaves under a TP mesh;
-it comes with the TP slice (ROADMAP queue 1, item 11), and ``bridge.py``
-refuses such leaves.
+Not ported yet, and raising: k-means codebooks, QAT, autotuned tiles, and
+the expert leaves' TP roles (ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import torch
 
 from . import packing, quant
 from .lut import product_lut
+from repro_torch.dist import sharding
 from repro_torch.kernels import registry as kreg
 
 
@@ -91,7 +100,10 @@ class QuantizedWeight:
     scales (out,) or (out, in_pad/G) f32, and for w{b}a{b} leaves the
     activation codebook ``a_levels``, the product LUT ``plut`` and an
     optional static activation scale ``a_sc``. Bit-sliced leaves (scheme
-    'bs') hold (bits, out, in_pad/4) planes in ``packed`` and no ``plut``."""
+    'bs') hold (bits, out, in_pad/4) planes in ``packed`` and no ``plut``.
+    ``tp`` is the leaf's tensor-parallel role ('col', 'row' or None) and
+    ``tp_shards`` the number of ranks its arrays are cut over (1: whole);
+    ``in_features`` / ``out_features`` stay the whole layer's."""
     packed: torch.Tensor
     codebook: torch.Tensor
     scales: torch.Tensor
@@ -105,12 +117,16 @@ class QuantizedWeight:
     a_levels: Optional[torch.Tensor] = None
     plut: Optional[torch.Tensor] = None
     a_sc: Optional[torch.Tensor] = None
+    tp: Optional[str] = None
+    tp_shards: int = 1
 
     @property
     def k_padded(self) -> int:
-        if self.scheme == "bs":
-            return self.packed.shape[-1] * packing.BITPLANE_GROUP
-        return self.packed.shape[-1] * packing.PACK_FACTOR[self.bits]
+        """The whole layer's padded contraction length."""
+        per = packing.BITPLANE_GROUP if self.scheme == "bs" \
+            else packing.PACK_FACTOR[self.bits]
+        shards = self.tp_shards if self.tp == "row" else 1
+        return self.packed.shape[-1] * per * shards
 
     def unpacked_idx(self) -> torch.Tensor:
         if self.scheme == "bs":
@@ -118,12 +134,13 @@ class QuantizedWeight:
         return packing.unpack(self.packed, self.bits)
 
 
-def _k_multiple(policy: QuantPolicy) -> int:
+def _k_multiple(policy: QuantPolicy, tp_shards: int = 1) -> int:
     """Contraction-axis padding unit: the pack factor (or the scale group,
     itself a pack-factor multiple), lcm'd with the activation pack factor
     for w{b}a{b} LUT plans so both operands hold whole packed bytes, and
     with the plane group for the bit-sliced kernel (its activations stay
-    unpacked)."""
+    unpacked); times the shard count for a row-parallel leaf, so that every
+    shard holds whole packed bytes and whole scale groups."""
     m = policy.group_size if policy.group_size is not None \
         else packing.PACK_FACTOR[policy.w_bits]
     kern = policy.resolved_kernel()
@@ -131,7 +148,7 @@ def _k_multiple(policy: QuantPolicy) -> int:
         m = math.lcm(m, packing.PACK_FACTOR[policy.a_bits])
     if kern == "lut_gemm_bitsliced":
         m = math.lcm(m, packing.BITPLANE_GROUP)
-    return m
+    return m * max(tp_shards, 1)
 
 
 def _pad_k(wt: torch.Tensor, multiple: int) -> torch.Tensor:
@@ -170,10 +187,12 @@ def _codes(wt: torch.Tensor, bits: int, signed: bool, group_size):
 
 
 def quantize_weight(w: torch.Tensor, policy: QuantPolicy, *,
+                    tp_role: Optional[str] = None, tp_shards: int = 1,
                     a_static: Optional[float] = None) -> QuantizedWeight:
     """Offline quantize+pack of one dense weight: w (in, out) -> packed
     (out, in_pad/f), or (bits, out, in_pad/4) bit planes for the bit-sliced
-    kernel, on w's device."""
+    kernel, on w's device. ``tp_role`` / ``tp_shards`` record the split the
+    leaf is packed for: a 'row' leaf's K is padded for ``tp_shards``."""
     bits = policy.w_bits
     if bits is None:
         raise ValueError("quantize_weight needs a policy with w_bits set")
@@ -186,7 +205,8 @@ def quantize_weight(w: torch.Tensor, policy: QuantPolicy, *,
         raise ValueError("bit-sliced route needs signed uniform w{b}a{b} "
                          "quantization")
     G = policy.group_size
-    wt = _pad_k(w.T.to(torch.float32).contiguous(), _k_multiple(policy))  # (out, in_pad)
+    mult = _k_multiple(policy, tp_shards if tp_role == "row" else 1)
+    wt = _pad_k(w.T.to(torch.float32).contiguous(), mult)        # (out, in_pad)
     scales, idx = _codes(wt, bits, policy.signed, G)
     levels = quant.uniform_codebook(bits, policy.signed, device=w.device).levels
     a_levels, plut = _act_tables(policy, levels)
@@ -205,7 +225,50 @@ def quantize_weight(w: torch.Tensor, policy: QuantPolicy, *,
         packed=packed, codebook=levels, scales=scales, bits=bits,
         in_features=w.shape[0], out_features=w.shape[1], group_size=G,
         a_bits=policy.a_bits, scheme=scheme, kernel=kern,
-        a_levels=a_levels, plut=plut, a_sc=a_sc)
+        a_levels=a_levels, plut=plut, a_sc=a_sc, tp=tp_role)
+
+
+def _tp_op(qw: QuantizedWeight) -> tuple[str, tuple]:
+    """The op ``dense_serve`` sends a role-stamped leaf to under TP, and
+    the whole shapes of its operands (the activation's K, in the form the
+    op takes it, then the leaf's own tensors; None for an empty slot)."""
+    K, G = qw.k_padded, qw.group_size
+    if qw.a_bits is None:
+        return "dequant_matmul", ((1, K), qw.packed, qw.codebook, qw.scales)
+    if qw.kernel == "lut_gemm_bitsliced":
+        if qw.tp == "row":
+            return "lut_gemm_bitsliced", ((1, K), qw.packed,
+                                          qw.scales if G is not None else None)
+        return "lut_gemm_bs_fused", ((1, K), qw.packed, qw.scales, None)
+    return "lut_gemm", ((1, K // packing.PACK_FACTOR[qw.a_bits]), qw.packed,
+                        qw.plut, qw.scales if G is not None else None)
+
+
+def shard_weight(qw: QuantizedWeight, rank: int, world: int) -> QuantizedWeight:
+    """Rank ``rank``'s slice of a role-stamped leaf for ``world`` ranks: the
+    tensors its op's TP rule cuts (``packed``, and ``scales`` where the op
+    takes them) keep the rank's N ('col') or K ('row') range; codebooks,
+    tables and a static scale stay whole. A leaf whose rule does not divide
+    stays whole on every rank and loses its role, as in the reference.
+    Leaves without a role, and ``world`` 1, pass through."""
+    if qw.tp is None or world == 1:
+        return qw
+    name, operands = _tp_op(qw)
+    shapes = tuple(None if t is None else tuple(t.shape) if torch.is_tensor(t)
+                   else t for t in operands)
+    axes = kreg.tp_split(name, qw.tp, {"group_size": qw.group_size}, shapes,
+                         world)
+    if axes is None:
+        return dataclasses.replace(qw, tp=None)
+    cut = {}
+    for ax, t in zip(axes[1:], operands[1:]):
+        if ax is None or t is None:
+            continue
+        field = next(f for f in ("packed", "scales") if getattr(qw, f) is t)
+        n = t.shape[ax] // world
+        cut[field] = t.narrow(ax, rank * n, n).clone(
+            memory_format=torch.contiguous_format)
+    return dataclasses.replace(qw, tp_shards=world, **cut)
 
 
 def quantize_expert_weight(w: torch.Tensor, policy: QuantPolicy) -> QuantizedWeight:
@@ -260,7 +323,16 @@ def dense_serve(qw: QuantizedWeight, x: torch.Tensor, *,
     scale rules (static leaf scale, else one dynamic scale per row).
     Bit-sliced leaves take the fused route: the raw rows go into
     ``lut_gemm_bs_fused`` with the scale (explicit, the leaf's static one,
-    or None for the op's own per-row amax) in its fourth slot."""
+    or None for the op's own per-row amax) in its fourth slot, except a
+    row-parallel leaf under ``use_tp``: the fused op's row amax needs the
+    whole K row, so the rows are quantized here, once, and the two-step
+    ``lut_gemm_bitsliced`` runs on the rank's K slice (per channel
+    bit-identical to the fused route: both sum the same exact integers and
+    apply the same epilogue). The leaf's TP role reaches every dispatch."""
+    tp_on = sharding.active_tp() is not None
+    if qw.tp_shards > 1 and not tp_on:
+        raise ValueError("a rank's slice of a tensor-parallel leaf runs only "
+                         "under dist.sharding.use_tp")
     if a_bits is None and qw.kernel in ("lut_gemm", "lut_gemm_bitsliced"):
         a_bits = qw.a_bits
     lead = x.shape[:-1]
@@ -275,32 +347,45 @@ def dense_serve(qw: QuantizedWeight, x: torch.Tensor, *,
     if a_bits is None:
         y = kreg.dispatch("dequant_matmul", xm.contiguous(), qw.packed,
                           qw.codebook, qw.scales, bits=qw.bits, group_size=G,
-                          backend=backend)
+                          backend=backend, tp=qw.tp)
     else:
         # static (calibrated offline) scale from the leaf, else dynamic: one
         # scale per row, so rows stay batch-composition-independent
         if a_scale is None and qw.a_sc is not None and a_bits == qw.a_bits:
             a_scale = qw.a_sc.reshape(1, 1).to(torch.float32)
-        if qw.kernel == "lut_gemm_bitsliced":
+        two_step = qw.kernel == "lut_gemm_bitsliced" and qw.tp == "row" and tp_on
+        if qw.kernel == "lut_gemm_bitsliced" and not two_step:
             # the op quantizes the rows itself and applies every scale
             y = kreg.dispatch("lut_gemm_bs_fused", xm.contiguous(), qw.packed,
                               qw.scales, a_scale, w_bits=qw.bits,
-                              a_bits=a_bits, group_size=G, backend=backend)
+                              a_bits=a_bits, group_size=G, backend=backend,
+                              tp=qw.tp)
         else:
             if a_scale is None:
                 a_scale, _ = quant.compute_scale_zero_point(xm, a_bits, signed=True,
                                                             axis=0)   # (M, 1)
             aq = quant.quantize(xm, a_scale, bits=a_bits, signed=True)
-            a_idx = quant.to_index(aq, a_bits, True)
-            if qw.plut is not None and a_bits == qw.a_bits:
-                table = qw.plut
+            if two_step:
+                # int8 codes in, integer sums (or group-scaled partials) out,
+                # summed over the ranks by the registry
+                y = kreg.dispatch("lut_gemm_bitsliced",
+                                  aq.to(torch.int8).contiguous(), qw.packed,
+                                  qw.scales if G is not None else None,
+                                  w_bits=qw.bits, a_bits=a_bits, group_size=G,
+                                  backend=backend, tp=qw.tp)
             else:
-                a_levels = quant.uniform_codebook(a_bits, True, device=x.device).levels
-                table = product_lut(qw.codebook, a_levels).table
-            y = kreg.dispatch("lut_gemm", packing.pack(a_idx, a_bits), qw.packed,
-                              table, qw.scales if G is not None else None,
-                              w_bits=qw.bits, a_bits=a_bits, group_size=G,
-                              backend=backend)
+                a_idx = quant.to_index(aq, a_bits, True)
+                if qw.plut is not None and a_bits == qw.a_bits:
+                    table = qw.plut
+                else:
+                    a_levels = quant.uniform_codebook(a_bits, True,
+                                                      device=x.device).levels
+                    table = product_lut(qw.codebook, a_levels).table
+                y = kreg.dispatch("lut_gemm", packing.pack(a_idx, a_bits),
+                                  qw.packed, table,
+                                  qw.scales if G is not None else None,
+                                  w_bits=qw.bits, a_bits=a_bits, group_size=G,
+                                  backend=backend, tp=qw.tp)
             y = y * a_scale if G is not None else y * qw.scales[None, :] * a_scale
     y = y[:n_rows]
     if bias is not None:

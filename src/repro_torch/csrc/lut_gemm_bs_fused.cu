@@ -7,9 +7,9 @@
 //   out[m, n]  = (acc * w_scales[n]) * a_scale[m]                        (f32)
 //   grouped:     (sum_g acc_g[m, n] * w_scales[n, g]) * a_scale[m]
 //
-// The weight arrives as b two's-complement bit planes (bits, N, K/4) u8:
-// plane p's byte kg holds bit p of codes 4kg..4kg+3 of idx XOR 2^(b-1), so
-// w = sum_p coef_p * bit_p with coef = (1, 2, ..., -2^(b-1)).
+// The weight arrives as b two's-complement bit planes (bits, N, K/4) u8;
+// the integer core (tables, patterns, plane dot) is bs_common.cuh, shared
+// with the two-step kernel (lut_gemm_bitsliced.cu).
 //
 // Replaces src/repro/kernels/lut_gemm_bitsliced.py::lut_gemm_bs_fused_pallas
 // (pallas_call at :368, body _bs_fused_kernel at :258-289). The Pallas body
@@ -46,13 +46,9 @@
 
 #include <cuda_bf16.h>
 
-#include "lut_common.cuh"
+#include "bs_common.cuh"
 
 namespace {
-
-constexpr int kGroup = 4;                 // codes per plane pattern byte
-constexpr int kEntries = 1 << kGroup;     // subset sums per group
-constexpr int kChunk = 64;                // pattern groups per table chunk
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -67,17 +63,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
     return v;
-}
-
-__device__ __forceinline__ int warp_sum_int(int v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
-}
-
-template <int BITS>
-__device__ __forceinline__ constexpr int plane_coef(int p) {
-    return p == BITS - 1 ? -(1 << p) : (1 << p);
 }
 
 template <int BITS, int MT, bool GROUPED, typename TX>
@@ -147,14 +132,7 @@ bs_fused_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ planes,
                     q[j] = static_cast<int>(fminf(fmaxf(rintf(v), qmin), qmax));
                 }
             }
-            int e[kEntries];
-            e[0] = 0;
-#pragma unroll
-            for (int j = 0; j < kGroup; ++j)
-#pragma unroll
-                for (int p = 0; p < (1 << j); ++p) e[(1 << j) + p] = e[p] + q[j];
-#pragma unroll
-            for (int p = 0; p < kEntries; ++p) s_lut[i][p][g] = static_cast<int16_t>(e[p]);
+            store_subset_sums(s_lut[i], g, q);
         }
         __syncthreads();
 
@@ -162,16 +140,12 @@ bs_fused_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ planes,
             for (int g = lane; g < cg; g += 32) {
                 const int kg = c0 + g;
                 unsigned pat[BITS];
-#pragma unroll
-                for (int p = 0; p < BITS; ++p)
-                    pat[p] = planes[(static_cast<size_t>(p) * N + n) * KG + kg] & (kEntries - 1);
+                load_patterns<BITS>(planes, N, KG, n, kg, pat);
                 float s = 1.f;
                 if (GROUPED) s = scales[static_cast<size_t>(n) * n_groups + kg / gpg];
 #pragma unroll
                 for (int i = 0; i < MT; ++i) {
-                    int v = 0;
-#pragma unroll
-                    for (int p = 0; p < BITS; ++p) v += plane_coef<BITS>(p) * s_lut[i][pat[p]][g];
+                    const int v = plane_dot<BITS>(s_lut[i], pat, g);
                     if (GROUPED)
                         accf[i] += static_cast<float>(v) * s;
                     else

@@ -9,12 +9,16 @@ libraries load with ``ctypes``; each C entry point takes every pointer and
 the stream as ``c_void_p`` and returns a ``cudaError_t``.
 
 Nothing here runs at import time: the first kernel launch builds. A build
-failure raises with the compiler's output; nothing falls back.
+failure raises with the compiler's output; nothing falls back. Processes
+that build at once (the ranks of a tensor-parallel serve) take turns on a
+file lock in the build directory, so each source compiles once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -45,6 +49,7 @@ SIGNATURES = {
     ("expert_gemm", "expert_dequant_matmul_launch"): [_P] * 5 + [_I] * 7 + [_P],
     ("expert_gemm", "expert_lut_gemm_launch"): [_P] * 5 + [_I] * 6 + [_P],
     ("kv_cache_attention", "kv_cache_attention_launch"): [_P] * 7 + [_I] * 7 + [_P],
+    ("lut_gemm_bitsliced", "lut_gemm_bitsliced_launch"): [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _LOCK = threading.Lock()
@@ -76,6 +81,18 @@ def _lib_path(stem: str, digest: str) -> Path:
     return BUILD_DIR / f"{stem}-{digest}.so"
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """Hold an exclusive lock on the build directory (across processes)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def build() -> dict[str, dict]:
     """Compile every source whose library is missing, one ``nvcc`` per
     source, all started together, with ``-Xptxas -v`` (registers, shared
@@ -83,8 +100,11 @@ def build() -> dict[str, dict]:
     library. Returns ``{stem: {"seconds", "log", "path", "built"}}`` for
     every source: ``built`` is false, and ``seconds`` 0, where the library
     was already there."""
-    digest = _digest()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _build_lock():
+        return _build(_digest())
+
+
+def _build(digest: str) -> dict[str, dict]:
     nvcc = nvcc_path()
     done = {}
     procs = {}

@@ -193,7 +193,9 @@ def ref_lut_gemm_bitsliced(a_codes: torch.Tensor, w_planes: torch.Tensor,
 
     exactly, in integers (exact in f32: |out| < 2^24 at the supported
     widths). With ``w_scales``/``group_size`` each scale group's integer
-    partial is scaled before the f32 sum over groups.
+    partial is scaled, then the groups are summed in f32 in ascending
+    order, one rounding per product and per sum: the order the two-step
+    kernel (csrc/lut_gemm_bitsliced.cu) sums them in.
 
     The reference lays its gather out per M regime for XLA:CPU (a
     lane-packed int32 gather for M >= 2). That is a layout trick that sums
@@ -230,8 +232,11 @@ def ref_lut_gemm_bitsliced(a_codes: torch.Tensor, w_planes: torch.Tensor,
         # row-major like the kernel's output: a transposed view would send
         # the layers after it down other (differently rounding) matmul paths
         return acc[:, 0].T.contiguous().to(torch.float32)        # (M, N)
-    accf = acc.permute(2, 0, 1).to(torch.float32)                # (M, N, K/G)
-    return (accf * w_scales[None].float()).sum(-1)
+    part = acc.permute(2, 0, 1).to(torch.float32) * w_scales[None].float()
+    out = part[..., 0].contiguous()                              # (M, N)
+    for g in range(1, part.shape[-1]):
+        out = out + part[..., g]
+    return out
 
 
 def ref_lut_gemm_bs_fused(x: torch.Tensor, w_planes: torch.Tensor,

@@ -5,9 +5,10 @@ The port's counterpart of ``repro/launch/serve.py``: random weights from
 ``--seed`` -> offline quantize+pack under a plan, every planned projection
 running through its kernel (``lut_gemm`` for w{b}a{b}, ``dequant_matmul``
 for w{b}a16, ``lut_gemm_bs_fused`` for the bit-sliced w2a8_bs, w2a8_bs_g64
-and w4a8_bs). On an MoE model every expert projection runs through
-``expert_lut_gemm`` (w{b}a{b}) or ``expert_dequant_matmul`` (w{b}a16 and
-the bit-sliced plans). Weights are drawn and packed one layer at a time.
+and w4a8_bs, and ``lut_gemm_bitsliced`` for their row-parallel
+projections under ``--tp``). On an MoE model every expert projection runs
+through ``expert_lut_gemm`` (w{b}a{b}) or ``expert_dequant_matmul``
+(w{b}a16 and the bit-sliced plans). Weights are drawn and packed one layer at a time.
 
 Without ``--paged`` (``serve_fixed``): ``--batch`` prompts of
 ``--prompt-len`` tokens are prefilled in one batch into dense slot caches
@@ -31,6 +32,22 @@ context) through the split-KV ``paged_attention_splitkv``.
       --smoke --device cpu                     # tiny, plain versions on CPU
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch moonshot-v1-16b-a3b --smoke --paged --device cpu --plan w2a16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+      --paged --tp 2 --plan w2a8_bs            # 2 ranks, tensor-parallel
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+      --smoke --paged --tp 2 --device cpu      # 2 gloo ranks on the CPU
+
+With ``--tp N`` (``--paged`` only) N ranks are spawned
+(``launch/mesh.py``): every rank draws the same weights, packs them for N
+ranks and keeps its slice of each planned projection, then serves the
+same request stream; rank 0 prints. Column-parallel projections (wq, wk,
+wv, w_gate, w_up) run their op on the rank's N slice and gather the
+outputs; row-parallel ones (wo, w_down) run on the rank's K slice and sum
+over the ranks, a bit-sliced leaf through the two-step
+``lut_gemm_bitsliced``. Attention, norms and the embedding run whole on
+every rank. Ranks on one card talk through gloo, ranks on cards of their
+own through NCCL. MoE models under ``--tp`` wait for the expert TP rules
+(ROADMAP queue 1, item 11).
 
 It takes the reference's flags and its rules: the engine's features
 (``--prefix-cache``, ``--prefill-batch`` > 1, ``--tp`` > 1,
@@ -46,16 +63,20 @@ reference's fixed loop come with their families (ROADMAP queue 1, item
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.configs import ARCHS, get_config, reduce_for_smoke
 from repro_torch.core.qplan import PLANS, get_plan, make_plan
 from repro_torch.device import resolve_device
+from repro_torch.kernels import registry
+from repro_torch.launch import mesh
 from repro_torch.launch import steps as St
 from repro_torch.models import lm
 from repro_torch.obs import metrics as obs_metrics
@@ -135,7 +156,10 @@ def validate_args(args) -> None:
         (args.spec_draft_plan is not None,
          f"--spec-draft-plan (speculative decoding) is not ported yet: {item6}"),
         (args.ring, f"--ring (ring-paged local layers) is not ported yet: {item6}"),
-        (args.tp > 1, "--tp > 1 is not ported yet: ROADMAP queue 1, item 11"),
+        (args.tp > 1 and args.arch in ARCHS
+         and get_config(args.arch).moe is not None,
+         "--tp > 1 on an MoE model (the expert TP rules) is not ported yet: "
+         "ROADMAP queue 1, item 11"),
         (args.trace_out is not None, f"--trace-out (tracer) is not ported yet: {item6}"),
         (args.a_scale == "static", "--a-scale static (calibration) is not "
          "ported yet: ROADMAP queue 1, item 2"),
@@ -150,6 +174,8 @@ def validate_args(args) -> None:
     for bad, msg in checks:
         if bad:
             raise ValueError(msg)
+    if args.tp < 1:
+        raise ValueError(f"--tp must be >= 1, got {args.tp}")
     if args.kv_splits != "auto" and not (args.kv_splits.isdigit()
                                          and int(args.kv_splits) >= 1):
         raise ValueError(f"--kv-splits must be auto or an int >= 1, got "
@@ -180,7 +206,7 @@ def make_requests(cfg, args) -> list[Request]:
 
 def make_engine(cfg, qparams, args, **engine_kw) -> Engine:
     """The engine the flags ask for; ``engine_kw`` reaches ``Engine`` (a
-    caller's ``attn_backend``)."""
+    caller's ``attn_backend``, a rank's ``tp_group``)."""
     max_len = args.prompt_len + args.gen + args.block_size
     max_len = -(-max_len // args.block_size) * args.block_size
     return Engine(cfg, qparams, n_slots=args.batch, max_len=max_len,
@@ -297,8 +323,9 @@ def serve_paged(cfg, qparams, args, engine: Engine | None = None) -> dict:
             "dispatches": ops, "engine": engine}
 
 
-def prepare(args):
-    """Config, plan and packed parameters for ``args`` on its device."""
+def prepare(args, tp: int = 1, rank: int = 0):
+    """Config, plan and packed parameters for ``args`` on its device; with
+    ``tp`` > 1, rank ``rank``'s slice of them."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -308,10 +335,67 @@ def prepare(args):
     print(f"[serve] {cfg.name} on {device}: packing weights under {desc}")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     t0 = time.perf_counter()
-    qparams = lm.init_params(cfg, gen, device, pack=True)   # layer by layer
+    qparams = lm.init_params(cfg, gen, device, pack=True, tp=tp,
+                             rank=rank)                  # layer by layer
     _sync(device)
-    print(f"  initialised and packed in {time.perf_counter() - t0:.2f}s")
+    print(f"  initialised and packed in {time.perf_counter() - t0:.2f}s"
+          + (f" (rank {rank}'s slice of {tp})" if tp > 1 else ""))
     return cfg, qparams
+
+
+def serve_rank(rank: int, world: int, args, check_ops: tuple = ()) -> dict:
+    """One rank of ``--tp``: pack this rank's slice, serve the request
+    stream through a tensor-parallel engine and return the run's numbers:
+    rank 0's greedy tokens and first decode step's logits, whether every
+    rank produced the same, the decode times, and per rank (``ranks``) its
+    kernel launches, its parameter bytes (all, and of the ``packed`` arrays
+    of its role-stamped leaves, by path) and, for each op in ``check_ops``,
+    how many calls the first decode step made and the largest difference
+    of any of them from the op's plain version on the same local inputs,
+    relative to max|plain| (those calls also run the plain version)."""
+    cfg, qparams = prepare(args, tp=world, rank=rank)
+    engine = make_engine(cfg, qparams, args, tp_group=dist.group.WORLD)
+    print(f"  rank {rank} of {world} on {engine.device} ({dist.get_backend()}): "
+          f"{engine.per_device_weight_bytes()} parameter bytes")
+    first: dict = {}
+    errs = {name: [] for name in check_ops}
+    inner = engine._decode_fn
+
+    def decode(*a):
+        with contextlib.ExitStack() as stack:
+            if not first:
+                for name in check_ops:
+                    stack.enter_context(registry.checked_against_plain(
+                        (name,), errs[name]))
+            logits = inner(*a)
+        first.setdefault("logits", logits.clone())
+        return logits
+
+    engine._decode_fn = decode
+    before = registry.launch_counts()
+    res = serve_paged(cfg, qparams, args, engine=engine)
+    tokens = [r.out for r in res["requests"]]
+    mine = {"tokens": tokens, "first_logits": first["logits"].cpu(),
+            "launches": {k: v - before[k] for k, v in registry.launch_counts().items()},
+            "weight_bytes": engine.per_device_weight_bytes(),
+            "role_packed_bytes": {p: qw.packed.numel() * qw.packed.element_size()
+                                  for p, qw in lm.qweights(qparams).items() if qw.tp},
+            "first_step_errs": {k: max(v, default=None) for k, v in errs.items()},
+            "first_step_calls": {k: len(v) for k, v in errs.items()}}
+    ranks = [None] * world
+    dist.all_gather_object(ranks, mine)
+    agree = all(r["tokens"] == tokens and torch.equal(r["first_logits"],
+                                                      mine["first_logits"])
+                for r in ranks)
+    for r in ranks:
+        del r["tokens"], r["first_logits"]
+    m = res["metrics"]
+    return {"tokens": tokens, "first_logits": mine["first_logits"],
+            "ranks_agree": agree, "ranks": ranks,
+            "decode_steps": m["decode_steps"],
+            "prefill_chunks": m["prefill_chunks"],
+            "tok_per_s": res["tok_per_s"], "decode_step_ms": res["decode_step_ms"],
+            "backend": dist.get_backend(), "device": str(engine.device)}
 
 
 def main(argv=None) -> int:
@@ -321,6 +405,14 @@ def main(argv=None) -> int:
         validate_args(args)
     except ValueError as e:
         ap.error(str(e))
+    if args.tp > 1:
+        dev = resolve_device(args.device)
+        print(f"[serve] --tp {args.tp}: {args.tp} ranks over "
+              f"{mesh.backend_for(args.tp, dev)} on {dev.type}")
+        res = mesh.run_ranks(serve_rank, args.tp, args, device=args.device)
+        print(f"  every rank produced the same tokens and first-step logits: "
+              f"{res['ranks_agree']}")
+        return 0 if res["ranks_agree"] else 1
     cfg, qparams = prepare(args)
     if args.paged:
         serve_paged(cfg, qparams, args)

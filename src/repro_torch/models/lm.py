@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core import qlinear
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import TP_ROLES
 from . import layers as L
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -53,7 +54,7 @@ def embed_table(params: dict) -> torch.Tensor:
 
 
 def init_params(cfg, generator: torch.Generator, device="cuda", *,
-                pack: bool = False) -> dict:
+                pack: bool = False, tp: int = 1, rank: int = 0) -> dict:
     """Random parameters from ``generator`` (which must live on ``device``):
     the reference's distributions (normal * fan_in^-0.5 dense and expert
     weights, an f32 router, zero biases, normal * 0.02 embeddings, unit
@@ -62,8 +63,13 @@ def init_params(cfg, generator: torch.Generator, device="cuda", *,
     after it is drawn, so the dense tree of a full-width model never exists
     at once (moonshot-v1-16b-a3b's bf16 experts alone are ~53 GB); the
     generator is drawn in the same order, so the result equals
-    ``quantize_tree(init_params(...), cfg)``."""
+    ``quantize_tree(init_params(...), cfg)``. With ``tp`` > 1 every rank
+    draws the same full weights, packs each layer for ``tp`` ranks and
+    keeps only rank ``rank``'s slice of it (``shard_tree``)."""
     _check_supported(cfg)
+    if tp > 1 and not pack:
+        raise ValueError("init_params: tp > 1 slices packed leaves; pass "
+                         "pack=True")
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     D, H, KV, hd, F = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
@@ -108,7 +114,9 @@ def init_params(cfg, generator: torch.Generator, device="cuda", *,
             lp["moe"] = moe()
         else:
             lp["mlp"] = mlp(F)
-        layers.append(quantize_tree(lp, cfg, f"layers.{i}") if pack else lp)
+        if pack:
+            lp = shard_tree(quantize_tree(lp, cfg, f"layers.{i}", tp=tp), rank, tp)
+        layers.append(lp)
     embed = normal(cfg.vocab_size, D, std=0.02)
     if cfg.tie_embeddings:
         top = {"tok_embed": embed, "final_norm": norm()}
@@ -116,7 +124,7 @@ def init_params(cfg, generator: torch.Generator, device="cuda", *,
         top = {"in_embed": embed, "final_norm": norm(),
                "lm_head": {"w": normal(D, cfg.vocab_size, std=D ** -0.5)}}
     if pack:
-        top = quantize_tree(top, cfg)
+        top = shard_tree(quantize_tree(top, cfg, tp=tp), rank, tp)
     return {**top, "layers": layers}
 
 
@@ -229,7 +237,7 @@ def logits_fn(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
     return torch.matmul(hidden.float(), params["lm_head"]["w"].float())
 
 
-def quantize_tree(tree, cfg, path: str = ""):
+def quantize_tree(tree, cfg, path: str = "", *, tp: int = 1):
     """Replace every plan-covered dense ``{"w": ...}`` with ``{"qw":
     QuantizedWeight}`` and every plan-covered expert stack (``we_gate``,
     ``we_up``, ``we_down``) with a ``QuantizedWeight`` (the paper's offline
@@ -237,17 +245,34 @@ def quantize_tree(tree, cfg, path: str = ""):
     ("layers.3.attn.wq"), matched by the plan's rules as in the reference;
     expert stacks resolve under the canonical "...moe.experts.<leaf>" tag,
     and the f32 router stays a raw array that no plan touches. ``path`` is
-    the tag of ``tree`` itself when it is a subtree ("layers.3")."""
+    the tag of ``tree`` itself when it is a subtree ("layers.3").
+
+    ``tp`` packs the tree for ``tp`` ranks, as the reference does: each
+    dense leaf gets its Megatron role (``TP_ROLES``), a row leaf's K is
+    padded so every shard holds whole packed bytes and scale groups, and a
+    column leaf whose N does not divide stays replicated (no role). The
+    leaves stay whole; ``shard_tree`` keeps one rank's slice. Expert TP
+    roles are not ported (ROADMAP queue 1, item 11)."""
     plan = cfg.quant
     if isinstance(tree, list):
-        return [quantize_tree(v, cfg, f"{path}.{i}") for i, v in enumerate(tree)]
+        return [quantize_tree(v, cfg, f"{path}.{i}", tp=tp)
+                for i, v in enumerate(tree)]
     if not isinstance(tree, dict):
         return tree
+
+    def role_for(name: str, out_dim: int):
+        role = TP_ROLES.get(name) if tp > 1 else None
+        return None if role == "col" and out_dim % tp else role
+
     out = {}
     for k, v in tree.items():
         tag = f"{path}.{k}" if path else k
         if k in ("we_gate", "we_up", "we_down"):
             lp = plan.policy_for(f"{path}.experts.{k}" if path else f"experts.{k}")
+            if lp is not None and v.ndim == 3 and role_for(k, v.shape[-1]):
+                raise NotImplementedError(
+                    f"{tag}: tensor-parallel expert leaves are not ported "
+                    "yet: ROADMAP queue 1, item 11")
             out[k] = qlinear.quantize_expert_weight(v, lp) \
                 if lp is not None and v.ndim == 3 else v
             continue
@@ -260,10 +285,38 @@ def quantize_tree(tree, cfg, path: str = ""):
                 raise NotImplementedError(
                     "static activation scales need the calibration pass, "
                     "which is not ported yet (ROADMAP queue 1, item 2)")
-            q = {"qw": qlinear.quantize_weight(v["w"], lp)}
+            q = {"qw": qlinear.quantize_weight(v["w"], lp, tp_shards=tp,
+                                               tp_role=role_for(k, v["w"].shape[-1]))}
             if "b" in v:
                 q["b"] = v["b"]
             out[k] = q
         else:
-            out[k] = quantize_tree(v, cfg, tag)
+            out[k] = quantize_tree(v, cfg, tag, tp=tp)
+    return out
+
+
+def shard_tree(tree, rank: int, world: int):
+    """``tree`` with every ``QuantizedWeight`` leaf replaced by rank
+    ``rank``'s slice of it for ``world`` ranks (``qlinear.shard_weight``);
+    every other array stays whole (replicated)."""
+    if isinstance(tree, qlinear.QuantizedWeight):
+        return qlinear.shard_weight(tree, rank, world)
+    if isinstance(tree, list):
+        return [shard_tree(v, rank, world) for v in tree]
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, rank, world) for k, v in tree.items()}
+    return tree
+
+
+def qweights(tree, path: str = "") -> dict:
+    """Every ``QuantizedWeight`` leaf of ``tree`` by its path
+    ("layers.3.attn.wq.qw")."""
+    if isinstance(tree, qlinear.QuantizedWeight):
+        return {path: tree}
+    items = enumerate(tree) if isinstance(tree, list) else \
+        tree.items() if isinstance(tree, dict) else ()
+    out = {}
+    for k, v in items:
+        tag = f"{path}.{k}" if path else str(k)
+        out.update(qweights(v, tag))
     return out

@@ -30,14 +30,24 @@ the port's kernels; the reference's engine attends through jnp there.
 ``attn_backend`` "ref" sends the attention op to its plain version on any
 device, so a run on the card can hold the kernels against it.
 
+Tensor parallelism: given a process group (``tp_group``), the engine runs
+its prefill and decode forwards inside ``dist.sharding.use_tp``, over a
+parameter tree that holds this rank's slice of every role-stamped leaf
+(``lm.init_params(..., tp=N, rank=r)`` or the bridge). Everything else,
+the KV pool, attention, norms, the embedding and the head included, is
+whole on every rank, as the reference's ``serve_tp`` preset computes it.
+The host scheduler runs unchanged and identically on every rank: the
+logits are replicated, so every rank samples the same tokens and makes the
+same decisions, and the collectives stay in step.
+
 Not ported yet (each raises): whole-prompt admission, batched prefill,
 the prefix-sharing radix cache, speculative decoding, ring-paged local
-layers, tensor parallelism, the tracer, and seeded sampling (ROADMAP
-queue 1, items 5-6 and 11).
+layers, the tracer, and seeded sampling (ROADMAP queue 1, items 5-6).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections import deque
 from typing import Callable, Optional
@@ -45,6 +55,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.dist import sharding
 from repro_torch.models import lm
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.metrics import MetricsRegistry
@@ -111,7 +122,8 @@ class Engine:
     ``chunk_size`` (prefill chunk, default two blocks), ``max_queue``,
     ``kv_splits`` ("auto" or an int >= 1; decode forwards only). The
     port's own ``attn_backend`` ("auto" or "ref") is the registry backend
-    of the decode attention op.
+    of the decode attention op; ``tp_group`` (a ``torch.distributed``
+    process group) makes the forwards tensor-parallel over it.
     """
 
     def __init__(self, cfg, params, *, n_slots: int, max_len: int,
@@ -120,7 +132,8 @@ class Engine:
                  prefill: str = "chunked", prefill_batch: int = 1,
                  prefix_cache: bool = False,
                  sampler: Optional[S.SamplerConfig] = None,
-                 kv_splits="auto", attn_backend: str = "auto"):
+                 kv_splits="auto", attn_backend: str = "auto",
+                 tp_group=None):
         if prefill != "chunked":
             raise _not_ported("whole-prompt admission", "queue 1, item 6")
         if prefill_batch != 1:
@@ -149,6 +162,7 @@ class Engine:
             raise ValueError(f"attn_backend must be 'auto' or 'ref': "
                              f"{attn_backend!r}")
         self.attn_backend = attn_backend
+        self.tp_group = tp_group
 
         self.cfg = cfg
         self.params = params
@@ -187,11 +201,15 @@ class Engine:
         return torch.as_tensor(np.asarray(x), dtype=torch.int64,
                                device=self.device)
 
+    def _tp(self):
+        return sharding.use_tp(self.tp_group) if self.tp_group is not None \
+            else contextlib.nullcontext()
+
     @torch.inference_mode()
     def _decode_fn(self, tables, tokens, pos) -> torch.Tensor:
         """One token for every slot: tokens (n_slots, 1), pos (n_slots,),
         tables (n_slots, nb_max). Returns (n_slots, V) f32 logits."""
-        with obs_metrics.scoped(registry=self.obs):
+        with obs_metrics.scoped(registry=self.obs), self._tp():
             h, _ = lm.forward(self.params, self.cfg, tokens, caches=self.caches,
                               pos=pos, block_tables=tables,
                               kv_splits=self.kv_splits,
@@ -202,7 +220,7 @@ class Engine:
     def _prefill_fn(self, table_row, tokens, start) -> None:
         """One prompt chunk for one request: tokens (1, chunk_size) (pad
         rows zero), start (1,) first row index."""
-        with obs_metrics.scoped(registry=self.obs):
+        with obs_metrics.scoped(registry=self.obs), self._tp():
             lm.forward(self.params, self.cfg, tokens, caches=self.caches,
                        pos=start, block_tables=table_row[None])
 
@@ -391,6 +409,23 @@ class Engine:
                 and self.steps < max_steps:
             self.step()
         return self.metrics()
+
+    def per_device_weight_bytes(self) -> int:
+        """Bytes of every parameter tensor this engine holds on its device:
+        under tensor parallelism the rank's slices of the role-stamped
+        leaves plus everything replicated (the reference's counterpart
+        counts the first mesh device's shards)."""
+        def walk(x) -> int:
+            if torch.is_tensor(x):
+                return x.numel() * x.element_size()
+            if dataclasses.is_dataclass(x):
+                return sum(walk(getattr(x, f.name)) for f in dataclasses.fields(x))
+            if isinstance(x, dict):
+                return sum(walk(v) for v in x.values())
+            if isinstance(x, (list, tuple)):
+                return sum(walk(v) for v in x)
+            return 0
+        return walk(self.params)
 
     def metrics(self) -> dict:
         util = self.busy_slot_steps / max(self.decode_steps * self.n_slots, 1)

@@ -263,7 +263,7 @@ def _engine_setup(arch: str, kv: str):
     tc = dataclasses.replace(tbase, n_layers=2, dtype="float32", kv_cache_dtype=kv,
                              quant=qplan.make_plan(2))
     qp = jlm.quantize_tree(jlm.init_params(KEY, jc), jc)
-    tq = bridge.qparams_from_jax(jax.tree.map(np.asarray, qp), tc)
+    tq = bridge.qparams_from_jax(jax.tree.map(np.asarray, qp), tc, device="cpu")
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, jc.vocab_size, size=n).astype(np.int32)
                for n in (5, 17, 9, 30)]

@@ -276,7 +276,7 @@ def _bs_setup(plan):
                                  quant=qplan.make_plan(**kw))
         jparams = jlm.init_params(KEY, jc)
         qp = jlm.quantize_tree(jparams, jc)
-        tq = bridge.qparams_from_jax(jax.tree.map(np.asarray, qp), tc)
+        tq = bridge.qparams_from_jax(jax.tree.map(np.asarray, qp), tc, device="cpu")
         _TREES[plan] = (jc, tc, jparams, qp, tq)
     return _TREES[plan]
 

@@ -217,12 +217,20 @@ def test_bitsliced_leaves_pack_as_scheme_bs():
 
 def test_bitsliced_plan_raises_and_points_at_its_slice():
     """A row-parallel bit-sliced leaf, which the reference serves through the
-    two-step lut_gemm_bitsliced route under a TP mesh, is refused with the
-    TP slice's ROADMAP item."""
+    two-step lut_gemm_bitsliced route under a TP mesh, now comes across with
+    its role and its rank slices; what the TP slice left for later, an
+    expert leaf with a role, is refused with its ROADMAP item."""
     from repro_torch import bridge
     pol = jqplan.get_plan("w2a8_bs").rules[-1][1]
-    leaf = jqlinear.quantize_weight(jnp.zeros((64, 8)), pol, tp_role="row",
-                                    tp_shards=2)
-    with pytest.raises(NotImplementedError, match="two-step.*queue 1, item 11"):
-        bridge._qw_from(jax.tree.map(np.asarray, leaf), None, "cpu")
+    leaf = jax.tree.map(np.asarray, jqlinear.quantize_weight(
+        jnp.zeros((64, 8)), pol, tp_role="row", tp_shards=2))
+    whole = bridge._qw_from(leaf, None, "cpu")
+    half = bridge._qw_from(leaf, None, "cpu", tp_rank=1, tp_size=2)
+    assert whole.tp == half.tp == "row" and half.k_padded == whole.k_padded == 64
+    assert tuple(half.packed.shape) == (2, 8, 8)
+    epol = jqplan.get_plan("w2a16").rules[-1][1]
+    expert = jqlinear.quantize_expert_weight(jnp.zeros((2, 64, 8)), epol,
+                                             tp_role="row", tp_shards=2)
+    with pytest.raises(NotImplementedError, match="expert.*queue 1, item 11"):
+        bridge._convert({"we_down": jax.tree.map(np.asarray, expert)}, None, "cpu")
     assert jax.default_backend() == "cpu"

@@ -57,7 +57,7 @@ def _setup(plan: str, kv: str):
                                  n_layers=2, dtype="float32", kv_cache_dtype=kv,
                                  quant=qplan.make_plan(**kw))
         qp = jlm.quantize_tree(jlm.init_params(KEY, jc), jc)
-        tq = bridge.qparams_from_jax(jax.tree.map(np.asarray, qp), tc)
+        tq = bridge.qparams_from_jax(jax.tree.map(np.asarray, qp), tc, device="cpu")
         rng = np.random.default_rng(1)
         prompts = [rng.integers(0, jc.vocab_size, size=n).astype(np.int32)
                    for n in PROMPT_LENS]
@@ -173,7 +173,8 @@ def test_serve_cli_smoke_on_cpu_exits_zero():
 
 @pytest.mark.parametrize("flags", [
     ["--prefill", "whole"], ["--prefix-cache"], ["--prefill-batch", "2"],
-    ["--spec-draft-plan", "w2a2"], ["--ring"], ["--tp", "2"], ["--trace-out", "t.json"],
+    ["--spec-draft-plan", "w2a2"], ["--ring"],
+    ["--tp", "2", "--arch", "moonshot-v1-16b-a3b"], ["--trace-out", "t.json"],
     ["--a-scale", "static"], ["--nonuniform"], ["--temperature", "0.7"],
     ["--plan", "legacy"]])
 def test_serve_rejects_unported_flags_loudly(flags):

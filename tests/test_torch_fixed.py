@@ -68,7 +68,7 @@ def _setup(arch: str, plan: str, kv: str):
                                  dtype="float32", kv_cache_dtype=kv,
                                  quant=qplan.make_plan(**kw))
         qp = jlm.quantize_tree(jlm.init_params(KEY, jc), jc)
-        tq = bridge.qparams_from_jax(jax.tree.map(np.asarray, qp), tc)
+        tq = bridge.qparams_from_jax(jax.tree.map(np.asarray, qp), tc, device="cpu")
         tokens = np.random.default_rng(1).integers(
             0, jc.vocab_size, size=(B, P)).astype(np.int32)
         jstep = (jax.jit(jsteps.make_prefill_step(jc, max_len=P + GEN)),
@@ -171,7 +171,7 @@ def test_prefill_to_cache_matches_reference(kv, dtype):
     jdt, tdt = jnp.dtype(dtype), lm.torch_dtype(dtype)
     want = jlm.prefill_to_cache(
         jc, jax.tree.map(lambda a: a.astype(jdt), _jax_collected(kv_np)), P, P + GEN)
-    want = bridge.cache_from_jax(jax.tree.map(np.asarray, want), tc)
+    want = bridge.cache_from_jax(jax.tree.map(np.asarray, want), tc, device="cpu")
     got = lm.prefill_to_cache(
         tc, [{n: torch.from_numpy(a).to(tdt) for n, a in layer.items()}
              for layer in kv_np], P, P + GEN)
@@ -195,7 +195,8 @@ def test_prefill_to_cache_matches_reference(kv, dtype):
 def test_init_cache_matches_reference_layout(kv):
     jc, tc, *_ = _setup("qwen1.5-0.5b", "w2a2", kv)
     want = bridge.cache_from_jax(
-        jax.tree.map(np.asarray, jlm.init_cache(jc, B, P + GEN, dtype=jnp.float32)), tc)
+        jax.tree.map(np.asarray, jlm.init_cache(jc, B, P + GEN, dtype=jnp.float32)), tc,
+        device="cpu")
     got = lm.init_cache(tc, B, P + GEN, device="cpu")
     for g, w in zip(got, want):
         assert {n: (t.dtype, t.shape) for n, t in g.items()} == \
@@ -214,12 +215,12 @@ def test_decode_step_from_reference_cache(kv):
     logits, jcache = prefill(qp, {"tokens": jnp.asarray(tokens)})
     nxt = np.asarray(jnp.argmax(logits[:, -1], -1))
     batch = {"tokens": jnp.asarray(nxt)[:, None], "pos": jnp.full((B,), P, jnp.int32)}
-    tcache = bridge.cache_from_jax(jax.tree.map(np.asarray, jcache), tc)
+    tcache = bridge.cache_from_jax(jax.tree.map(np.asarray, jcache), tc, device="cpu")
     want_logits, want_cache = decode(qp, jcache, batch)
     got_logits, tcache = steps.make_decode_step(tc)(
         tq, tcache, {"tokens": torch.from_numpy(nxt.copy()).long()[:, None],
                      "pos": torch.full((B,), P, dtype=torch.int64)})
-    want_cache = bridge.cache_from_jax(jax.tree.map(np.asarray, want_cache), tc)
+    want_cache = bridge.cache_from_jax(jax.tree.map(np.asarray, want_cache), tc, device="cpu")
     new = torch.arange(P + GEN) == P
     for g, w in zip(tcache, want_cache):
         for name in g:

@@ -170,8 +170,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 def test_registry_dispatch_backends_and_counter():
     assert registry.op_names() == ("dequant_matmul", "expert_dequant_matmul",
                                    "expert_lut_gemm", "kv_cache_attention",
-                                   "lut_gemm", "lut_gemm_bs_fused",
-                                   "paged_attention", "paged_attention_splitkv")
+                                   "lut_gemm", "lut_gemm_bitsliced",
+                                   "lut_gemm_bs_fused", "paged_attention",
+                                   "paged_attention_splitkv")
     ap, wp, lut, _ = _lut_operands(3, 4, 64, 16, 2, 2)
     t = [torch.from_numpy(x) for x in (ap, wp, lut)]
     with obs_metrics.scoped(isolate=True) as reg:
@@ -189,8 +190,8 @@ def test_registry_dispatch_backends_and_counter():
     with pytest.raises(ValueError, match="backend"):
         registry.dispatch("lut_gemm", *t, None, w_bits=2, a_bits=2,
                           backend="pallas")
-    with pytest.raises(KeyError, match="lut_gemm_bitsliced"):
-        registry.dispatch("lut_gemm_bitsliced", *t)
+    with pytest.raises(KeyError, match="lut65k_gemm"):
+        registry.dispatch("lut65k_gemm", *t)
 
 
 @pytest.mark.parametrize("plan", ["w2a2", "w2a2g64", "w4a8", "w2a16",

@@ -77,7 +77,7 @@ def _close(got: torch.Tensor, want, dtype, exact_bf16=True):
 
 def test_bridge_carries_every_array_bit_for_bit():
     jc, tc, params, qp = _setup("w2a2", "bfloat16")
-    tp = bridge.params_from_jax(jax.tree.map(np.asarray, params), tc)
+    tp = bridge.params_from_jax(jax.tree.map(np.asarray, params), tc, device="cpu")
     assert tp["tok_embed"].dtype == torch.bfloat16
     np.testing.assert_array_equal(tp["tok_embed"].view(torch.int16).numpy(),
                                   np.asarray(params["tok_embed"]).view(np.int16))
@@ -86,7 +86,7 @@ def test_bridge_carries_every_array_bit_for_bit():
         want = np.asarray(params["blocks"]["l0"]["attn"]["wq"]["w"][i]).view(np.int16)
         np.testing.assert_array_equal(
             tp["layers"][i]["attn"]["wq"]["w"].view(torch.int16).numpy(), want)
-    tq = bridge.qparams_from_jax(jax.tree.map(np.asarray, qp), tc)
+    tq = bridge.qparams_from_jax(jax.tree.map(np.asarray, qp), tc, device="cpu")
     qw = tq["layers"][1]["mlp"]["w_down"]["qw"]
     assert isinstance(qw, QuantizedWeight) and qw.kernel == "lut_gemm"
     jqw = qp["blocks"]["l0"]["mlp"]["w_down"]["qw"]
@@ -100,8 +100,8 @@ def test_quantize_tree_matches_reference(plan, dtype):
     """The port's own quantize_tree on carried-over plain weights packs
     exactly the reference's leaves."""
     jc, tc, params, qp = _setup(plan, dtype)
-    mine = lm.quantize_tree(bridge.params_from_jax(jax.tree.map(np.asarray, params), tc), tc)
-    ref = bridge.qparams_from_jax(jax.tree.map(np.asarray, qp), tc)
+    mine = lm.quantize_tree(bridge.params_from_jax(jax.tree.map(np.asarray, params), tc, device="cpu"), tc)
+    ref = bridge.qparams_from_jax(jax.tree.map(np.asarray, qp), tc, device="cpu")
     n = 0
     for lm_, lr in zip(mine["layers"], ref["layers"]):
         for blk in ("attn", "mlp"):
@@ -120,7 +120,8 @@ def test_quantize_tree_matches_reference(plan, dtype):
 
 def test_init_params_matches_reference_structure():
     jc, tc = _cfgs("w2a2", "bfloat16")
-    ref = bridge.params_from_jax(jax.tree.map(np.asarray, jlm.init_params(KEY, jc)), tc)
+    ref = bridge.params_from_jax(jax.tree.map(np.asarray, jlm.init_params(KEY, jc)), tc,
+                                 device="cpu")
     mine = lm.init_params(tc, torch.Generator().manual_seed(0), "cpu")
 
     def shapes(t):
@@ -137,7 +138,7 @@ def test_init_params_matches_reference_structure():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_layer_hidden_states_and_logits_match_reference(plan, dtype):
     jc, tc, _, qp = _setup(plan, dtype)
-    tq = bridge.qparams_from_jax(jax.tree.map(np.asarray, qp), tc)
+    tq = bridge.qparams_from_jax(jax.tree.map(np.asarray, qp), tc, device="cpu")
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, jc.vocab_size, size=(2, 11)).astype(np.int32)
     x = jnp.take(qp["tok_embed"], jnp.asarray(tokens), axis=0).astype(jnp.dtype(dtype))

@@ -86,7 +86,7 @@ def _setup(plan: str, **kw):
         jc, tc = _cfgs(plan, **kw)
         params = jlm.init_params(KEY, jc)
         qp = jlm.quantize_tree(params, jc)
-        tq = bridge.qparams_from_jax(jax.tree.map(np.asarray, qp), tc)
+        tq = bridge.qparams_from_jax(jax.tree.map(np.asarray, qp), tc, device="cpu")
         _SETUP[key] = (jc, tc, params, qp, tq)
     return _SETUP[key]
 
@@ -231,7 +231,7 @@ def test_quantize_tree_and_bridge_bit_identical_on_moe_tree(plan):
     expert stacks per layer, the shared expert, attention; the router stays
     a raw f32 array, bit for bit."""
     jc, tc, params, qp, tq = _setup(plan)
-    tp = bridge.params_from_jax(jax.tree.map(np.asarray, params), tc)
+    tp = bridge.params_from_jax(jax.tree.map(np.asarray, params), tc, device="cpu")
     mine = lm.quantize_tree(tp, tc)
     n = 0
     for i, (lm_, lr) in enumerate(zip(mine["layers"], tq["layers"])):
@@ -284,7 +284,7 @@ def test_layer_by_layer_init_and_pack_equals_init_then_quantize_tree(arch, plan)
 
 def test_init_params_matches_reference_structure():
     jc, tc, params, _, _ = _setup("w2a2")
-    ref = bridge.params_from_jax(jax.tree.map(np.asarray, params), tc)
+    ref = bridge.params_from_jax(jax.tree.map(np.asarray, params), tc, device="cpu")
     mine = lm.init_params(tc, torch.Generator().manual_seed(0), "cpu")
 
     def shapes(t):

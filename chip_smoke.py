@@ -23,7 +23,9 @@ Phases, each printing its lines:
               paged-attention pair at the qwen and codeqwen serve shapes,
               at 8k and 32k context (block 512), with G = 8 and at the edges
               (length 1, lengths off the block size, null-padded tables,
-              kv_splits above the table width, chunks past every length),
+              kv_splits above the table width, chunks past every length,
+              and a ragged 5008-row table whose single pass runs on 10
+              cluster ranks, 8 of them past one sequence's length),
               the library time being scaled_dot_product_attention over the
               pre-dequantized bf16 view; and the two expert GEMMs at
               moonshot-v1-16b-a3b's decode shapes (E 64, M 4, K x N =
@@ -35,9 +37,12 @@ Phases, each printing its lines:
               activations against the pre-dequantized bf16 weights; and
               kv_cache_attention over a dense slot cache at the fixed
               loop's serve shapes (qwen int8 and codeqwen int4, S 48), a
-              GQA shape with S 1000, and 8k / 32k context, the library
-              time being scaled_dot_product_attention over the
-              pre-dequantized bf16 view
+              GQA shape with S 1000, 8k / 32k context and a ragged S 5000
+              (lengths 4999 and 700), the library time being
+              scaled_dot_product_attention over the pre-dequantized bf16
+              view. Each single-pass attention line prints its cluster
+              size C (kernels/paged_attention.py::cluster_ranks), its
+              blocks and cudaOccupancyMaxActiveClusters
   5 engine    qwen1.5-0.5b at full width with seeded random weights, packed
               under w2a2, w2a16 and w2a8_bs in turn, serving 12 requests
               through the paged engine via repro_torch.launch.serve; launch
@@ -189,6 +194,7 @@ KV_CACHE_ROWS = (
     ("GQA G 4, S 1000", 2, 4, 4, 64, 8, 1000, (999, 517), "f32"),
     ("long 8k", 2, 16, 1, 64, 8, 8192, (8192, 8192), "bf16"),
     ("long 32k", 2, 16, 1, 64, 8, 32768, (32768, 32768), "bf16"),
+    ("ragged, ranks past a length", 2, 16, 1, 64, 8, 5000, (4999, 700), "bf16"),
 )
 # the fixed-batch loop's runs: (arch, plan, the plan's dense GEMM op)
 FIXED_RUNS = (("qwen1.5-0.5b", "w2a2", "lut_gemm"),
@@ -594,6 +600,7 @@ ATTN_ROWS = (
     ("edge off-block, padded", 3, 4, 2, 64, 8, 16, (17, 37, 95), 8, 1, "bf16"),
     ("edge off-block, padded", 3, 4, 2, 64, 4, 16, (17, 37, 95), 8, 3, "bf16"),
     ("edge splits > nb", 2, 4, 2, 64, 8, 16, (3, 40), 3, 7, "f32"),
+    ("ragged, ranks past a length", 2, 16, 1, 64, 8, 16, (4999, 700), 313, 1, "bf16"),
 )
 REPRESENTATIVE_ATTN = {"paged_attention": ("qwen serve", 1),
                        "paged_attention_splitkv": ("long 32k", 8)}
@@ -654,12 +661,21 @@ def phase_attention(torch, dev):
                "kv_splits": ks, "q": qdt, "max_abs_err": err, "max_abs_plain": scale,
                "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b,
                "bound_by": by}
+        if ks == 1:
+            C, active = PA.paged_attention_active_clusters(B, KV, G, hd, bs, nb, bits,
+                                                           q_dtype)
+            row.update(cluster=C, blocks=B * KV * C, active_clusters=active)
+            grid = (f"cluster {C}, {B * KV * C} blocks, {active} clusters active "
+                    "at once")
+        else:
+            ns = PA.split_partition(nb, ks)[0]
+            grid = f"{B * KV * ns} blocks + merge"
         rows[name].append(row)
         print(f"  {name:23s} {label:26s} B={B} KV={KV} G={G} hd={hd} int{bits} "
               f"bs={bs} len={list(lengths) if len(set(lengths)) > 1 else lengths[0]} "
               f"nb={nb} splits={ks} q={qdt} err={err:.3g} (max|plain| "
               f"{scale:.3g}) kernel={k_ms:.5f}ms plain={p_ms:.5f}ms "
-              f"sdpa={l_ms:.5f}ms bound={b:.5f}ms ({by})", flush=True)
+              f"sdpa={l_ms:.5f}ms bound={b:.5f}ms ({by}); {grid}", flush=True)
         if not ok:
             fail(f"{name} {label} disagrees with its plain version: "
                  f"max_abs_err={err}, max|plain|={scale}")
@@ -721,16 +737,20 @@ def phase_kv_cache_attention(torch, dev):
         n_bytes = (n_rows * KV * (hd * bits // 8 + 4) * 2 + nbytes(q)
                    + B * KV * G * hd * 4)
         b, by = bound_ms(n_bytes, 4 * n_rows * KV * G * hd, BF16_TC_FLOPS)
+        C, active = KA.kv_cache_attention_active_clusters(B, S, KV, G, hd, bits,
+                                                           q.dtype)
         rows.append({"kernel": "kv_cache_attention", "label": label, "B": B,
                      "KV": KV, "G": G, "hd": hd, "bits": bits, "S": S,
                      "lengths": list(lengths), "q": qdt, "max_abs_err": err,
                      "max_abs_plain": scale, "ms": k_ms, "plain_ms": p_ms,
-                     "library_ms": l_ms, "bound_ms": b, "bound_by": by})
+                     "library_ms": l_ms, "bound_ms": b, "bound_by": by,
+                     "cluster": C, "blocks": B * KV * C, "active_clusters": active})
         print(f"  kv_cache_attention      {label:26s} B={B} KV={KV} G={G} hd={hd} "
               f"int{bits} S={S} len={list(lengths) if len(set(lengths)) > 1 else lengths[0]} "
               f"q={qdt} err={err:.3g} (max|plain| {scale:.3g}) kernel={k_ms:.5f}ms "
               f"plain={p_ms:.5f}ms sdpa={l_ms:.5f}ms bound={b:.5f}ms ({by}); "
-              f"{B * KV} blocks on 132 SMs", flush=True)
+              f"cluster {C}, {B * KV * C} blocks, {active} clusters active at once",
+              flush=True)
         if not ok:
             fail(f"kv_cache_attention {label} disagrees with its plain version: "
                  f"max_abs_err={err}, max|plain|={scale}")
@@ -780,10 +800,12 @@ def profile_steps(torch, step, steps: int, label: str) -> dict:
         by_dev[e.name] = by_dev.get(e.name, 0.0) + e.time_range.elapsed_us()
     top_dev = sorted(by_dev.items(), key=lambda kv: -kv[1])[:5]
     top_cpu = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:6]
+    # kernel families by name: paged_attn_ is the paged single pass
+    # (paged_attn_cluster_kernel) and the split (paged_attn_split_kernel)
     fam_ms = {k: sum(us for n, us in by_dev.items() if k in n) / 1e3 / steps
-              for k in ("paged_attn_kernel", "merge_kernel", "kv_cache_attn_kernel",
+              for k in ("paged_attn_", "merge_kernel", "kv_cache_attn_kernel",
                         "expert_dequant_kernel", "expert_lut_kernel")}
-    attn_ms = {k: fam_ms[k] for k in ("paged_attn_kernel", "merge_kernel",
+    attn_ms = {k: fam_ms[k] for k in ("paged_attn_", "merge_kernel",
                                       "kv_cache_attn_kernel")}
     expert_ms = fam_ms["expert_dequant_kernel"] + fam_ms["expert_lut_kernel"]
     out = {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
@@ -797,7 +819,7 @@ def profile_steps(torch, step, steps: int, label: str) -> dict:
     print(f"{label}, {steps} steps: wall {wall_ms:.2f} ms/step, device busy "
           f"{busy_ms:.2f} ms/step (idle share {out['idle_share']:.3f}), "
           f"{out['kernels_per_step']:.0f} kernels/step, attention kernels "
-          f"{attn_ms['paged_attn_kernel']:.3f} ms/step (+ merge "
+          f"{attn_ms['paged_attn_']:.3f} ms/step (+ merge "
           f"{attn_ms['merge_kernel']:.3f}; dense-cache "
           f"{attn_ms['kv_cache_attn_kernel']:.3f}), expert kernels "
           f"{expert_ms:.3f} ms/step", flush=True)

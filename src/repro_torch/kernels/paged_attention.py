@@ -17,18 +17,27 @@ Three formulations live here:
                          view and take a masked softmax (the CPU path, and
                          what the card's kernels are held against)
   ``paged_attention_walk`` the kernels' own walk in torch: tiles of
-                         ``KERNEL_TILE`` tokens with a running (m, l, acc),
-                         the chunk partition ns = min(kv_splits, nb),
-                         nbc = ceil(nb / ns), and a stop at lengths[b]
-                         instead of the reference's null-padded tail
+                         ``KERNEL_TILE`` tokens with a running (m, l, acc)
+                         over chunks of the table, then the exact merge.
+                         The split's chunks are ns = min(kv_splits, nb) of
+                         nbc = ceil(nb / ns) entries; the single pass's are
+                         the C ranks of its thread-block cluster, from
+                         ``cluster_ranks``. Each stops at lengths[b] instead
+                         of the reference's null-padded tail
   ``*_cuda``             the kernel wrappers; each launches or raises
+
+``cluster_ranks`` is the one place that chooses how many ranks C the
+single-pass kernels (this one and ``kv_cache_attention``) split a walk
+into; it reads static shapes only, so no decode step waits on the device
+to choose it.
 
 Callers go through ``kernels/registry.py``. Where lengths[b] is 0 the
 oracle averages every row of the table (softmax of all-masked scores);
 the kernels and the walk read no row and return 0 there. The engine
 never passes a length of 0.
 
-Bound on the H100 and design: see the note at the top of the CUDA source.
+Bound on the H100 and design: see the notes at the top of the CUDA source
+and of ``csrc/attn_common.cuh``.
 """
 
 from __future__ import annotations
@@ -45,6 +54,14 @@ KERNEL_TILE = 128
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_MAX_G = 8
 POOL_DTYPE = {8: torch.int8, 4: torch.uint8}
+# the single-pass kernels' cluster split: the H100's SMs, the largest
+# cluster (csrc/attn_common.cuh kMaxCluster; above 8 a non-portable size),
+# the blocks an SM should hold at once (G == 1 / G > 1), and the fewest
+# tiles a rank should walk
+CARD_SMS = 132
+MAX_CLUSTER = 16
+BLOCKS_PER_SM = (3, 2)
+MIN_RANK_TILES = 2
 
 
 def merge_splitkv_partials(o: torch.Tensor, m: torch.Tensor,
@@ -83,20 +100,46 @@ def split_partition(nb: int, kv_splits: int) -> tuple[int, int]:
     return ns, -(-nb // ns)
 
 
+def cluster_ranks(extent: int, B: int, KV: int, G: int,
+                  unit: int = 1) -> tuple[int, int]:
+    """(C, rows_per_rank): how the single-pass kernels cut the walk of one
+    (sequence, KV head) over the C blocks of a thread-block cluster.
+    ``extent`` is the static number of rows (S of the slot cache, nb * bs
+    of the pool), G the query rows a KV head and ``unit`` the rows of one
+    table entry. C is the largest C <= MAX_CLUSTER whose B * KV * C blocks
+    fit BLOCKS_PER_SM blocks on each of the CARD_SMS SMs, so that every
+    cluster is resident at once (clusters left for a second wave slow the
+    call; ``attn_sweep.py`` measures it), cut so that a rank walks
+    MIN_RANK_TILES tiles or more; 1 below 2 * MIN_RANK_TILES tiles. Rank c walks rows [c * rows_per_rank, (c + 1) *
+    rows_per_rank): whole tiles and whole table entries, the last rank
+    ragged. The lengths never enter: choosing C needs no device read."""
+    tiles = -(-extent // KERNEL_TILE)
+    per_sm = BLOCKS_PER_SM[G > 1]
+    C = max(1, min(MAX_CLUSTER, per_sm * CARD_SMS // max(1, B * KV),
+                   tiles // MIN_RANK_TILES))
+    step = max(KERNEL_TILE, unit)             # both powers of two
+    rows = -(-(-(-extent // C)) // step) * step
+    return -(-extent // rows), rows
+
+
 def paged_attention_walk(q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths,
                          *, bits: int, kv_splits: int = 1,
                          tile: int = KERNEL_TILE, partials: bool = False):
     """The kernels' walk in torch, for the CPU tests. Chunk c of sequence b
     covers tokens [c*nbc*bs, min((c+1)*nbc, nb)*bs), cut at lengths[b], in
-    tiles of ``tile`` tokens folded into a running (m, l, acc). With
-    ``partials`` it returns the split kernel's (acc, m, l); a chunk with no
-    live token keeps m = -1e30, l = 0, acc = 0. Otherwise kv_splits == 1
-    normalises as the single-pass kernel does (acc / max(l, 1e-30)) and
-    kv_splits > 1 merges."""
+    tiles of ``tile`` tokens folded into a running (m, l, acc): the
+    split's chunks for kv_splits > 1, the single pass's cluster ranks
+    (``cluster_ranks``) for kv_splits == 1. With ``partials`` it returns
+    the chunks' (acc, m, l); a chunk with no live token keeps m = -1e30,
+    l = 0, acc = 0. Otherwise it merges them, as both kernels do."""
     B, KV, G, hd = q.shape
     nb = block_tables.shape[1]
     bs = k_pool.shape[1]
-    ns, nbc = split_partition(nb, kv_splits)
+    if kv_splits == 1:
+        ns, rows = cluster_ranks(nb * bs, B, KV, G, unit=bs)
+        nbc = rows // bs
+    else:
+        ns, nbc = split_partition(nb, kv_splits)
     dev = q.device
     qf = q.float()
     scale = hd ** -0.5
@@ -122,8 +165,6 @@ def paged_attention_walk(q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths,
                 m[b, c] = m_new
     if partials:
         return acc, m, l
-    if kv_splits == 1:
-        return acc[:, 0] / torch.clamp(l[:, 0], min=1e-30)[..., None]
     return merge_splitkv_partials(acc, m, l)
 
 
@@ -167,6 +208,14 @@ def check_codes(what: str, k_codes, k_sc, v_codes, v_sc, want: tuple) -> None:
                              f"{sc.dtype} {tuple(sc.shape)}")
 
 
+def check_wide_rows(what: str, k_codes, v_codes, row_bytes: int) -> None:
+    """The single-pass kernels copy rows of 16 bytes or more in 16-byte
+    units, so such codes must start on a 16-byte boundary."""
+    if row_bytes >= 16 and (k_codes.data_ptr() % 16 or v_codes.data_ptr() % 16):
+        raise ValueError(f"{what}: codes of {row_bytes}-byte rows must start on a "
+                         "16-byte boundary (the kernel copies 16-byte units)")
+
+
 def _check(q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths,
            bits) -> tuple[int, ...]:
     what = "paged_attention kernel"
@@ -196,24 +245,40 @@ def _ptrs(q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths):
 def paged_attention_cuda(q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths,
                          *, bits: int) -> torch.Tensor:
     """Launch the single-pass kernel on the current stream (CUDA tensors
-    only): one block per (b, KV head). Block ids in the tables must lie in
-    [0, n_blocks): the kernel reads them unchecked."""
+    only): one thread-block cluster of C ranks per (b, KV head), C from
+    ``cluster_ranks``. Block ids in the tables must lie in [0, n_blocks):
+    the kernel reads them unchecked."""
     ops = (q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths)
     B, KV, G, hd, bs, nb = _check(*ops, bits)
+    check_wide_rows("paged_attention kernel", k_pool, v_pool, hd * bits // 8)
     out = torch.empty((B, KV, G, hd), dtype=torch.float32, device=q.device)
     if B == 0:
         return out
+    C, rows = cluster_ranks(nb * bs, B, KV, G, unit=bs)
     lib = build.library("paged_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.paged_attention_launch(
         *_ptrs(*ops), out.data_ptr(), B, KV, G, hd, bs, nb, bits,
-        int(q.dtype == torch.bfloat16), stream)
+        int(q.dtype == torch.bfloat16), C, rows // bs, stream)
     build.check(err, "paged_attention")
     paged_attention_cuda.launches += 1
     return out
 
 
 paged_attention_cuda.launches = 0
+
+
+def paged_attention_active_clusters(B: int, KV: int, G: int, hd: int, bs: int,
+                                    nb: int, bits: int,
+                                    q_dtype: torch.dtype) -> tuple[int, int]:
+    """(C, clusters the card holds at once) for the single pass at these
+    shapes (``cudaOccupancyMaxActiveClusters``; builds the library)."""
+    C, rows = cluster_ranks(nb * bs, B, KV, G, unit=bs)
+    n = build.library("paged_attention").paged_attention_active_clusters(
+        B, KV, G, hd, bs, nb, bits, int(q_dtype == torch.bfloat16), C, rows // bs)
+    if n < 0:
+        build.check(-n, "paged_attention occupancy query")
+    return C, n
 
 
 def paged_attention_splitkv_cuda(q, k_pool, k_sc, v_pool, v_sc, block_tables,

@@ -133,6 +133,62 @@ def test_walk_matches_pallas_interpret(bits, G, kv_splits):
     _close(PA.paged_attention_walk(*_t(ops), bits=bits, kv_splits=kv_splits), want)
 
 
+# tables whose extent cuts the single pass over C > 1 cluster ranks (B 3,
+# KV 2): block 16 with 64 entries (C 4, ranks of 16 entries) and block
+# 512 with 8 and 16 entries (C 8 and 16, one entry a rank); length 1
+# leaves every rank but the first past it and 700 cuts a rank
+RANK_TABLES = {"bs16-C4": (16, 64, (1, 700, 1024), 4),
+               "bs512-C8": (512, 8, (1, 700, 4096), 8),
+               "bs512-C16": (512, 16, (1, 700, 8192), 16)}
+
+
+@pytest.mark.parametrize("kv_splits", [1, 3])
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("table", list(RANK_TABLES))
+def test_plain_and_walk_match_reference_oracle_over_ranks(table, bits, G, kv_splits):
+    bs, nb, lengths, C = RANK_TABLES[table]
+    assert PA.cluster_ranks(nb * bs, len(lengths), 2, G, unit=bs)[0] == C
+    ops = _pool_operands(bits * 100 + G * 10 + kv_splits + bs, bits=bits, G=G, hd=64,
+                         lengths=lengths, nb=nb, bs=bs)
+    t = _t(ops)
+    if kv_splits == 1:
+        want = jref.ref_paged_attention(*ops, bits)
+        got = PA.paged_attention_plain(*t, bits=bits)
+    else:
+        want = jref.ref_paged_attention_splitkv(*ops, bits, kv_splits=kv_splits)
+        got = PA.paged_attention_splitkv_plain(*t, bits=bits, kv_splits=kv_splits)
+    _close(got, want)
+    for tile in (PA.KERNEL_TILE, 5):
+        _close(PA.paged_attention_walk(*t, bits=bits, kv_splits=kv_splits,
+                                       tile=tile), want)
+
+
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("table", list(RANK_TABLES))
+def test_walk_matches_pallas_interpret_over_ranks(table, bits, G):
+    bs, nb, lengths, _ = RANK_TABLES[table]
+    ops = _pool_operands(3 + bits + G + bs, bits=bits, G=G, hd=64, lengths=lengths,
+                         nb=nb, bs=bs)
+    want = paged_attention_pallas(*ops, bits=bits, interpret=True)
+    _close(PA.paged_attention_walk(*_t(ops), bits=bits), want)
+
+
+def test_single_pass_rank_past_the_length_weighs_zero():
+    """The single pass's ranks (block 512, 8 entries: C 8): a rank wholly
+    past its sequence's length keeps m = -1e30, l = 0, acc = 0 and weighs
+    exactly 0 in the merge."""
+    ops = _pool_operands(6, bits=8, G=2, hd=16, lengths=(1, 700, 4096), nb=8, bs=512)
+    t = _t(ops)
+    acc, m, l = PA.paged_attention_walk(*t, bits=8, partials=True)
+    assert m.shape[1] == 8
+    assert (m[0, 1:] == -1e30).all() and (m[1, 2:] == -1e30).all() and (m[2] > -1e30).all()
+    assert (l[0, 1:] == 0).all() and (acc[1, 2:] == 0).all()
+    assert (torch.exp(m[1, 2:] - m[1].amax(0)) == 0).all()
+    _close(PA.merge_splitkv_partials(acc, m, l), jref.ref_paged_attention(*ops, 8))
+
+
 @pytest.mark.parametrize("bits", [8, 4])
 def test_kv_splits_above_table_width(bits):
     """kv_splits > nb: ns = nb chunks of one entry each."""

@@ -99,6 +99,31 @@ def test_kernels_match_plain_at_block_512_on_card(cuda, bits, hd, kv_splits, G):
     _check(*_both(ops, bits, kv_splits))
 
 
+# the single pass cut over a thread-block cluster of C > 1 ranks: (bs, nb,
+# lengths, KV); each has a ragged length and a rank past a length
+CLUSTER_TABLES = [
+    (16, 64, (1000, 300, 1), 2),                    # C 2: ranks of 32 entries
+    (16, 313, (4999, 700), 16),                     # the smoke's ragged row
+    (512, 8, (4096, 700, 1), 2),                    # C 8: one entry a rank
+    (512, 20, (8192, 8192), 16),                    # long 8k
+    (512, 32, (16384, 5000, 1), 2),                 # C 16: non-portable
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs,nb,lengths,KV", CLUSTER_TABLES)
+@pytest.mark.parametrize("bits,G,hd", [(8, 1, 64), (4, 8, 128), (8, 4, 16)])
+def test_single_pass_across_a_cluster_on_card(cuda, bs, nb, lengths, KV, bits, G, hd):
+    C, _ = PA.cluster_ranks(nb * bs, len(lengths), KV, G, unit=bs)
+    assert C > 1
+    ops = _operands(nb + bs + G, bits=bits, G=G, hd=hd, lengths=lengths, nb=nb, bs=bs,
+                    KV=KV, dev=cuda, q_dtype=torch.bfloat16)
+    _check(*_both(ops, bits, 1))
+    C_, clusters = PA.paged_attention_active_clusters(len(lengths), KV, G, hd, bs, nb,
+                                                      bits, torch.bfloat16)
+    assert C_ == C and clusters >= 1
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kv_splits", [3, 4, 7])
 def test_split_kernel_above_table_width_on_card(cuda, kv_splits):

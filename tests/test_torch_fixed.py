@@ -41,6 +41,7 @@ from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.core import qplan
 from repro_torch.kernels import kv_cache_attention as KA
 from repro_torch.kernels import registry
+from repro_torch.kernels.ref import butterfly_sum
 from repro_torch.launch import serve, steps
 from repro_torch.models import lm
 from repro_torch.obs import metrics as obs_metrics
@@ -258,11 +259,19 @@ def _close(got, want, tol=ATTN_TOL):
                                rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("S", [48, 50, 64, 300])
+# S where the kernel's cluster split gives C = 2 (600: ranks of 384 rows),
+# 3 (800), 8 (2048) and 16 (4096, ranks of 256 rows): B 3, KV 2; the
+# last rank of 600 and 800 is ragged
+RANK_S = {600: 2, 800: 3, 2048: 8, 4096: 16}
+
+
+@pytest.mark.parametrize("S", [48, 50, 64, 300, *RANK_S])
 @pytest.mark.parametrize("KV,G", [(2, 1), (2, 3)])
 @pytest.mark.parametrize("bits", [8, 4])
 def test_plain_and_walk_match_reference_kernel_and_oracle(bits, KV, G, S):
-    """lengths 1, S // 2 and S, one per sequence."""
+    """lengths 1, S // 2 and S, one per sequence (at C > 1 the length 1
+    leaves every rank but the first past it, and S // 2 cuts a rank)."""
+    assert KA.cluster_ranks(S, 3, KV, G)[0] == RANK_S.get(S, 1)
     ops = _cache_operands(bits + 10 * G + S, bits=bits, KV=KV, G=G, S=S,
                           lengths=(1, S // 2, S))
     oracle = jref.ref_kv_cache_attention(*ops, bits)
@@ -301,6 +310,143 @@ def test_walk_rounds_each_product_and_sum_on_its_own(bits, hd):
         alone = KA.kv_cache_attention_walk(q[one], k[one, :n], ksc[one, :n], v[one, :n],
                                            vsc[one, :n], lens[one], bits=bits)
         assert torch.equal(alone[0], whole[b])
+
+
+@pytest.mark.parametrize("S", list(RANK_S))
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_walk_rounds_each_product_and_sum_on_its_own_over_ranks(bits, hd, S):
+    """With the rows cut over C > 1 ranks, a batch still gives each row the
+    bits it gets alone (at the same S, so the same ranks), and the result
+    stays within the stated tolerance of the oracle."""
+    lengths = (S, S // 3, 7)
+    ops = _cache_operands(bits + hd + S, bits=bits, KV=2, G=3, S=S, hd=hd, lengths=lengths)
+    q, k, ksc, v, vsc, lens = _t(ops)
+    assert KA.cluster_ranks(S, 1, 2, 3) == KA.cluster_ranks(S, 3, 2, 3)
+    whole = KA.kv_cache_attention_walk(q, k, ksc, v, vsc, lens, bits=bits)
+    for b in range(len(lengths)):
+        one = slice(b, b + 1)
+        alone = KA.kv_cache_attention_walk(q[one], k[one], ksc[one], v[one], vsc[one],
+                                           lens[one], bits=bits)
+        assert torch.equal(alone[0], whole[b])
+    _close(whole, jref.ref_kv_cache_attention(*ops, bits))
+
+
+def _one_block_walk(q, k_packed, k_sc, v_packed, v_sc, lengths, *, bits):
+    """The kernel's walk with no rank split: one block over the whole cache,
+    normalised at the end. Kept as the oracle of the C = 1 case, which must
+    give these bits exactly."""
+    B, KV, G, hd = q.shape
+    S = k_packed.shape[1]
+    f32 = torch.float32
+    cpw, T = 64 // bits, KA.KERNEL_TILE
+    wpr, R = hd // cpw, KA.KERNEL_THREADS // hd
+    scale = float(torch.tensor(1.0 / np.sqrt(hd), dtype=f32))
+    pad = (-S) % T
+    n = torch.clamp(lengths, 0, S)
+    kc, vc = (KA._codes(x, bits) for x in (k_packed, v_packed))
+    ksc, vsc = k_sc.to(f32), v_sc.to(f32)
+    if pad:
+        kc, vc = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad)) for x in (kc, vc))
+        ksc, vsc = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (ksc, vsc))
+    qw = q.to(f32).reshape(B, KV, G, wpr, cpw)
+    m = torch.full((B, KV, G), -1e30, dtype=f32)
+    l = torch.zeros((B, KV, G), dtype=f32)
+    acc = torch.zeros((B, KV, G, R, hd), dtype=f32)
+    for s0 in range(0, S + pad, T):
+        live = (s0 + torch.arange(T))[None, :] < n[:, None]
+        kt = kc[:, s0:s0 + T].permute(0, 2, 1, 3).reshape(B, KV, 1, T, wpr, cpw)
+        dot = torch.zeros((B, KV, G, T, wpr), dtype=f32)
+        for j in range(cpw):
+            dot = dot + qw[:, :, :, None, :, j] * kt[..., j]
+        sc = butterfly_sum(dot) * ksc[:, s0:s0 + T].transpose(1, 2)[:, :, None] * scale
+        sc = torch.where(live[:, None, None], sc, -1e30)
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.where(live[:, None, None], torch.exp(sc - m_new[..., None]), 0.0)
+        lanes = torch.zeros((B, KV, G, 32), dtype=f32)
+        for i in range(0, T, 32):
+            lanes = lanes + p[..., i:i + 32]
+        corr = torch.exp(m - m_new)
+        l = l * corr + butterfly_sum(lanes)
+        m = m_new
+        vv = vc[:, s0:s0 + T].permute(0, 2, 1, 3) * vsc[:, s0:s0 + T].transpose(1, 2)[..., None]
+        tacc = torch.zeros_like(acc)
+        for i in range(0, T, R):
+            tacc = tacc + p[..., i:i + R, None] * vv[:, :, None, i:i + R]
+        acc = acc * corr[..., None, None] + tacc
+    out = torch.zeros((B, KV, G, hd), dtype=f32)
+    for r in range(R):
+        out = out + acc[..., r, :]
+    return out / torch.clamp(l, min=1e-30)[..., None]
+
+
+@pytest.mark.parametrize("S,B,KV,G,hd,bits", [
+    (48, 4, 16, 1, 64, 8),            # the fixed loop's qwen serve shape
+    (48, 4, 32, 1, 128, 4),           # and codeqwen's
+    (300, 3, 2, 3, 32, 8),            # an extent of 3 tiles
+    (1000, 2, 132, 2, 16, 4),         # 8 tiles, but B * KV blocks fill the card
+])
+def test_walk_with_one_rank_is_the_one_block_walk_bit_for_bit(S, B, KV, G, hd, bits):
+    assert KA.cluster_ranks(S, B, KV, G)[0] == 1
+    lengths = tuple(int(x) for x in np.linspace(1, S, B))
+    ops = _t(_cache_operands(S + hd, bits=bits, KV=KV, G=G, S=S, hd=hd, lengths=lengths))
+    assert torch.equal(KA.kv_cache_attention_walk(*ops, bits=bits),
+                       _one_block_walk(*ops, bits=bits))
+
+
+def test_walk_rank_past_the_length_weighs_zero():
+    """S 5000 over C = 14 ranks of 384 rows: lengths 4999 (a ragged last
+    rank) and 700 (rank 1 cut, ranks 2-13 past it). A rank with no live row
+    keeps m = -1e30, l = 0 and sums 0, and the merge weighs it by exactly
+    0."""
+    ops = _cache_operands(17, bits=8, KV=2, G=2, S=5000, lengths=(4999, 700))
+    t = _t(ops)
+    assert KA.cluster_ranks(5000, 2, 2, 2) == (14, 384)
+    sums, m, l = KA.kv_cache_attention_walk(*t, bits=8, partials=True)
+    assert (m[1, 2:] == -1e30).all() and (l[1, 2:] == 0).all() and (sums[1, 2:] == 0).all()
+    assert (m[:, :2] > -1e30).all() and (m[0] > -1e30).all()
+    assert (torch.exp(m[1, 2:] - m[1].amax(0)) == 0).all()
+    out = KA.kv_cache_attention_walk(*t, bits=8)
+    _close(out, jref.ref_kv_cache_attention(*ops, 8))
+
+
+@pytest.mark.parametrize("extent,B,KV,G,unit,want", [
+    (48, 4, 16, 1, 1, 1),             # kv_cache_attention, qwen serve (S 48)
+    (48, 4, 32, 1, 1, 1),             # codeqwen serve
+    (64, 4, 16, 1, 16, 1),            # paged_attention, qwen serve (4 x 16 rows)
+    (64, 4, 32, 1, 16, 1),            # codeqwen serve
+    (320, 2, 2, 8, 16, 1),            # the G = 8 edge rows
+    (1000, 2, 4, 4, 1, 4),            # the GQA row, S 1000: ranks of 256 rows
+    (8192, 2, 16, 1, 1, 11),          # long 8k, slot cache: ranks of 768 rows
+    (32768, 2, 16, 1, 1, 12),         # long 32k, slot cache: 384 blocks
+    (68 * 512, 2, 16, 1, 512, 12),    # long 32k, pool of 512-row blocks
+    (20 * 512, 2, 16, 1, 512, 10),    # long 8k, pool: ranks of 2 whole blocks
+    (5000, 2, 16, 1, 1, 10),          # the ragged slot-cache row
+    (313 * 16, 2, 16, 1, 16, 10),     # the ragged pool row
+    (32768, 4, 16, 1, 1, 6),          # 64 heads: 384 blocks
+])
+def test_cluster_ranks_at_the_smoke_shapes(extent, B, KV, G, unit, want):
+    C, rows = KA.cluster_ranks(extent, B, KV, G, unit=unit)
+    assert C == want
+    step = max(KA.KERNEL_TILE, unit)
+    assert rows % step == 0 and (C - 1) * rows < extent <= C * rows
+
+
+def test_cluster_ranks_rule():
+    """C depends on static shapes only: at most 16, 1 up to 3 tiles, and
+    never more blocks than three an SM (two where G > 1), the most that
+    stay resident at once."""
+    for extent in (1, 127, 128, 1023, 1024, 4096, 5000, 8192, 100000):
+        for B, KV in ((1, 1), (2, 16), (4, 16), (8, 32), (64, 64)):
+            for G in (1, 4):
+                C, rows = KA.cluster_ranks(extent, B, KV, G)
+                assert 1 <= C <= 16 and (C - 1) * rows < extent <= C * rows
+                tiles = -(-extent // KA.KERNEL_TILE)
+                if tiles < 4:
+                    assert C == 1
+                if C > 1:
+                    assert B * KV * C <= (3 if G == 1 else 2) * 132
+                    assert rows >= 2 * KA.KERNEL_TILE
 
 
 def test_registry_kv_cache_attention_on_cpu_and_wrapper_refuses_cpu():

@@ -6,8 +6,9 @@ skips, from a fixture, without a card). Run on the H100 with
 This file imports no jax.
 
 Tolerance: none. The plain version replays the kernel's walk operation
-for operation (each product and sum rounded on its own, in the kernel's
-order), so the two must agree bit for bit.
+for operation (the same cluster ranks, each product and sum rounded on its
+own, in the kernel's order, and the ranks merged in the kernel's order),
+so the two must agree bit for bit.
 """
 
 import dataclasses
@@ -92,10 +93,40 @@ def test_kernel_matches_plain_at_serve_shapes_on_card(cuda, B, KV, G, hd, bits, 
     _check(*_both(ops, bits))
 
 
+# the rows cut over a thread-block cluster of C > 1 ranks: (B, KV, G, hd,
+# bits, S, lengths, C); each has a ragged length and a rank past a length
+CLUSTER_SHAPES = [
+    (2, 2, 3, 64, 8, 600, (599, 300), 2),           # ragged last rank (216 rows)
+    (2, 2, 3, 64, 8, 1000, (999, 300), 4),          # ranks 2-3 past 300
+    (3, 2, 1, 16, 4, 1792, (1792, 1, 1000), 7),     # ranks of 256 rows
+    (2, 16, 1, 64, 8, 5000, (4999, 700), 10),       # ranks 2-9 past 700
+    (2, 4, 8, 128, 4, 4096, (4096, 129), 16),       # G 8, hd 128, int4
+    (2, 16, 1, 64, 8, 8192, (8192, 1), 11),         # long 8k; ranks 1-10 past 1
+    (1, 4, 1, 64, 8, 8192, (8191,), 16),            # a non-portable cluster of 16
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,KV,G,hd,bits,S,lengths,C", CLUSTER_SHAPES)
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_across_a_cluster_on_card(cuda, B, KV, G, hd, bits, S,
+                                                        lengths, C, q_dtype):
+    assert KA.cluster_ranks(S, B, KV, G)[0] == C
+    ops = _operands(S + hd + C, bits=bits, KV=KV, G=G, hd=hd, S=S, lengths=lengths,
+                    dev=cuda, q_dtype=q_dtype)
+    _check(*_both(ops, bits))
+    C_, clusters = KA.kv_cache_attention_active_clusters(B, S, KV, G, hd, bits, q_dtype)
+    assert C_ == C and clusters >= 1
+
+
 @pytest.mark.gpu
 def test_length_zero_returns_zero_and_long_lengths_read_S_rows_on_card(cuda):
     ops = _operands(5, bits=4, KV=2, G=2, hd=64, S=40, lengths=(0, 17, 90), dev=cuda)
     got, want = _both(ops, 4)
+    assert (got[0] == 0).all()
+    _check(got[1:], want[1:])
+    ops = _operands(6, bits=8, KV=2, G=1, hd=64, S=4096, lengths=(0, 5000), dev=cuda)
+    got, want = _both(ops, 8)                # C 8: every rank of sequence 0 is empty
     assert (got[0] == 0).all()
     _check(got[1:], want[1:])
 

@@ -17,9 +17,16 @@ Phases, each printing its lines:
               two-step lut_gemm_bitsliced (the row-parallel route of phase
               13) at qwen's shapes and at the K slices tp=2 gives it (512 x
               1024, 1408 x 1024), M 1, 4, 32, w2 and w4, per channel and g64,
-              and at the edges (M 1, one group per row, N off the warp tile,
-              K off the table chunk, groups of one pattern byte, a group
-              spanning chunks); the
+              and at codeqwen's shapes (M 4, w2, per channel and g64); both
+              bit-sliced kernels at the edges (M 1 and M 33, one group per
+              row, N off the column tile, K off the 16-group segment, groups
+              of one pattern byte, a group spanning segments, a ragged last
+              rank, every code -128 against every pattern 0xF at w2 and w4,
+              codeqwen's w_down, K 13440, in groups of 4, which takes
+              several rounds). Each bit-sliced line prints its tiling
+              (kernels/lut_gemm_bitsliced.py::bs_partition: MT rows, NT
+              columns, C cluster ranks, the rounds), its blocks and
+              cudaOccupancyMaxActiveClusters; the
               paged-attention pair at the qwen and codeqwen serve shapes,
               at 8k and 32k context (block 512), with G = 8 and at the edges
               (length 1, lengths off the block size, null-padded tables,
@@ -261,14 +268,17 @@ def phase_kernels(torch, dev):
         return torch.randint(0, 2 ** bits, shape, generator=gen, device=dev,
                              dtype=torch.uint8)
 
-    def record(name, cfg, M, K, N, err, tol_ok, k_ms, p_ms, l_ms, b, by):
+    def record(name, cfg, M, K, N, err, tol_ok, k_ms, p_ms, l_ms, b, by, tiling=None):
         row = {"kernel": name, "cfg": cfg, "M": M, "K": K, "N": N,
                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                "library_ms": l_ms, "bound_ms": b, "bound_by": by}
+        if tiling:
+            row.update(tiling)
         rows[name].append(row)
         print(f"  {name:17s} {cfg:14s} M={M:<3d} K={K:<5d} N={N:<5d} "
               f"err={err:.3g} kernel={k_ms:.5f}ms plain={p_ms:.5f}ms "
-              f"library={l_ms:.5f}ms bound={b:.5f}ms ({by})", flush=True)
+              f"library={l_ms:.5f}ms bound={b:.5f}ms ({by})"
+              + (f"; {bs_tiling_text(tiling)}" if tiling else ""), flush=True)
         if not tol_ok:
             fail(f"{name} {cfg} M={M} K={K} N={N} disagrees with its plain "
                  f"version: max_abs_err={err}")
@@ -370,7 +380,7 @@ def phase_kernels(torch, dev):
                 cfg = f"w{wb}a8_bs" + (f"_g{G}" if G else "") + f" {xdt}" + (
                     " a_sc" if asc is not None else "")
                 record("lut_gemm_bs_fused", cfg, M, K, N, err, ok, k_ms, p_ms,
-                       l_ms, b, by)
+                       l_ms, b, by, bs_tiling("lut_gemm_bs_fused", M, N, K, wb, G))
     # lut_gemm_bs_fused at codeqwen1.5-7b's projection shapes (w2a8_bs)
     for K, N in CODEQWEN_SHAPES:
         for M in CODEQWEN_ROWS:
@@ -393,21 +403,81 @@ def phase_kernels(torch, dev):
             b, by = bound_ms(nbytes(x, planes, sc) + M * N * 4, 2 * M * N * K,
                              INT8_TC_OPS)
             record("lut_gemm_bs_fused", "w2a8_bs bf16 cq", M, K, N, err,
-                   err == 0.0, k_ms, p_ms, l_ms, b, by)
+                   err == 0.0, k_ms, p_ms, l_ms, b, by,
+                   bs_tiling("lut_gemm_bs_fused", M, N, K, 2, None))
             del w_deq, planes
+    # lut_gemm_bs_fused at the bit-sliced edges (BITSLICED_EDGES), bf16 x
+    # with an all-zero row and a row whose amax sits in the last rank's slice
+    for label, M, K, N, wb, G in BITSLICED_EDGES:
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        if M >= 3:
+            x[0] = 0
+            x[1] *= 1e-3
+            x[1, K - 3] = 40.0
+        if label.startswith("worst"):
+            x = torch.full((M, K), -1.0, device=dev, dtype=torch.bfloat16)
+            w_idx = torch.full((N, K), 2 ** (wb - 1) - 1, device=dev, dtype=torch.uint8)
+        else:
+            w_idx = codes((N, K), wb)
+        planes = packing.pack_bitplanes_signed(w_idx, wb)
+        sc = torch.rand((N,) if G is None else (N, K // G), generator=gen,
+                        device=dev) * 0.02 + 0.01
+        kw = dict(w_bits=wb, a_bits=8, group_size=G)
+        got = lut_gemm_bs_fused_cuda(x, planes, sc, None, **kw)
+        torch.cuda.synchronize()
+        want = lut_gemm_bs_fused_plain(x, planes, sc, None, **kw)
+        err = (got - want).abs().max().item()
+        ok = err == 0.0 if G is None else \
+            err <= TOL_BS_GROUPED * max(1.0, want.abs().max().item())
+        w_deq = ((w_idx.float() - 2 ** (wb - 1)) * (
+            sc[:, None] if G is None else quant.expand_group_scales(sc, G))
+        ).to(torch.bfloat16)
+        k_ms = graph_ms(torch, lambda: lut_gemm_bs_fused_cuda(x, planes, sc, None, **kw))
+        p_ms = graph_ms(torch, lambda: lut_gemm_bs_fused_plain(x, planes, sc, None, **kw),
+                        reps=3, replays=3)
+        l_ms = graph_ms(torch, lambda: torch.matmul(x, w_deq.T))
+        b, by = bound_ms(nbytes(x, planes, sc) + M * N * 4, 2 * M * N * K, INT8_TC_OPS)
+        cfg = f"w{wb}a8_bs" + (f"_g{G}" if G else "") + " edge"
+        record("lut_gemm_bs_fused", cfg, M, K, N, err, ok, k_ms, p_ms, l_ms, b, by,
+               dict(bs_tiling("lut_gemm_bs_fused", M, N, K, wb, G), label=label))
     return rows
 
 
+def bs_tiling(op, M, N, K, bits, group):
+    """The bit-sliced kernels' tiling at these shapes (bs_partition): MT,
+    NT, C, the slice, the blocks and cudaOccupancyMaxActiveClusters."""
+    from repro_torch.kernels.lut_gemm_bitsliced import bs_active_clusters, bs_rounds
+    (MT, NT, C, kpr), active = bs_active_clusters(op, M, N, K, bits, group)
+    return {"MT": MT, "NT": NT, "cluster": C, "k_per_rank": kpr,
+            "rounds": bs_rounds(K, C, kpr),
+            "blocks": -(-N // NT) * -(-M // MT) * C, "active_clusters": active}
+
+
+def bs_tiling_text(t):
+    return (f"MT {t['MT']} NT {t['NT']} C {t['cluster']} (K/rank {t['k_per_rank']}, "
+            f"{t['rounds']} round{'s' if t['rounds'] > 1 else ''}), "
+            f"{t['blocks']} blocks, {t['active_clusters']} clusters active at once")
+
+
 # lut_gemm_bitsliced: the K slices a tp=2 serve gives it (wo 1024 -> 512,
-# w_down 2816 -> 1408), and (label, M, K, N, bits, group) edges
+# w_down 2816 -> 1408), and (label, M, K, N, bits, group) edges of both
+# bit-sliced kernels (bs_partition's tiles: MT 1/4/8 rows, NT 32-128
+# columns, K slices of whole 16-group segments; the "worst case" row has
+# every code -128 and every plane pattern 0xF, the widest packed sums)
 TP_SLICES = ((512, 1024), (1408, 1024))
 BITSLICED_EDGES = (
     ("M 1, K of one pattern group", 1, 4, 16, 2, None),
     ("one group per row", 4, 1024, 256, 2, 1024),
-    ("N off the warp tile", 4, 1024, 1003, 2, None),
-    ("K off the chunk", 3, 1412, 64, 4, None),
+    ("N off the column tile", 4, 1024, 1003, 2, None),
+    ("K off the segment", 3, 1412, 64, 4, None),
     ("one pattern group per scale group", 5, 512, 40, 2, 4),
-    ("group spans chunks", 32, 2048, 72, 4, 512),
+    ("group spans segments", 32, 2048, 72, 4, 512),
+    ("M 33, rows off the row tile", 33, 1024, 1024, 2, None),
+    ("M 33, g64", 33, 2816, 1024, 4, 64),
+    ("ragged last rank", 4, 1984, 1024, 2, 64),
+    ("worst case, w4", 4, 1024, 1024, 4, None),
+    ("worst case, w2", 4, 1024, 1024, 2, None),
+    ("g4 over a long K, several rounds", 4, 13440, 4096, 2, 4),
 )
 
 
@@ -424,12 +494,17 @@ def phase_bitsliced(torch, dev):
     rows = []
     cases = [("qwen", M, K, N, wb, G) for K, N in SHAPES + TP_SLICES
              for M in ROWS for wb in (2, 4) for G in (None, 64)]
+    cases += [("codeqwen", 4, K, N, 2, G) for K, N in CODEQWEN_SHAPES
+              for G in (None, 64)]
     cases += [(label, M, K, N, wb, G) for label, M, K, N, wb, G in BITSLICED_EDGES]
     for label, M, K, N, wb, G in cases:
         codes = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
                               dtype=torch.int8)
         w_idx = torch.randint(0, 2 ** wb, (N, K), generator=gen, device=dev,
                               dtype=torch.uint8)
+        if label.startswith("worst"):
+            codes.fill_(-128)
+            w_idx.fill_(2 ** (wb - 1) - 1)          # every plane pattern 0xF
         planes = packing.pack_bitplanes_signed(w_idx, wb)
         sc = None if G is None else (
             torch.rand((N, K // G), generator=gen, device=dev) * 0.02 + 0.01)
@@ -450,13 +525,15 @@ def phase_bitsliced(torch, dev):
         b, by = bound_ms(nbytes(codes, planes, sc) + M * N * 4, 2 * M * N * K,
                          INT8_TC_OPS)
         cfg = f"w{wb}" + (f"g{G}" if G else "")
+        tiling = bs_tiling("lut_gemm_bitsliced", M, N, K, wb, G)
         rows.append({"kernel": "lut_gemm_bitsliced", "cfg": cfg, "label": label,
                      "M": M, "K": K, "N": N, "max_abs_err": err, "ms": k_ms,
                      "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b,
-                     "bound_by": by})
+                     "bound_by": by, **tiling})
         print(f"  lut_gemm_bitsliced {label:33s} {cfg:6s} M={M:<3d} K={K:<5d} "
               f"N={N:<5d} err={err:.3g} kernel={k_ms:.5f}ms plain={p_ms:.5f}ms "
-              f"library={l_ms:.5f}ms bound={b:.5f}ms ({by})", flush=True)
+              f"library={l_ms:.5f}ms bound={b:.5f}ms ({by}); "
+              f"{bs_tiling_text(tiling)}", flush=True)
         if not ok:
             fail(f"lut_gemm_bitsliced {label} {cfg} M={M} K={K} N={N} disagrees "
                  f"with its plain version: max_abs_err={err}")

@@ -91,10 +91,10 @@ cudaError_t run_hd(const DenseArgs& a, int B, cudaStream_t stream, int* clusters
     const int smem = walk_smem(a.G, HD, HD * BITS / 8).total;
     const dim3 grid(a.C * a.KV, B);
     if (a.G == 1)
-        return launch_cluster(kv_cache_attn_kernel<BITS, HD, TQ, 1>, grid, a.C, smem, stream,
-                              clusters, a);
-    return launch_cluster(kv_cache_attn_kernel<BITS, HD, TQ, kMaxG>, grid, a.C, smem, stream,
-                          clusters, a);
+        return launch_cluster(kv_cache_attn_kernel<BITS, HD, TQ, 1>, grid, kThreads, a.C,
+                              smem, stream, clusters, a);
+    return launch_cluster(kv_cache_attn_kernel<BITS, HD, TQ, kMaxG>, grid, kThreads, a.C,
+                          smem, stream, clusters, a);
 }
 
 template <int BITS, typename TQ>

@@ -114,10 +114,10 @@ cudaError_t run_hd(const PagedArgs& a, int B, cudaStream_t stream, int* clusters
     const int smem = walk_smem(a.G, HD, HD * BITS / 8).total;
     const dim3 grid(a.C * a.KV, B);
     if (a.G == 1)
-        return launch_cluster(paged_attn_cluster_kernel<BITS, HD, TQ, 1>, grid, a.C, smem,
-                              stream, clusters, a);
-    return launch_cluster(paged_attn_cluster_kernel<BITS, HD, TQ, kMaxG>, grid, a.C, smem,
-                          stream, clusters, a);
+        return launch_cluster(paged_attn_cluster_kernel<BITS, HD, TQ, 1>, grid, kThreads,
+                              a.C, smem, stream, clusters, a);
+    return launch_cluster(paged_attn_cluster_kernel<BITS, HD, TQ, kMaxG>, grid, kThreads,
+                          a.C, smem, stream, clusters, a);
 }
 
 template <int BITS, typename TQ>

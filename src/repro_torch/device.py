@@ -4,6 +4,12 @@ from __future__ import annotations
 
 import torch
 
+# SMs of the H100 the kernels' partitions are cut for: the single-pass
+# attention walks' cluster ranks (kernels/paged_attention.py::cluster_ranks)
+# and the bit-sliced GEMMs' tiling (kernels/lut_gemm_bitsliced.py::
+# bs_partition) both fill this many SMs in one wave
+CARD_SMS = 132
+
 
 def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller asks

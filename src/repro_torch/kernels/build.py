@@ -40,9 +40,8 @@ SIGNATURES = {
                                       _I, _P],
     ("dequant_matmul", "dequant_matmul_launch"): [_P, _P, _P, _P, _P, _I, _I,
                                                   _I, _I, _I, _I, _P],
-    ("lut_gemm_bs_fused", "lut_gemm_bs_fused_launch"): [_P, _P, _P, _P, _P, _I,
-                                                        _I, _I, _I, _I, _I, _I,
-                                                        _I, _P],
+    ("lut_gemm_bs_fused", "lut_gemm_bs_fused_launch"): [_P] * 5 + [_I] * 12 + [_P],
+    ("lut_gemm_bs_fused", "lut_gemm_bs_fused_active_clusters"): [_I] * 12,
     ("paged_attention", "paged_attention_launch"): [_P] * 8 + [_I] * 10 + [_P],
     ("paged_attention", "paged_attention_active_clusters"): [_I] * 10,
     ("paged_attention", "paged_attention_splitkv_launch"): [_P] * 11 + [_I] * 10
@@ -51,7 +50,8 @@ SIGNATURES = {
     ("expert_gemm", "expert_lut_gemm_launch"): [_P] * 5 + [_I] * 6 + [_P],
     ("kv_cache_attention", "kv_cache_attention_launch"): [_P] * 7 + [_I] * 9 + [_P],
     ("kv_cache_attention", "kv_cache_attention_active_clusters"): [_I] * 9,
-    ("lut_gemm_bitsliced", "lut_gemm_bitsliced_launch"): [_P] * 4 + [_I] * 5 + [_P],
+    ("lut_gemm_bitsliced", "lut_gemm_bitsliced_launch"): [_P] * 4 + [_I] * 9 + [_P],
+    ("lut_gemm_bitsliced", "lut_gemm_bitsliced_active_clusters"): [_I] * 9,
 }
 
 _LOCK = threading.Lock()

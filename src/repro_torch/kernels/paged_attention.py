@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import CARD_SMS
 from . import build
 from .ref import dequant_kv_tile, ref_paged_attention, ref_paged_attention_splitkv
 
@@ -54,11 +55,10 @@ KERNEL_TILE = 128
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_MAX_G = 8
 POOL_DTYPE = {8: torch.int8, 4: torch.uint8}
-# the single-pass kernels' cluster split: the H100's SMs, the largest
-# cluster (csrc/attn_common.cuh kMaxCluster; above 8 a non-portable size),
-# the blocks an SM should hold at once (G == 1 / G > 1), and the fewest
-# tiles a rank should walk
-CARD_SMS = 132
+# the single-pass kernels' cluster split (over device.CARD_SMS SMs): the
+# largest cluster (csrc/attn_common.cuh kMaxCluster; above 8 a non-portable
+# size), the blocks an SM should hold at once (G == 1 / G > 1), and the
+# fewest tiles a rank should walk
 MAX_CLUSTER = 16
 BLOCKS_PER_SM = (3, 2)
 MIN_RANK_TILES = 2

@@ -10,7 +10,8 @@ relative. dequant_matmul rounds each product and each sum on its own, in
 the order its plain version repeats: bit-identical. lut_gemm_bs_fused quantizes the
 rows with the plain version's arithmetic and sums exact integers, so per
 channel it is bit-identical; with group scales 1e-5 relative to the
-largest output (the f32 sum over groups runs in another order).
+largest output (the stated bound; its cluster merge sums the groups in the
+plain version's ascending order, so it is expected exact).
 """
 
 import numpy as np

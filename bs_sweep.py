@@ -1,10 +1,21 @@
 #!/usr/bin/env python3
-"""Times of the two bit-sliced LUT GEMM kernels on one card, and a sweep of
+"""Times of the packed-weight GEMM kernels on one card, and a sweep of
 their tiling.
 
   python3 bs_sweep.py                   # from the root of a checkout, one CUDA card
   python3 bs_sweep.py --src OTHER/src   # another checkout's kernels (its own tiling)
   python3 bs_sweep.py --no-sweep        # the chosen tiling only
+  python3 bs_sweep.py --only dense      # lut_gemm and dequant_matmul only (--only bs:
+                                        # the bit-sliced pair only)
+
+lut_gemm (w2a2, w2a2 in groups of 64, w4a8) and dequant_matmul (bf16
+activations; w2, w2 in groups of 128, w4) are timed at qwen1.5-0.5b's
+projection shapes, M 1, 4, 32 and 128, beside torch.matmul and the byte
+bound, each line with its tiling (kernels/lut_gemm.py::dense_partition:
+MT, NT, C, the window, the rounds, blocks, clusters resident at once);
+dequant_matmul's lines also time its plain version (tied to the kernel's
+summation order, so its cost is the tie's); unless --no-sweep, every
+(NT, C) follows for each of them at those shapes, the chosen one marked.
 
 Times lut_gemm_bs_fused (bf16 x, dynamic scales, w2 per channel and g64)
 and lut_gemm_bitsliced (int8 codes, w2 per channel and g64) at
@@ -49,6 +60,8 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src directory whose repro_torch to time")
     ap.add_argument("--no-sweep", action="store_true")
+    ap.add_argument("--only", choices=("dense", "bs"), default=None,
+                    help="time one family of kernels only")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -67,6 +80,10 @@ def main() -> int:
     tiled = hasattr(BS, "bs_partition")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    if args.only != "bs":
+        dense(torch, dev, graph_ms, HBM_BYTES_PER_S, not args.no_sweep)
+    if args.only == "dense":
+        return 0
 
     def one(op, M, K, N, G, mark="", **tile):
         """Time op at (M, K, N, G) on bs_partition's tiling (``tile``:
@@ -142,6 +159,107 @@ def main() -> int:
                         one(op, M, K, N, G, "  <- bs_partition" if part == pick else "",
                             ranks=C, cols=NT)
     return 0
+
+
+def dense(torch, dev, graph_ms, hbm_bytes_per_s, sweep: bool) -> None:
+    """lut_gemm and dequant_matmul at qwen's shapes (and, with ``sweep``,
+    every (NT, C)), each beside torch.matmul and the byte bound."""
+    from repro_torch.core import packing, quant
+    from repro_torch.core.lut import product_lut
+    from repro_torch.kernels import lut_dequant_matmul as DQ
+    from repro_torch.kernels import lut_gemm as LG
+
+    tiled = hasattr(LG, "dense_partition")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def one(op, M, K, N, wb, ab, G, mark="", **tile):
+        """Time op (lut_gemm w{wb}a{ab}, or dequant_matmul w{wb} with bf16
+        rows when ab is 16) at (M, K, N, G) on dense_partition's tiling
+        (``tile``: its ranks and cols)."""
+        w_idx = torch.randint(0, 2 ** wb, (N, K), generator=gen, device=dev,
+                              dtype=torch.uint8)
+        wp = packing.pack(w_idx, wb)
+        levels = quant.uniform_codebook(wb, device=dev).levels
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        if op == "lut_gemm":
+            a_idx = torch.randint(0, 2 ** ab, (M, K), generator=gen, device=dev,
+                                  dtype=torch.uint8)
+            ap = packing.pack(a_idx, ab)
+            lut = product_lut(quant.uniform_codebook(wb, device=dev),
+                              quant.uniform_codebook(ab, device=dev)).table
+            sc = None if G is None else (
+                torch.rand((N, K // G), generator=gen, device=dev) * 0.1 + 0.01)
+            args_ = (ap, wp, lut, sc)
+            kw = dict(w_bits=wb, a_bits=ab, group_size=G)
+            fn, want_fn = LG.lut_gemm_cuda, LG.lut_gemm_plain
+            w_deq = levels[w_idx.long()].to(torch.bfloat16)
+            n_bytes = ap.numel() + wp.numel() + lut.numel() * 4 + (
+                0 if sc is None else sc.numel() * 4) + M * N * 4
+        else:
+            sc = torch.rand((N,) if G is None else (N, K // G), generator=gen,
+                            device=dev) * 0.1 + 0.01
+            args_ = (x, wp, levels, sc)
+            kw = dict(bits=wb, group_size=G)
+            fn, want_fn = DQ.dequant_matmul_cuda, DQ.dequant_matmul_plain
+            w_deq = (levels[w_idx.long()] * (sc[:, None] if G is None else
+                                             quant.expand_group_scales(sc, G))
+                     ).to(torch.bfloat16)
+            n_bytes = x.numel() * 2 + wp.numel() + levels.numel() * 4 + \
+                sc.numel() * 4 + M * N * 4
+        got = fn(*args_, **kw, **tile)
+        torch.cuda.synchronize()
+        # the dequant plain version replays the kernel's tiling
+        want = want_fn(*args_, **kw, **(tile if op == "dequant_matmul" else {}))
+        err = (got - want).abs().max().item()
+        ms = graph_ms(torch, lambda: fn(*args_, **kw, **tile))
+        lib = graph_ms(torch, lambda: torch.matmul(x, w_deq.T))
+        bound = n_bytes / hbm_bytes_per_s * 1e3
+        plain = ""
+        if op == "dequant_matmul" and not tile:   # the tied replay's own cost
+            p_ms = graph_ms(torch, lambda: want_fn(*args_, **kw), reps=3, replays=3)
+            plain = f" plain={p_ms * 1e3:9.2f}us"
+        text = ""
+        if tiled:
+            (MT, NT, C, kpr), active = LG.dense_active_clusters(
+                op, M, N, K, wb, ab, G, **tile)
+            blocks = -(-N // NT) * -(-M // MT) * C
+            text = (f" MT={MT} NT={NT:<3d} C={C} K/rank={kpr:<5d} "
+                    f"rounds={LG.dense_rounds(K, C, kpr)} blocks={blocks:<4d} "
+                    f"active={active:<4d}")
+        cfg = (f"w{wb}a{ab}" if op == "lut_gemm" else f"w{wb}a16") + (f"g{G}" if G else "")
+        print(f"  {op:15s} {cfg:9s} M={M:<3d} K={K:<5d} N={N:<5d}{text} "
+              f"kernel={ms * 1e3:8.2f}us matmul={lib * 1e3:8.2f}us "
+              f"bound={bound * 1e3:6.2f}us{plain} err={err:.3g}{mark}", flush=True)
+        del w_deq, wp, w_idx
+
+    cases = [("lut_gemm", 2, 2, None), ("lut_gemm", 2, 2, 64), ("lut_gemm", 4, 8, None),
+             ("dequant_matmul", 2, 16, None), ("dequant_matmul", 2, 16, 128),
+             ("dequant_matmul", 4, 16, None)]
+    print("[dense: times at the chosen tiling]", flush=True)
+    for op, wb, ab, G in cases:
+        for K, N in QWEN:
+            for M in (1, 4, 32, 128):
+                one(op, M, K, N, wb, ab, G)
+    if not (tiled and sweep):
+        return
+    print("[dense sweep: every (NT, C)]", flush=True)
+    for op, wb, ab, G in cases:
+        for K, N in QWEN:
+            for M in (1, 4, 32, 128):
+                pick = LG.dense_partition(M, N, K, wb, ab, G)
+                seen = set()
+                for NT in LG.DENSE_COL_TILES:
+                    for C in range(1, LG.DENSE_MAX_CLUSTER + 1):
+                        try:
+                            part = LG.dense_partition(M, N, K, wb, ab, G, ranks=C, cols=NT)
+                        except ValueError:      # more ranks than K has windows
+                            continue
+                        if part in seen:
+                            continue
+                        seen.add(part)
+                        one(op, M, K, N, wb, ab, G,
+                            "  <- dense_partition" if part == pick else "",
+                            ranks=C, cols=NT)
 
 
 if __name__ == "__main__":

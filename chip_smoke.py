@@ -10,7 +10,11 @@ Phases, each printing its lines:
               or loads the library already built from the same sources
   4 kernels   each kernel against its plain PyTorch version at the serving
               shapes of qwen1.5-0.5b (K x N = 1024x1024, 1024x2816,
-              2816x1024; M = 1, 4, 32) and, for lut_gemm_bs_fused, of
+              2816x1024; M = 1, 4, 32, and for lut_gemm and dequant_matmul
+              also the fixed loop's prefill, M 128, each of their lines
+              printing its tiling, kernels/lut_gemm.py::dense_partition: MT
+              rows, NT columns, C cluster ranks, the rounds, its blocks and
+              cudaOccupancyMaxActiveClusters) and, for lut_gemm_bs_fused, of
               codeqwen1.5-7b (4096x4096, 4096x13440, 13440x4096; M = 1, 4),
               with kernel, plain, library (torch.matmul of bf16 activations
               against the pre-dequantized bf16 weight) and bound times; the
@@ -161,8 +165,9 @@ BF16_TC_FLOPS = 989e12      # bf16 tensor cores
 # tolerances (stated): lut_gemm with an integer LUT sums exact integers in
 # f32, so it must be bit-identical; with group scales the summation order
 # differs from the plain version's. dequant_matmul and expert_dequant_matmul
-# round each product and each sum on their own in the order their plain
-# versions repeat, so they must be bit-identical. lut_gemm_bs_fused quantizes
+# round in the order their plain versions repeat (ref.py::tile_order_matmul
+# on dense_partition's tiling, and warp_order_matmul), so they must be
+# bit-identical. lut_gemm_bs_fused quantizes
 # the rows with the plain version's arithmetic and sums exact integers, so per
 # channel it must be bit-identical; its group-scale sum runs in another order.
 TOL_LUT_GROUPED = 1e-5      # relative to max|plain|
@@ -179,6 +184,7 @@ TOL_EXPERT_GROUPED = 1e-5   # relative to max|plain|
 
 SHAPES = ((1024, 1024), (1024, 2816), (2816, 1024))   # (K, N) per projection
 ROWS = (1, 4, 32)                                      # decode / prefill chunk
+DENSE_EXTRA_ROWS = (128,)    # lut_gemm / dequant_matmul: the fixed loop's prefill
 REPRESENTATIVE = (4, 1024, 2816)                       # (M, K, N) in the JSON
 CODEQWEN_SHAPES = ((4096, 4096), (4096, 13440), (13440, 4096))
 CODEQWEN_ROWS = (1, 4)
@@ -284,7 +290,7 @@ def phase_kernels(torch, dev):
                  f"version: max_abs_err={err}")
 
     for K, N in SHAPES:
-        for M in ROWS:
+        for M in ROWS + DENSE_EXTRA_ROWS:
             x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
             # lut_gemm: w2a2, w2a2g64, w4a8
             for wb, ab, G in ((2, 2, None), (2, 2, 64), (4, 8, None)):
@@ -313,7 +319,8 @@ def phase_kernels(torch, dev):
                 b, by = bound_ms(nbytes(ap, wp, lut, sc) + M * N * 4, 2 * M * N * K,
                                  INT8_TC_OPS)
                 cfg = f"w{wb}a{ab}" + (f"g{G}" if G else "")
-                record("lut_gemm", cfg, M, K, N, err, ok, k_ms, p_ms, l_ms, b, by)
+                record("lut_gemm", cfg, M, K, N, err, ok, k_ms, p_ms, l_ms, b, by,
+                       dense_tiling("lut_gemm", M, N, K, wb, ab, G))
             # dequant_matmul: w2, w2g128, w4 (bf16 activations, as served)
             for wb, G in ((2, None), (2, 128), (4, None)):
                 w_idx = codes((N, K), wb)
@@ -338,7 +345,9 @@ def phase_kernels(torch, dev):
                                  BF16_TC_FLOPS)
                 cfg = f"w{wb}a16" + (f"g{G}" if G else "")
                 record("dequant_matmul", cfg, M, K, N, err, ok, k_ms, p_ms, l_ms,
-                       b, by)
+                       b, by, dense_tiling("dequant_matmul", M, N, K, wb, 16, G))
+            if M not in ROWS:
+                continue
             # lut_gemm_bs_fused: raw activations with an all-zero row (the
             # scale floor) and a row whose amax sits in one element
             xe = x.clone()
@@ -441,6 +450,17 @@ def phase_kernels(torch, dev):
         record("lut_gemm_bs_fused", cfg, M, K, N, err, ok, k_ms, p_ms, l_ms, b, by,
                dict(bs_tiling("lut_gemm_bs_fused", M, N, K, wb, G), label=label))
     return rows
+
+
+def dense_tiling(op, M, N, K, w_bits, a_bits, group):
+    """The tiling of lut_gemm / dequant_matmul (bf16 activations: a_bits 16)
+    at these shapes (kernels/lut_gemm.py::dense_partition): MT, NT, C, the
+    window, the blocks and cudaOccupancyMaxActiveClusters."""
+    from repro_torch.kernels.lut_gemm import dense_active_clusters, dense_rounds
+    (MT, NT, C, kpr), active = dense_active_clusters(op, M, N, K, w_bits, a_bits, group)
+    return {"MT": MT, "NT": NT, "cluster": C, "k_per_rank": kpr,
+            "rounds": dense_rounds(K, C, kpr),
+            "blocks": -(-N // NT) * -(-M // MT) * C, "active_clusters": active}
 
 
 def bs_tiling(op, M, N, K, bits, group):

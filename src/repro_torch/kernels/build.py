@@ -36,10 +36,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of each entry point: (source stem, symbol) -> argtypes
 SIGNATURES = {
-    ("lut_gemm", "lut_gemm_launch"): [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                      _I, _P],
-    ("dequant_matmul", "dequant_matmul_launch"): [_P, _P, _P, _P, _P, _I, _I,
-                                                  _I, _I, _I, _I, _P],
+    ("lut_gemm", "lut_gemm_launch"): [_P] * 5 + [_I] * 10 + [_P],
+    ("lut_gemm", "lut_gemm_active_clusters"): [_I] * 10,
+    ("dequant_matmul", "dequant_matmul_launch"): [_P] * 5 + [_I] * 10 + [_P],
+    ("dequant_matmul", "dequant_matmul_active_clusters"): [_I] * 9,
     ("lut_gemm_bs_fused", "lut_gemm_bs_fused_launch"): [_P] * 5 + [_I] * 12 + [_P],
     ("lut_gemm_bs_fused", "lut_gemm_bs_fused_active_clusters"): [_I] * 12,
     ("paged_attention", "paged_attention_launch"): [_P] * 8 + [_I] * 10 + [_P],

@@ -9,11 +9,11 @@ Callers go through ``kernels/registry.py``, which takes the plain version
 for CPU tensors and the kernel (``dequant_matmul_cuda``, which launches or
 raises) for CUDA tensors.
 
-Bound on the H100 and design: see the note at the top of the CUDA source
-(f32 multiply-add- and launch-bound at the serving shapes; one warp per
-output column, codebook in shared memory, decoded weights reused across the
-rows; products and sums rounded one by one, in an order the plain version
-repeats).
+Bound on the H100 and design: see the notes at the top of the CUDA sources
+(latency-bound at the decode shapes, multiply-add-bound at the prefill's
+M 128; the tiling of ``lut_gemm.py::dense_partition``, K windows merged on
+chip in a cluster; products and sums rounded in an order the plain version
+repeats, ``ref.py::tile_order_matmul``).
 """
 
 from __future__ import annotations
@@ -22,18 +22,28 @@ import torch
 
 from repro_torch.core import packing
 from . import build
-from .ref import warp_order_dequant_matmul
+from .lut_gemm import dense_partition
+from .ref import tile_order_dequant_matmul
 
 KERNEL_BITS = (2, 4)
 
 
+def _partition(a, N, bits, group_size, ranks, cols):
+    """The kernel's tiling of this call (its activations staged as bf16 or
+    f32)."""
+    M, K = a.shape
+    return dense_partition(M, N, K, bits, 16 if a.dtype == torch.bfloat16 else 32,
+                           group_size, ranks=ranks, cols=cols)
+
+
 def dequant_matmul_plain(a, w_packed, codebook, scales, *, bits: int,
-                         group_size=None) -> torch.Tensor:
+                         group_size=None, ranks=None, cols=None) -> torch.Tensor:
     """The plain PyTorch version (any device): ``ref_dequant_matmul``
-    summed in the kernel's order, one packed byte a lane step, so the two
-    agree bit for bit."""
-    return warp_order_dequant_matmul(a, w_packed, codebook, scales, bits,
-                                     group_size, step=packing.PACK_FACTOR[bits])
+    summed in the kernel's order on the kernel's tiling (``ranks`` and
+    ``cols`` as the kernel takes them), so the two agree bit for bit."""
+    _, _, C, kpr = _partition(a, w_packed.shape[0], bits, group_size, ranks, cols)
+    return tile_order_dequant_matmul(a, w_packed, codebook, scales, bits,
+                                     group_size, ranks=C, k_per_rank=kpr)
 
 
 def _check(a, w_packed, codebook, scales, bits, group_size):
@@ -73,8 +83,9 @@ def _check(a, w_packed, codebook, scales, bits, group_size):
 
 
 def dequant_matmul_cuda(a, w_packed, codebook, scales, *, bits: int,
-                        group_size=None) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (CUDA tensors only)."""
+                        group_size=None, ranks=None, cols=None) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream (CUDA tensors only), on
+    the tiling of ``dense_partition`` (``ranks`` and ``cols`` passed on)."""
     M, N, K = _check(a, w_packed, codebook, scales, bits, group_size)
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     if M == 0 or N == 0:
@@ -84,7 +95,8 @@ def dequant_matmul_cuda(a, w_packed, codebook, scales, *, bits: int,
     err = lib.dequant_matmul_launch(
         a.data_ptr(), w_packed.data_ptr(), codebook.data_ptr(),
         scales.data_ptr(), out.data_ptr(), M, N, K, bits,
-        group_size or 0, int(a.dtype == torch.bfloat16), stream)
+        group_size or 0, int(a.dtype == torch.bfloat16),
+        *_partition(a, N, bits, group_size, ranks, cols), stream)
     build.check(err, "dequant_matmul")
     dequant_matmul_cuda.launches += 1
     return out

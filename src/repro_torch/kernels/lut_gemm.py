@@ -10,10 +10,18 @@ Callers go through ``kernels/registry.py``, which takes the plain version
 for CPU tensors and the kernel (``lut_gemm_cuda``, which launches or
 raises) for CUDA tensors.
 
-Bound on the H100 and design: see the note at the top of the CUDA source
-(launch- and gather-bound at the serving shapes; one warp per output
-column, the whole LUT in shared memory, f32 accumulation, warp-shuffle
-reduction).
+``dense_partition`` is the one place that chooses how this kernel and
+``dequant_matmul``'s (``csrc/dense_common.cuh``) cut a call: MT rows x NT
+columns a block, and the C blocks of a thread-block cluster that split K
+into windows of ``k_per_rank`` codes. It reads static shapes only; the
+wrappers pass its result to the C entry points, and the dequant kernel's
+plain version replays the same cut (``ref.py::tile_order_matmul``).
+
+Bound on the H100 and design: see the notes at the top of the CUDA sources
+(latency-bound at the decode shapes, table-read-bound at the prefill's
+M 128; wide column tiles, K windows merged on chip in a cluster, every load
+of a window issued before the first lookup, the table transposed in shared
+memory).
 """
 
 from __future__ import annotations
@@ -24,11 +32,121 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.core.lut import ProductLUT
+from repro_torch.device import CARD_SMS
 from . import build
-from .ref import ref_lut_gemm
+from .ref import DENSE_LANES, ref_lut_gemm
 
 # (w_bits, a_bits) pairs the CUDA source instantiates
 KERNEL_BITS = ((2, 2), (2, 8), (4, 4), (4, 8))
+
+# the tiling of csrc/dense_common.cuh: rows a tile at most (kMaxMt), the
+# column tiles (NT = 32 x columns a thread), the largest portable cluster,
+# the weight bytes a block stages a round (kWTileBytes: 8 16-byte pieces a
+# thread), and the budgets of its activation and scale tiles
+DENSE_ROW_TILE = 8
+DENSE_COL_TILES = (128, 64)
+DENSE_MAX_CLUSTER = 8
+# decode (one tile of at most 4 rows): K windows of about this many codes,
+# on at most this many ranks (the fastest tilings of bs_sweep.py's sweep on
+# an H100 at qwen1.5-0.5b's shapes)
+DENSE_DECODE_WINDOW = 256
+DENSE_DECODE_RANKS = 6
+DENSE_W_TILE_BYTES = 32 * 1024
+DENSE_A_TILE_BYTES = 32 * 1024
+DENSE_S_TILE_BYTES = 24 * 1024
+
+
+def dense_unit(w_bits: int) -> int:
+    """Codes of one window unit: one 4-byte weight word for each of the
+    DENSE_LANES k-lanes (128 codes at 2 bits, 64 at 4)."""
+    return DENSE_LANES * 32 // w_bits
+
+
+def dense_partition(M: int, N: int, K: int, w_bits: int, a_bits: int,
+                    group_size: int | None = None, *, ranks: int | None = None,
+                    cols: int | None = None) -> tuple[int, int, int, int]:
+    """(MT, NT, C, k_per_rank): how ``lut_gemm`` and ``dequant_matmul`` cut
+    a call. A block owns MT rows (at most 8, the rows spread evenly over the
+    row tiles) and NT columns (128 or 64) of K windows of k_per_rank codes
+    (whole window units, ``dense_unit``); the C <= 8 blocks of a column
+    tile form a cluster, rank c owning windows c, c + C, c + 2C, ... (rounds
+    of C windows, the last window ragged). ``a_bits`` is the bits of one
+    activation as the kernel stages it: the packed code width for
+    ``lut_gemm``, 16 or 32 for ``dequant_matmul``'s bf16 or f32 rows.
+
+    The rules come from ``bs_sweep.py``'s sweep of every (NT, C) on an H100.
+    Decode (one row tile of at most 4 rows) takes NT 64 and windows of
+    about DENSE_DECODE_WINDOW codes on at most DENSE_DECODE_RANKS ranks:
+    wider clusters lost more to the merge than they gained in parallel
+    loads. More rows take NT 64 while the 64-column tiles stay within two
+    blocks an SM (else 128), and C as large as one block an SM allows, or
+    as large as one round of windows needs while the blocks stay within
+    two an SM. C is cut so that no rank is empty. A window is as long as
+    that C needs, but no longer than the block's tiles allow (the weight
+    tile DENSE_W_TILE_BYTES, the MT activation rows DENSE_A_TILE_BYTES,
+    the group scales DENSE_S_TILE_BYTES): past that, K takes several
+    rounds. ``ranks`` and ``cols`` ask for another C and NT (the sweep and
+    the tests); the cut still applies. Static shapes only: choosing needs
+    no device read."""
+    if min(M, N, K) < 1:
+        raise ValueError(f"dense_partition: M={M}, N={N}, K={K} must be positive")
+    unit = dense_unit(w_bits)
+    row_tiles = -(-M // DENSE_ROW_TILE)
+    MT = -(-M // row_tiles)
+    units = -(-K // unit)
+    c_max = min(DENSE_MAX_CLUSTER, units)
+    decode = row_tiles == 1 and MT <= 4
+    wide, narrow = DENSE_COL_TILES
+    NT = cols or (wide if not decode and -(-N // narrow) * row_tiles > 2 * CARD_SMS
+                  else narrow)
+    if NT not in DENSE_COL_TILES or (ranks is not None and not 1 <= ranks <= c_max):
+        raise ValueError(f"dense_partition: cols={cols} is not one of {DENSE_COL_TILES}, "
+                         f"or ranks={ranks} is not in 1..{c_max}")
+    cap = min(DENSE_W_TILE_BYTES * 8 // (NT * w_bits),
+              DENSE_A_TILE_BYTES * 8 // (MT * a_bits))
+    if group_size:       # ceil(window / G) + 1 groups a window touches
+        cap = min(cap, (DENSE_S_TILE_BYTES // (NT * 4) - 2) * group_size)
+    if cap < unit and cols is None and group_size:      # small groups: narrower tiles
+        NT = DENSE_COL_TILES[-1]
+        cap = min(cap, (DENSE_S_TILE_BYTES // (NT * 4) - 2) * group_size)
+    if cap < unit:
+        raise ValueError(f"dense_partition: no {unit}-code window fits the tiles "
+                         f"(NT={NT}, group_size={group_size})")
+    tiles = -(-N // NT) * row_tiles
+    if ranks:
+        want = ranks
+    elif decode:
+        want = min(c_max, DENSE_DECODE_RANKS, -(-K // DENSE_DECODE_WINDOW))
+    else:
+        want = max(1, min(c_max, CARD_SMS // tiles))
+        one_round = -(-units // (cap // unit))       # ranks for a single round
+        if want < one_round <= c_max and tiles * one_round <= 2 * CARD_SMS:
+            want = one_round
+    per = min(cap // unit, -(-units // want))
+    C = min(want, -(-units // per))
+    return MT, NT, C, per * unit
+
+
+def dense_rounds(K: int, C: int, k_per_rank: int) -> int:
+    """The rounds of C windows a tiling of ``dense_partition`` walks K in."""
+    return -(-K // (C * k_per_rank))
+
+
+def dense_active_clusters(op: str, M: int, N: int, K: int, w_bits: int, a_bits: int,
+                          group_size=None, *, ranks=None, cols=None) -> tuple[tuple, int]:
+    """(the tiling, clusters the card holds at once) for ``op``
+    (``lut_gemm``, or ``dequant_matmul`` with bf16 activations: a_bits 16)
+    at these shapes: ``cudaOccupancyMaxActiveClusters`` of the launch on
+    ``dense_partition``'s tiling. Builds the library."""
+    part = dense_partition(M, N, K, w_bits, a_bits, group_size, ranks=ranks, cols=cols)
+    lib = build.library(op)
+    if op == "lut_gemm":
+        n = lib.lut_gemm_active_clusters(M, N, K, w_bits, a_bits, group_size or 0, *part)
+    else:
+        n = lib.dequant_matmul_active_clusters(M, N, K, w_bits, group_size or 0, *part)
+    if n < 0:
+        build.check(-n, f"{op} occupancy query")
+    return part, n
 
 
 def lut_gemm_plain(a_packed, w_packed, lut_table, w_scales=None, *,
@@ -74,8 +192,11 @@ def _check(a_packed, w_packed, lut_table, w_scales, w_bits, a_bits,
 
 
 def lut_gemm_cuda(a_packed, w_packed, lut_table, w_scales=None, *,
-                  w_bits: int, a_bits: int, group_size=None) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (CUDA tensors only)."""
+                  w_bits: int, a_bits: int, group_size=None, ranks=None,
+                  cols=None) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream (CUDA tensors only), on
+    the tiling of ``dense_partition`` (``ranks`` and ``cols`` passed on: the
+    sweep of ``bs_sweep.py`` and the tests)."""
     M, N, K = _check(a_packed, w_packed, lut_table, w_scales, w_bits, a_bits,
                      group_size)
     out = torch.empty((M, N), dtype=torch.float32, device=a_packed.device)
@@ -87,7 +208,9 @@ def lut_gemm_cuda(a_packed, w_packed, lut_table, w_scales=None, *,
         a_packed.data_ptr(), w_packed.data_ptr(), lut_table.data_ptr(),
         w_scales.data_ptr() if w_scales is not None else None, out.data_ptr(),
         M, N, K, w_bits, a_bits, group_size if w_scales is not None else 0,
-        stream)
+        *dense_partition(M, N, K, w_bits, a_bits,
+                         group_size if w_scales is not None else None,
+                         ranks=ranks, cols=cols), stream)
     build.check(err, "lut_gemm")
     lut_gemm_cuda.launches += 1
     return out

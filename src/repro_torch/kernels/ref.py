@@ -119,6 +119,102 @@ def warp_order_matmul(a: torch.Tensor, w: torch.Tensor, step: int) -> torch.Tens
     return butterfly_sum(acc)
 
 
+# k-lanes of a block of csrc/dense_common.cuh (its warps): lane j walks the
+# 4-byte weight words j, j + 8, ... of a window
+DENSE_LANES = 8
+# f32 elements of block sums tile_order_matmul holds at once (16 MB: the
+# passes over them stay in a card's L2)
+_BLOCK_BUDGET = 1 << 22
+
+
+def tile_order_matmul(a: torch.Tensor, w: torch.Tensor, *, ranks: int,
+                      k_per_rank: int, word: int,
+                      group_scales: torch.Tensor | None = None,
+                      group_size: int | None = None) -> torch.Tensor:
+    """a (M, K) f32 @ w (N, K).T f32 -> (M, N), summed in the order of the
+    CUDA dequant_matmul kernel (csrc/dense_common.cuh): K is cut into
+    windows of ``k_per_rank`` codes, rank c of the cluster taking windows
+    c, c + ranks, ... (rounds); in each window k-lane j takes the words of
+    ``word`` codes j, j + DENSE_LANES, ...; each block of 8 codes is summed
+    product by product into a block sum (times its group's scale with
+    ``group_scales`` (N, K / group_size), group_size a multiple of 8), and
+    the block sums are added one by one into the lane's sum (each product,
+    scaling and sum rounded to f32; where the kernel fuses multiply and add
+    the products are exact, which gives the same bits); the lanes' sums
+    then meet in a pairwise tree
+    ((0 + 1) + (2 + 3)) + ((4 + 5) + (6 + 7)), and the ranks' partials are
+    added in rank order. K is padded with zeros to whole rounds, which adds
+    exact zeros where the kernel skips. No host sync, so CUDA graphs can
+    capture it. This replays the kernel's present schedule: a kernel that
+    changes its walk, its merge or its rounding must change this function
+    with it."""
+    M, K = a.shape
+    N = w.shape[0]
+    lanes, step, nb = DENSE_LANES, DENSE_LANES * word, word // 8
+    span = ranks * k_per_rank
+    rounds = -(-K // span)
+    pad = rounds * span - K
+    if pad:
+        a = torch.nn.functional.pad(a, (0, pad))
+        w = torch.nn.functional.pad(w, (0, pad))
+    steps = k_per_rank // step
+    # lane steps of the last round's longest window (its rank 0's): the
+    # steps past it hold only zeros, which leave every sum as it is
+    last = -(-min(k_per_rank, K - (rounds - 1) * span) // step)
+
+    def blocks(x):
+        """(rows, K) -> (8, the blocks in a lane's order, C x lanes, rows)."""
+        rows = x.shape[0]
+        x = x.reshape(rows, rounds, ranks, steps, lanes, nb, 8).permute(6, 1, 3, 5, 2, 4, 0)
+        x = torch.cat([x[:, :-1].flatten(1, 3), x[:, -1, :last].flatten(1, 2)], dim=1)
+        return x.reshape(8, -1, ranks * lanes, rows)
+
+    xa, xw = blocks(a), blocks(w)
+    n_blocks = xa.shape[1]
+    if group_scales is not None:                  # each block's group (the last past K)
+        k0 = blocks(torch.arange(a.shape[1], device=a.device, dtype=torch.float32)[None])[0, ..., 0]
+        g = (k0.long() // group_size).clamp(max=group_scales.shape[1] - 1)
+        scale = group_scales.float()[:, g].permute(1, 2, 0).unsqueeze(-2)
+    acc = torch.zeros((ranks * lanes, M, N), dtype=torch.float32, device=a.device)
+    chunk = max(1, _BLOCK_BUDGET // acc.numel())
+    for b0 in range(0, n_blocks, chunk):          # the blocks in order, a chunk at a time
+        b1 = min(n_blocks, b0 + chunk)
+        part = torch.zeros((b1 - b0, *acc.shape), dtype=torch.float32, device=a.device)
+        for q in range(8):                        # the chunk's block sums at once
+            part += xa[q, b0:b1].unsqueeze(-1) * xw[q, b0:b1].unsqueeze(-2)
+        if group_scales is not None:
+            part *= scale[b0:b1]
+        for b in range(b1 - b0):                  # block sums into the lanes' sums
+            acc += part[b]
+    acc = acc.view(ranks, lanes, M, N)
+    while acc.shape[1] > 1:                       # the lanes' pairwise tree
+        acc = acc[:, 0::2] + acc[:, 1::2]
+    out = acc[0, 0]
+    for c in range(1, ranks):
+        out = out + acc[c, 0]
+    return out.contiguous()
+
+
+def tile_order_dequant_matmul(a: torch.Tensor, w_packed: torch.Tensor,
+                              codebook: torch.Tensor, scales: torch.Tensor,
+                              bits: int, group_size: int | None, *, ranks: int,
+                              k_per_rank: int) -> torch.Tensor:
+    """``ref_dequant_matmul`` with its contraction in the CUDA dequant_matmul
+    kernel's order (``tile_order_matmul`` on the kernel's tiling: ``ranks``
+    windows of ``k_per_rank`` codes, words of 32 / bits codes), so the two
+    agree bit for bit. Group scales multiply each 8 codes' sum where the
+    group is a multiple of 8 codes, else fold into the levels, as there."""
+    kw = dict(ranks=ranks, k_per_rank=k_per_rank, word=32 // bits)
+    if group_size is None:
+        y = tile_order_matmul(a.float(), _dequant(w_packed, codebook, scales, bits, None), **kw)
+        return y * scales.float().unsqueeze(-2)
+    if group_size % 8 == 0:
+        return tile_order_matmul(a.float(), _dequant(w_packed, codebook, scales, bits, None),
+                                 group_scales=scales, group_size=group_size, **kw)
+    return tile_order_matmul(a.float(), _dequant(w_packed, codebook, scales, bits, group_size),
+                             **kw)
+
+
 def butterfly_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum the last axis (a power of two long) as lane 0 of a CUDA xor
     butterfly (warp_sum) does: halves added pairwise until one is left."""

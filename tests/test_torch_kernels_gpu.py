@@ -6,8 +6,9 @@ runs where only PyTorch is installed.
 
 Tolerances: lut_gemm with an integer LUT is bit-identical to the plain
 version (exact integer partial sums in f32); with group scales 1e-5
-relative. dequant_matmul rounds each product and each sum on its own, in
-the order its plain version repeats: bit-identical. lut_gemm_bs_fused quantizes the
+relative. dequant_matmul rounds in the order its plain version repeats
+(ref.py::tile_order_matmul, on the same dense_partition tiling):
+bit-identical. lut_gemm_bs_fused quantizes the
 rows with the plain version's arithmetic and sums exact integers, so per
 channel it is bit-identical; with group scales 1e-5 relative to the
 largest output (the stated bound; its cluster merge sums the groups in the
@@ -85,8 +86,13 @@ def cuda():
     return torch.device("cuda")
 
 
-_GPU_LUT = [(M, K, N, wb, ab, g) for M in (1, 4, 9, 32)
-            for (K, N) in ((1024, 1024), (1024, 2816), (2816, 1024), (96, 40))
+# (K, N): qwen1.5-0.5b's projections, the K slices tp=2 gives the row-
+# parallel leaves (512 x 1024, 1408 x 1024), N and K off the tiles, a tiny
+# shape; M up to the fixed loop's prefill (128)
+_GPU_DENSE_SHAPES = ((1024, 1024), (1024, 2816), (2816, 1024), (512, 1024),
+                     (1408, 1024), (1412, 1003), (96, 40))
+_GPU_LUT = [(M, K, N, wb, ab, g) for M in (1, 4, 9, 32, 128)
+            for (K, N) in _GPU_DENSE_SHAPES
             for (wb, ab, g) in ((2, 2, None), (2, 2, 64), (4, 8, None),
                                 (2, 8, None), (4, 4, None))]
 
@@ -111,19 +117,49 @@ def test_lut_gemm_kernel_matches_plain_on_card(cuda, M, K, N, wb, ab, group):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("M,K,N,bits,group,dtype",
-                         [(M, K, N, b, g, dt) for M in (1, 4, 9, 32)
-                          for (K, N) in ((1024, 1024), (1024, 2816), (2816, 1024))
+                         [(M, K, N, b, g, dt) for M in (1, 4, 9, 32, 128)
+                          for (K, N) in _GPU_DENSE_SHAPES
                           for (b, g) in ((2, None), (2, 128), (4, None))
                           for dt in ("bfloat16", "float32")])
 def test_dequant_matmul_kernel_matches_plain_on_card(cuda, M, K, N, bits, group,
                                                      dtype):
+    if group is not None and K % group:
+        pytest.skip("K not a multiple of the group")
     torch.backends.cuda.matmul.allow_tf32 = False
     ta, wp, cb, sc = _dq_operands(M + K + N, M, K, N, bits, group, dtype)
     ops = [ta.to(cuda)] + [torch.from_numpy(x).to(cuda) for x in (wp, cb, sc)]
+    before = dequant_matmul_cuda.launches
     got = dequant_matmul_cuda(*ops, bits=bits, group_size=group)
     torch.cuda.synchronize()
+    assert dequant_matmul_cuda.launches == before + 1
     want = dequant_matmul_plain(*ops, bits=bits, group_size=group)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(4, 1024, 2816), (32, 2816, 1024), (128, 1024, 1024)])
+def test_dense_kernels_match_plain_at_every_tiling_on_card(cuda, M, K, N):
+    """Every (NT, C) dense_partition takes: dequant_matmul bit-identical to
+    its plain version on the same tiling (bf16 and f32 rows, w2 per channel
+    and g128), lut_gemm w2a2 bit-identical."""
+    from repro_torch.kernels.lut_gemm import DENSE_COL_TILES, DENSE_MAX_CLUSTER
+    for dt in ("bfloat16", "float32"):
+        for g in (None, 128):
+            ta, wp, cb, sc = _dq_operands(M + K, M, K, N, 2, g, dt)
+            dq = [ta.to(cuda)] + [torch.from_numpy(x).to(cuda) for x in (wp, cb, sc)]
+            for NT in DENSE_COL_TILES:
+                for C in range(1, DENSE_MAX_CLUSTER + 1):
+                    kw = dict(bits=2, group_size=g, ranks=C, cols=NT)
+                    got = dequant_matmul_cuda(*dq, **kw)
+                    torch.testing.assert_close(got, dequant_matmul_plain(*dq, **kw),
+                                               rtol=0, atol=0)
+    lut_ops = [torch.from_numpy(x).to(cuda)
+               for x in _lut_operands(M, M, K, N, 2, 2)[:3]]
+    want = lut_gemm_plain(*lut_ops, w_bits=2, a_bits=2)
+    for NT in DENSE_COL_TILES:
+        for C in range(1, DENSE_MAX_CLUSTER + 1):
+            got = lut_gemm_cuda(*lut_ops, w_bits=2, a_bits=2, ranks=C, cols=NT)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.gpu

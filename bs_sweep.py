@@ -7,6 +7,7 @@ their tiling.
   python3 bs_sweep.py --no-sweep        # the chosen tiling only
   python3 bs_sweep.py --only dense      # lut_gemm and dequant_matmul only (--only bs:
                                         # the bit-sliced pair only)
+  python3 bs_sweep.py --only expert     # expert_dequant_matmul and expert_lut_gemm only
 
 lut_gemm (w2a2, w2a2 in groups of 64, w4a8) and dequant_matmul (bf16
 activations; w2, w2 in groups of 128, w4) are timed at qwen1.5-0.5b's
@@ -16,6 +17,17 @@ MT, NT, C, the window, the rounds, blocks, clusters resident at once);
 dequant_matmul's lines also time its plain version (tied to the kernel's
 summation order, so its cost is the tie's); unless --no-sweep, every
 (NT, C) follows for each of them at those shapes, the chosen one marked.
+
+--only expert times expert_dequant_matmul (bf16 rows; w2, w2 in groups of
+64, w4) and expert_lut_gemm (w2a2, w2a2 in groups of 64) at
+moonshot-v1-16b-a3b's expert shapes (chip_smoke.EXPERT_SHAPES: E 64, M 4
+and 16), every expert filled, beside torch.bmm of bf16 against the
+pre-dequantized weight, the byte bound and (dequant) the tied plain
+version's time, each line with its tiling (kernels/lut_gemm.py::
+expert_partition); then the decode shape with 24 of the 64 experts
+flagged active (chip_smoke.EXPERT_ACTIVE, drawn from a seed; the bound
+counts the active experts' bytes; a parent without the flag computes all
+64); unless --no-sweep, every (NT, C) at EXPERT_SHAPES follows.
 
 Times lut_gemm_bs_fused (bf16 x, dynamic scales, w2 per channel and g64)
 and lut_gemm_bitsliced (int8 codes, w2 per channel and g64) at
@@ -60,7 +72,7 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src directory whose repro_torch to time")
     ap.add_argument("--no-sweep", action="store_true")
-    ap.add_argument("--only", choices=("dense", "bs"), default=None,
+    ap.add_argument("--only", choices=("dense", "bs", "expert"), default=None,
                     help="time one family of kernels only")
     args = ap.parse_args()
     import torch
@@ -80,9 +92,11 @@ def main() -> int:
     tiled = hasattr(BS, "bs_partition")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    if args.only != "bs":
+    if args.only in (None, "expert"):
+        expert(torch, dev, not args.no_sweep)
+    if args.only in (None, "dense"):
         dense(torch, dev, graph_ms, HBM_BYTES_PER_S, not args.no_sweep)
-    if args.only == "dense":
+    if args.only in ("dense", "expert"):
         return 0
 
     def one(op, M, K, N, G, mark="", **tile):
@@ -260,6 +274,120 @@ def dense(torch, dev, graph_ms, hbm_bytes_per_s, sweep: bool) -> None:
                         one(op, M, K, N, wb, ab, G,
                             "  <- dense_partition" if part == pick else "",
                             ranks=C, cols=NT)
+
+
+def expert(torch, dev, sweep: bool) -> None:
+    """expert_dequant_matmul and expert_lut_gemm at EXPERT_SHAPES (and,
+    with ``sweep``, every (NT, C)), each beside torch.bmm, the byte bound
+    and (dequant) the tied plain version; then the decode shape with
+    EXPERT_ACTIVE experts flagged."""
+    from chip_smoke import EXPERT_ACTIVE, EXPERT_SHAPES, HBM_BYTES_PER_S, graph_ms
+    from repro_torch.core import packing, quant
+    from repro_torch.core.lut import product_lut
+    from repro_torch.kernels import expert_gemm as EG
+    from repro_torch.kernels import lut_gemm as LG
+
+    tiled = hasattr(LG, "expert_partition")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def one(op, E, M, K, N, bits, G, n_active=None, mark="", plain=False, **tile):
+        """Time op at (E, M, K, N, G) on expert_partition's tiling
+        (``tile``: its ranks and cols), with ``n_active`` experts flagged
+        where given."""
+        w_idx = torch.randint(0, 2 ** bits, (E, N, K), generator=gen, device=dev,
+                              dtype=torch.uint8)
+        wp = packing.pack(w_idx, bits)
+        levels = quant.uniform_codebook(bits, device=dev).levels
+        sc_shape = (E, N) if G is None else (E, N, K // G)
+        kw, on = {}, torch.ones(E, dtype=torch.bool, device=dev)
+        if n_active is not None:
+            on = torch.zeros(E, dtype=torch.bool, device=dev)
+            on[torch.randperm(E, generator=gen, device=dev)[:n_active]] = True
+            if tiled:
+                kw["active"] = on
+        if op == "expert_dequant_matmul":
+            x = torch.randn((E, M, K), generator=gen, device=dev).to(torch.bfloat16)
+            x[~on] = 0
+            sc = torch.rand(sc_shape, generator=gen, device=dev) * 0.1 + 0.01
+            args_ = (x, wp, levels, sc)
+            kw.update(bits=bits, group_size=G)
+            w_scale = sc[..., None] if G is None else quant.expand_group_scales(sc, G)
+            xb, in_bytes = x, x[on].numel() * 2 + levels.numel() * 4 + sc[on].numel() * 4
+        else:
+            a_idx = torch.randint(0, 2 ** bits, (E, M, K), generator=gen, device=dev,
+                                  dtype=torch.uint8)
+            a_idx[~on] = 2 ** (bits - 1)              # the code of 0.0
+            ap = packing.pack(a_idx, bits)
+            sc = None if G is None else (
+                torch.rand(sc_shape, generator=gen, device=dev) * 0.1 + 0.01)
+            args_ = (ap, wp, product_lut(levels, levels).table, sc)
+            kw.update(w_bits=bits, a_bits=bits, group_size=G)
+            w_scale = 1.0 if G is None else quant.expand_group_scales(sc, G)
+            xb = levels[a_idx.long()].to(torch.bfloat16)
+            in_bytes = ap[on].numel() + 16 * 4 + (0 if sc is None else sc[on].numel() * 4)
+        fn, want_fn = getattr(EG, f"{op}_cuda"), getattr(EG, f"{op}_plain")
+        got = fn(*args_, **kw, **tile)
+        torch.cuda.synchronize()
+        # the dequant plain version replays the kernel's tiling
+        want = want_fn(*args_, **kw, **(tile if op == "expert_dequant_matmul" else {}))
+        err = (got - want).abs().max().item()
+        ms = graph_ms(torch, lambda: fn(*args_, **kw, **tile))
+        wdq = (levels[w_idx.long()] * w_scale).to(torch.bfloat16).transpose(1, 2).contiguous()
+        del w_idx
+        lib = graph_ms(torch, lambda: torch.bmm(xb, wdq))
+        del wdq
+        n_on = int(on.sum().item())
+        bound = (wp[on].numel() + in_bytes + E * M * N * 4) / HBM_BYTES_PER_S * 1e3
+        text = ""
+        if plain:                                     # the tied replay's own cost
+            p_ms = graph_ms(torch, lambda: want_fn(*args_, **kw), reps=2, replays=2)
+            text = f" plain={p_ms * 1e3:9.2f}us"
+        if tiled:
+            ab = 16 if op == "expert_dequant_matmul" else bits
+            (MT, NT, C, kpr), active = EG.expert_active_clusters(
+                op, E, M, N, K, bits, ab, G, **tile)
+            blocks = E * -(-N // NT) * -(-M // MT) * C
+            text = (f" MT={MT} NT={NT:<3d} C={C} K/rank={kpr:<5d} "
+                    f"rounds={LG.dense_rounds(K, C, kpr)} blocks={blocks:<5d} "
+                    f"active={active:<4d}") + text
+        cfg = (f"w{bits}a16" if op == "expert_dequant_matmul" else f"w{bits}a{bits}") + (
+            f"g{G}" if G else "")
+        experts = f"{n_on}/{E}" if n_active is not None else f"{E}"
+        print(f"  {op:21s} {cfg:8s} E={experts:<5s} M={M:<3d} K={K:<5d} N={N:<5d}{text} "
+              f"kernel={ms * 1e3:8.2f}us bmm={lib * 1e3:8.2f}us bound={bound * 1e3:6.2f}us "
+              f"err={err:.3g}{mark}", flush=True)
+        del wp
+
+    cases = [("expert_dequant_matmul", 2, None), ("expert_dequant_matmul", 2, 64),
+             ("expert_dequant_matmul", 4, None), ("expert_lut_gemm", 2, None),
+             ("expert_lut_gemm", 2, 64)]
+    print("[expert: times at the chosen tiling]", flush=True)
+    for op, bits, G in cases:
+        for E, M, K, N in EXPERT_SHAPES:
+            one(op, E, M, K, N, bits, G, plain=op == "expert_dequant_matmul" and G is None)
+    E, M, K, N = EXPERT_SHAPES[0]
+    for op, bits, G in cases:
+        one(op, E, M, K, N, bits, G, n_active=EXPERT_ACTIVE)
+    if not (tiled and sweep):
+        return
+    print("[expert sweep: every (NT, C)]", flush=True)
+    for op, bits, G in cases:
+        ab = 16 if op == "expert_dequant_matmul" else bits
+        for E, M, K, N in EXPERT_SHAPES:
+            pick = LG.expert_partition(E, M, N, K, bits, ab, G)
+            seen = set()
+            for NT in LG.DENSE_COL_TILES:
+                for C in range(1, LG.DENSE_MAX_CLUSTER + 1):
+                    try:
+                        part = LG.expert_partition(E, M, N, K, bits, ab, G, ranks=C, cols=NT)
+                    except ValueError:      # more ranks than K has windows
+                        continue
+                    if part in seen:
+                        continue
+                    seen.add(part)
+                    one(op, E, M, K, N, bits, G,
+                        mark="  <- expert_partition" if part == pick else "",
+                        ranks=C, cols=NT)
 
 
 if __name__ == "__main__":

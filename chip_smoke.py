@@ -41,11 +41,15 @@ Phases, each printing its lines:
               pre-dequantized bf16 view; and the two expert GEMMs at
               moonshot-v1-16b-a3b's decode shapes (E 64, M 4, K x N =
               2048x1408 and 1408x2048; w2 per channel and g64, w4 for the
-              dequant kernel), at M 16, and at the edges (E 1, N off the
-              warp tile, K off the word step, groups smaller than a lane
-              step and one group per row, zero rows of unfilled capacity
-              slots), the library time being torch.bmm of the bf16
-              activations against the pre-dequantized bf16 weights; and
+              dequant kernel), at M 16, at the decode shape with 24 of the
+              64 experts flagged active as a decode step's dispatch leaves
+              them (the bound counts the active experts' bytes), and at the
+              edges (E 1, N off the column tile, K off the window, groups
+              of 8 and one group per row, zero rows of unfilled capacity
+              slots), each line with its tiling
+              (kernels/lut_gemm.py::expert_partition), the library time
+              being torch.bmm of the bf16 activations against the
+              pre-dequantized bf16 weights; and
               kv_cache_attention over a dense slot cache at the fixed
               loop's serve shapes (qwen int8 and codeqwen int4, S 48), a
               GQA shape with S 1000, 8k / 32k context and a ragged S 5000
@@ -166,7 +170,7 @@ BF16_TC_FLOPS = 989e12      # bf16 tensor cores
 # f32, so it must be bit-identical; with group scales the summation order
 # differs from the plain version's. dequant_matmul and expert_dequant_matmul
 # round in the order their plain versions repeat (ref.py::tile_order_matmul
-# on dense_partition's tiling, and warp_order_matmul), so they must be
+# on dense_partition's and expert_partition's tilings), so they must be
 # bit-identical. lut_gemm_bs_fused quantizes
 # the rows with the plain version's arithmetic and sums exact integers, so per
 # channel it must be bit-identical; its group-scale sum runs in another order.
@@ -179,7 +183,7 @@ TOL_LOGITS = 2e-2           # w2a16 first decode step, relative to max|logit|
 # operation (kernels/kv_cache_attention.py), so the two must be bit-identical
 TOL_ATTN = 1e-5             # relative to max|plain|
 # expert_lut_gemm sums exact integers per channel (bit-identical) and scales
-# each packed byte's partial sum where the plain version scales each group's
+# each 8 units' partial sum where the plain version scales each group's
 TOL_EXPERT_GROUPED = 1e-5   # relative to max|plain|
 
 SHAPES = ((1024, 1024), (1024, 2816), (2816, 1024))   # (K, N) per projection
@@ -199,6 +203,9 @@ LC_SPLITS = 8
 # (capacity 4), gate/up at a prefill-like M
 EXPERT_SHAPES = ((64, 4, 2048, 1408), (64, 4, 1408, 2048), (64, 16, 2048, 1408))
 EXPERT_REPRESENTATIVE = (64, 4, 2048, 1408)
+# experts a decode call of moonshot's fills: 4 slots x top-6 assignments
+# reach at most 24 of the 64 experts
+EXPERT_ACTIVE = 24
 # kv_cache_attention: (label, B, KV, G, hd, bits, S, lengths, q dtype); the
 # serve shapes are the fixed loop's (P 32 + gen 16 rows, lengths 33-47)
 KV_CACHE_ROWS = (
@@ -564,17 +571,31 @@ def phase_bitsliced(torch, dev):
 # (label, E, M, K, N, bits, group, zero every 3rd expert's rows)
 EXPERT_EDGES = (
     ("E 1", 1, 4, 2048, 1408, 2, None, False),
-    ("N off the warp tile", 8, 4, 2048, 1003, 2, None, False),
-    ("K off the word step", 8, 4, 1400, 512, 2, None, False),
+    ("N off the column tile", 8, 4, 2048, 1003, 2, None, False),
+    ("K off the window", 8, 4, 1400, 512, 2, None, False),
     ("G 8, two groups per lane word", 4, 4, 2048, 256, 2, 8, False),
     ("one group per row", 4, 4, 2048, 256, 2, 2048, False),
     ("unfilled capacity slots", 64, 4, 2048, 1408, 2, None, True),
 )
 
 
+def expert_tiling(op, E, M, N, K, bits, a_bits, group):
+    """The expert kernels' tiling at these shapes (expert_partition): MT,
+    NT, C, the window, the blocks and the clusters (blocks at C 1) the card
+    holds at once."""
+    from repro_torch.kernels.expert_gemm import expert_active_clusters
+    from repro_torch.kernels.lut_gemm import dense_rounds
+    (MT, NT, C, kpr), active = expert_active_clusters(op, E, M, N, K, bits, a_bits, group)
+    return {"MT": MT, "NT": NT, "cluster": C, "k_per_rank": kpr,
+            "rounds": dense_rounds(K, C, kpr),
+            "blocks": E * -(-N // NT) * -(-M // MT) * C, "active_clusters": active}
+
+
 def phase_experts(torch, dev):
     """The two expert GEMMs against their plain versions: EXPERT_SHAPES at
-    w2, w2 g64 and (dequant kernel) w4, then EXPERT_EDGES. Activations are
+    w2, w2 g64 and (dequant kernel) w4, the decode shape with EXPERT_ACTIVE
+    of its experts flagged active (drawn from the seed; the others' rows
+    zero, as the dispatch leaves them), then EXPERT_EDGES. Activations are
     bf16 as served; the LUT rows' yardstick multiplies the activation
     levels as bf16."""
     from repro_torch.core import packing, quant
@@ -586,39 +607,48 @@ def phase_experts(torch, dev):
     cases = []
     for E, M, K, N in EXPERT_SHAPES:
         label = "moonshot decode" if M == 4 else f"moonshot M {M}"
-        cases += [("expert_dequant_matmul", label, E, M, K, N, b, G, False)
+        cases += [("expert_dequant_matmul", label, E, M, K, N, b, G, False, None)
                   for b, G in ((2, None), (2, 64), (4, None))]
-        cases += [("expert_lut_gemm", label, E, M, K, N, 2, G, False)
+        cases += [("expert_lut_gemm", label, E, M, K, N, 2, G, False, None)
                   for G in (None, 64)]
-    cases += [(name, *edge) for edge in EXPERT_EDGES for name in rows]
-    for name, label, E, M, K, N, bits, G, zero in cases:
+    E, M, K, N = EXPERT_REPRESENTATIVE
+    cases += [(name, f"moonshot decode, {EXPERT_ACTIVE} of {E} experts", E, M, K, N, 2,
+               None, False, EXPERT_ACTIVE) for name in rows]
+    cases += [(name, *edge, None) for edge in EXPERT_EDGES for name in rows]
+    for name, label, E, M, K, N, bits, G, zero, n_active in cases:
         w_idx = torch.randint(0, 2 ** bits, (E, N, K), generator=gen, device=dev,
                               dtype=torch.uint8)
         wp = packing.pack(w_idx, bits)
         levels = quant.uniform_codebook(bits, device=dev).levels
         sc_shape = (E, N) if G is None else (E, N, K // G)
+        on = torch.ones(E, dtype=torch.bool, device=dev)
+        if n_active is not None:
+            on[torch.randperm(E, generator=gen, device=dev)[n_active:]] = False
+        if zero:
+            on[::3] = False                           # rows of unfilled slots, unflagged
+        flags = None if n_active is None else on
         if name == "expert_dequant_matmul":
             x = torch.randn((E, M, K), generator=gen, device=dev).to(torch.bfloat16)
-            if zero:
-                x[::3] = 0
+            x[~on] = 0
             sc = torch.rand(sc_shape, generator=gen, device=dev) * 0.1 + 0.01
-            ops, kw = (x, wp, levels, sc), dict(bits=bits, group_size=G)
+            ops, kw = (x, wp, levels, sc), dict(bits=bits, group_size=G, active=flags)
             w_scale = sc[..., None] if G is None else quant.expand_group_scales(sc, G)
-            xb, n_in, peak = x, nbytes(x, levels, sc), BF16_TC_FLOPS
+            xb, n_in, peak = x, nbytes(x[on], levels, sc[on]), BF16_TC_FLOPS
+            a_bits = 16
         else:
             a_idx = torch.randint(0, 2 ** bits, (E, M, K), generator=gen, device=dev,
                                   dtype=torch.uint8)
-            if zero:
-                a_idx[::3] = 2 ** (bits - 1)          # the code of 0.0
+            a_idx[~on] = 2 ** (bits - 1)              # the code of 0.0
             ap = packing.pack(a_idx, bits)
             lut = product_lut(levels, levels).table
             sc = None if G is None else (
                 torch.rand(sc_shape, generator=gen, device=dev) * 0.1 + 0.01)
             ops, kw = (ap, wp, lut, sc), dict(w_bits=bits, a_bits=bits,
-                                             group_size=G)
+                                             group_size=G, active=flags)
             w_scale = 1.0 if G is None else quant.expand_group_scales(sc, G)
             xb = levels[a_idx.long()].to(torch.bfloat16)
-            n_in, peak = nbytes(ap, lut, sc), INT8_TC_OPS
+            n_in = nbytes(ap[on], lut, None if sc is None else sc[on])
+            peak, a_bits = INT8_TC_OPS, bits
         kern, plain = getattr(EG, f"{name}_cuda"), getattr(EG, f"{name}_plain")
         got = kern(*ops, **kw)
         torch.cuda.synchronize()
@@ -628,7 +658,7 @@ def phase_experts(torch, dev):
         exact = name == "expert_dequant_matmul" or G is None
         ok = bool(torch.isfinite(got).all()) and (
             err == 0.0 if exact else err <= TOL_EXPERT_GROUPED * scale)
-        zero_ok = not zero or got[::3].abs().max().item() == 0.0
+        zero_ok = bool(on.all()) or got[~on].abs().max().item() == 0.0
         wdq = (levels[w_idx.long()] * w_scale).to(torch.bfloat16) \
             .transpose(1, 2).contiguous()                      # (E, K, N)
         del w_idx
@@ -636,17 +666,24 @@ def phase_experts(torch, dev):
         p_ms = graph_ms(torch, lambda: plain(*ops, **kw), reps=2, replays=2)
         l_ms = graph_ms(torch, lambda: torch.bmm(xb, wdq))
         del wdq
-        b, by = bound_ms(nbytes(wp) + n_in + E * M * N * 4, 2 * E * M * N * K, peak)
+        # the work the flags leave: the active experts' inputs and products
+        n_on = int(on.sum().item()) if flags is not None else E
+        w_bytes = nbytes(wp[on]) if flags is not None else nbytes(wp)
+        if flags is None:
+            n_in = nbytes(*ops[:1], *ops[2:])
+        b, by = bound_ms(w_bytes + n_in + E * M * N * 4, 2 * n_on * M * N * K, peak)
         cfg = f"w{bits}" + ("a16" if name == "expert_dequant_matmul" else f"a{bits}") \
             + (f"g{G}" if G else "")
+        tiling = expert_tiling(name, E, M, N, K, bits, a_bits, G)
         rows[name].append({
             "kernel": name, "label": label, "cfg": cfg, "E": E, "M": M, "K": K,
-            "N": N, "max_abs_err": err, "max_abs_plain": scale, "ms": k_ms,
-            "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b, "bound_by": by})
-        print(f"  {name:21s} {label:30s} {cfg:8s} E={E:<2d} M={M:<2d} K={K:<4d} "
+            "N": N, "active": n_on, "max_abs_err": err, "max_abs_plain": scale,
+            "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b,
+            "bound_by": by, **tiling})
+        print(f"  {name:21s} {label:34s} {cfg:8s} E={E:<2d} M={M:<2d} K={K:<4d} "
               f"N={N:<4d} err={err:.3g} (max|plain| {scale:.3g}) kernel={k_ms:.5f}ms "
-              f"plain={p_ms:.5f}ms bmm={l_ms:.5f}ms bound={b:.5f}ms ({by})",
-              flush=True)
+              f"plain={p_ms:.5f}ms bmm={l_ms:.5f}ms bound={b:.5f}ms ({by}); "
+              f"{bs_tiling_text(tiling)}", flush=True)
         if not (ok and zero_ok):
             fail(f"{name} {label} {cfg} disagrees with its plain version: "
                  f"max_abs_err={err}, max|plain|={scale}, zero rows kept zero: "
@@ -1696,6 +1733,7 @@ def main() -> int:
             rep = next(r for r in rows[name] if r["label"] == "qwen serve")
         elif name.startswith("expert_"):
             rep = next(r for r in rows[name] if r["cfg"] == cfg_name
+                       and r["label"] == "moonshot decode"
                        and (r["E"], r["M"], r["K"], r["N"]) == EXPERT_REPRESENTATIVE)
         else:
             rep = next(r for r in rows[name] if r["cfg"] == cfg_name

@@ -1,17 +1,23 @@
-// The tiled walk shared by the two packed-weight GEMM kernels
-// (lut_gemm.cu, dequant_matmul.cu): a block owns MT rows, NT = 32 * NC
-// columns and one K window; the C windows of a column tile are the ranks of
-// one thread-block cluster, whose partials meet in the owners' shared memory.
+// The tiled walk shared by the packed-weight GEMM kernels (lut_gemm.cu,
+// dequant_matmul.cu, and expert_gemm.cu with an expert axis): a block owns
+// MT rows, NT = 32 * NC columns and one K window of one expert; the C
+// windows of a column tile are the ranks of one thread-block cluster, whose
+// partials meet in the owners' shared memory. The two inner loops are
+// dense_dequant.cuh and dense_lut.cuh.
 //
 // The tiling (MT, NT, C, the window of kpr units) is chosen by
-// kernels/lut_gemm.py::dense_partition and passed in. A unit is what one
-// table read serves: a code (dequant_matmul, and lut_gemm except w2a2), or a
-// pair of neighbouring codes (lut_gemm w2a2, through a 256-entry pair table).
+// kernels/lut_gemm.py::dense_partition (expert_partition for the expert
+// GEMMs) and passed in. A unit is what one table read serves: a code
+// (dequant_matmul, and lut_gemm except w2a2), or a pair of neighbouring
+// codes (lut_gemm w2a2, through a 256-entry pair table).
 //
-//   grid (C, N/NT, M/MT), clusters of C blocks along x: block x is rank x of
-//   the column tile. K is cut into windows of kpr units; in round t rank c
-//   owns window t * C + c (the last window ragged, later ones empty), and
-//   the rounds keep each window's tiles under the shared-memory budget.
+//   grid (C, N/NT, E * M/MT), clusters of C blocks along x: block x is rank
+//   x of the column tile, block z = e * (M/MT) + i row tile i of expert e
+//   (E 1 for the dense kernels; a block of an expert flagged empty writes
+//   zeros and returns, dense_expert). K is cut into windows of kpr units;
+//   in round t rank c owns window t * C + c (the last window ragged, later
+//   ones empty), and the rounds keep each window's tiles under the
+//   shared-memory budget.
 //
 // One DRAM round trip a round: before its first product every thread has
 // issued all of its loads of the window: the weight tile in 16-byte pieces
@@ -52,13 +58,14 @@ constexpr int kMaxDenseCluster = 8;           // portable cluster size
 constexpr int kWPieces = 8;                   // 16-byte weight pieces a thread holds
 constexpr int kWTileBytes = kWPieces * 16 * kDenseThreads;   // 32 KB a round
 
-// What both kernels take; sizes in units unless named in bytes.
+// What the kernels take; sizes in units unless named in bytes. Each operand
+// but the table has a leading expert axis of E (1 for the dense kernels).
 struct DenseArgs {
-    const void* a;                // (M, K) activations or (M, K/fa) packed codes
-    const uint8_t* w;             // (N, K/fw) packed weight codes
+    const void* a;                // (E, M, K) activations or (E, M, K/fa) packed codes
+    const uint8_t* w;             // (E, N, K/fw) packed weight codes
     const float* table;           // codebook or product LUT (2^(wb + ab),)
-    const float* scales;          // (N,), (N, K/G) or null
-    float* out;                   // (M, N) f32
+    const float* scales;          // (E, N), (E, N, K/G) or null
+    float* out;                   // (E, M, N) f32
     int M, N, K;                  // K in units
     int G;                        // group size in units (0: none)
     int MT, C, kpr, rounds;       // rows a tile, ranks, units a window, rounds
@@ -70,6 +77,10 @@ struct DenseArgs {
     int s_pitch;                  // floats of a scale-tile row
     int a_off, s_off, t_off, recv_off;   // shared memory (dense_layout)
     int red_off;                  // the k-lanes' sums: past the tiles, or 0 (over them)
+    // the expert axis (dense_expert)
+    const unsigned char* active;  // (E,): 0 where no token was dispatched to the expert, or null
+    int E;                        // experts
+    int s_row;                    // floats of a global scale row: K / G, or 1 per channel
 };
 
 struct DenseLayout {
@@ -113,8 +124,8 @@ inline DenseLayout dense_layout(int MT, int NT, int C, int kpr, int w_unit_bits,
 inline cudaError_t dense_args(DenseArgs& a, int NT, int w_unit_bits, int a_unit_bits,
                               int table_floats, dim3& grid, int& smem) {
     const int unit = kLanes * 32 / w_unit_bits;
-    if (a.M < 1 || a.N < 1 || a.K < 1 || a.MT < 1 || a.MT > kMaxMt || (NT != 64 && NT != 128) ||
-        a.C < 1 || a.C > kMaxDenseCluster || a.kpr < unit || a.kpr % unit ||
+    if (a.E < 1 || a.M < 1 || a.N < 1 || a.K < 1 || a.MT < 1 || a.MT > kMaxMt ||
+        (NT != 64 && NT != 128) || a.C < 1 || a.C > kMaxDenseCluster || a.kpr < unit || a.kpr % unit ||
         static_cast<int64_t>(a.C) * a.kpr * (a.rounds - 1) >= a.K ||
         static_cast<int64_t>(a.C) * a.kpr * a.rounds < a.K ||
         static_cast<int64_t>(NT) * a.kpr * w_unit_bits / 8 > kWTileBytes)
@@ -129,6 +140,7 @@ inline cudaError_t dense_args(DenseArgs& a, int NT, int w_unit_bits, int a_unit_
     a.w_pitch = (a.kpr * w_unit_bits / 32) | 1;
     a.a_pitch = a.kpr * a_unit_bits / 8;
     a.s_pitch = a.G > 0 ? (a.kpr + a.G - 1) / a.G + 1 : 0;
+    a.s_row = a.G > 0 ? a.K / a.G : 1;
     const DenseLayout l = dense_layout(a.MT, NT, a.C, a.kpr, w_unit_bits, a_unit_bits, a.G,
                                        table_floats);
     a.share = (a.MT * NT + a.C - 1) / a.C;
@@ -138,9 +150,39 @@ inline cudaError_t dense_args(DenseArgs& a, int NT, int w_unit_bits, int a_unit_
     a.recv_off = l.recv_off;
     a.red_off = l.red_off;
     smem = l.total;
-    grid = dim3(a.C, (a.N + NT - 1) / NT, (a.M + a.MT - 1) / a.MT);
-    if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
+    const int64_t z = static_cast<int64_t>(a.E) * ((a.M + a.MT - 1) / a.MT);
+    grid = dim3(a.C, (a.N + NT - 1) / NT, static_cast<unsigned>(z));
+    if (grid.y > 65535 || z > 65535) return cudaErrorInvalidValue;
     return cudaSuccess;
+}
+
+// The launch's arguments before dense_args completes them: every pointer,
+// the shapes (K, group_size and k_per_rank in units) and the tiling; the
+// rounds of C windows that cover K.
+inline DenseArgs dense_make_args(const void* a, const void* w, const void* table,
+                                 const void* scales, void* out, const void* active, int E, int M,
+                                 int N, int K, int group_size, int MT, int C, int k_per_rank) {
+    DenseArgs d{};
+    d.a = a;
+    d.w = static_cast<const uint8_t*>(w);
+    d.table = static_cast<const float*>(table);
+    d.scales = static_cast<const float*>(scales);
+    d.out = static_cast<float*>(out);
+    d.active = static_cast<const unsigned char*>(active);
+    d.E = E;
+    d.M = M;
+    d.N = N;
+    d.K = K;
+    d.G = group_size;
+    d.MT = MT;
+    d.C = C;
+    d.kpr = k_per_rank;
+    d.rounds = k_per_rank > 0 && C > 0
+                   ? static_cast<int>((static_cast<int64_t>(K) + static_cast<int64_t>(C) *
+                                                                     k_per_rank - 1) /
+                                      (static_cast<int64_t>(C) * k_per_rank))
+                   : 0;
+    return d;
 }
 
 // Copies from global to shared memory that complete in the background
@@ -180,16 +222,43 @@ struct DivBy {
     }
 };
 
-// The block's place in the grid and its window of round t.
+// The expert axis: block z = e * row_tiles + i owns row tile i of expert e.
+// Moves a's pointers to expert e's operands and returns i. Where the
+// dispatch left expert e empty (active[e] == 0) the block instead writes
+// zeros to its share of the output tile, loads no weights and returns -1:
+// the ranks of a cluster share z, so all of them return, before any
+// cluster barrier.
+__device__ __forceinline__ int dense_expert(DenseArgs& a, int NT) {
+    const int row_tiles = (a.M + a.MT - 1) / a.MT;
+    const int e = blockIdx.z / row_tiles, i = blockIdx.z - e * row_tiles;
+    a.out += static_cast<size_t>(e) * a.M * a.N;
+    if (a.active != nullptr && !__ldg(a.active + e)) {
+        const int m0 = i * a.MT, rows = min(a.MT, a.M - m0);
+        const int n0 = blockIdx.y * NT, cols = min(NT, a.N - n0);
+        for (int o = blockIdx.x * kDenseThreads + threadIdx.x; o < rows * cols;
+             o += a.C * kDenseThreads) {
+            const int r = o / cols;
+            a.out[static_cast<size_t>(m0 + r) * a.N + n0 + o - r * cols] = 0.f;
+        }
+        return -1;
+    }
+    a.a = static_cast<const unsigned char*>(a.a) + static_cast<size_t>(e) * a.M * a.a_row;
+    a.w += static_cast<size_t>(e) * a.N * a.w_row;
+    if (a.scales != nullptr) a.scales += static_cast<size_t>(e) * a.N * a.s_row;
+    return i;
+}
+
+// The block's place in the grid (row tile ``row_tile`` of its expert) and
+// its window of round t.
 struct DenseTile {
     int rank, n0, m0, rows, cols;     // rows / cols of the tile that exist
     int lo, hi;                       // the round's window [lo, hi), in units
     DivBy group;                      // unit -> its scale group (G, or 1 without)
     int g_lo;                         // the window's first group
-    __device__ DenseTile(const DenseArgs& a, int NT) : group(a.G > 0 ? a.G : 1) {
+    __device__ DenseTile(const DenseArgs& a, int NT, int row_tile) : group(a.G > 0 ? a.G : 1) {
         rank = blockIdx.x;
         n0 = blockIdx.y * NT;
-        m0 = blockIdx.z * a.MT;
+        m0 = row_tile * a.MT;
         rows = min(a.MT, a.M - m0);
         cols = min(NT, a.N - n0);
     }

@@ -46,8 +46,10 @@ SIGNATURES = {
     ("paged_attention", "paged_attention_active_clusters"): [_I] * 10,
     ("paged_attention", "paged_attention_splitkv_launch"): [_P] * 11 + [_I] * 10
                                                            + [_P],
-    ("expert_gemm", "expert_dequant_matmul_launch"): [_P] * 5 + [_I] * 7 + [_P],
-    ("expert_gemm", "expert_lut_gemm_launch"): [_P] * 5 + [_I] * 6 + [_P],
+    ("expert_gemm", "expert_dequant_matmul_launch"): [_P] * 6 + [_I] * 11 + [_P],
+    ("expert_gemm", "expert_dequant_matmul_active_clusters"): [_I] * 10,
+    ("expert_gemm", "expert_lut_gemm_launch"): [_P] * 6 + [_I] * 10 + [_P],
+    ("expert_gemm", "expert_lut_gemm_active_clusters"): [_I] * 10,
     ("kv_cache_attention", "kv_cache_attention_launch"): [_P] * 7 + [_I] * 9 + [_P],
     ("kv_cache_attention", "kv_cache_attention_active_clusters"): [_I] * 9,
     ("lut_gemm_bitsliced", "lut_gemm_bitsliced_launch"): [_P] * 4 + [_I] * 9 + [_P],

@@ -14,13 +14,19 @@ Replace ``src/repro/kernels/expert_dequant_matmul.py``'s
                          group scales applied per K-group; per-channel and
                          activation scales stay in the caller
 
+Both take ``active`` (E,), bool or uint8, or None: where it is given, the
+experts whose flag is 0 (no token was dispatched to them) come out zero
+and the kernels load none of their weights; None computes every expert.
+``moe_apply`` passes the flag its dispatch computed, which leaves its
+result as it is (an empty expert's rows are zero and come out zero).
+
 Callers go through ``kernels/registry.py``, which takes the plain version
 for CPU tensors and the kernel (``*_cuda``, which launches or raises) for
 CUDA tensors.
 
 Bound on the H100 and design: see the note at the top of the CUDA source
-(bytes-bound at the moonshot decode shape; one warp per output column per
-expert, decoded weights reused across the capacity rows).
+(the tiled walk of ``csrc/dense_common.cuh`` with an expert axis, tiled by
+``lut_gemm.py::expert_partition``).
 """
 
 from __future__ import annotations
@@ -30,31 +36,72 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core.lut import ProductLUT
 from . import build
-from .ref import ref_expert_lut_gemm, warp_order_dequant_matmul
+from .lut_gemm import expert_partition
+from .ref import ref_expert_lut_gemm, tile_order_dequant_matmul
 
 KERNEL_BITS = (2, 4)
-WORD = 4                    # packed bytes a lane of the dequant kernel steps over
+
+
+def _dequant_partition(x, N, bits, group_size, ranks, cols):
+    """The dequant kernel's tiling of this call (its activations staged as
+    bf16 or f32)."""
+    E, M, K = x.shape
+    return expert_partition(E, M, N, K, bits, 16 if x.dtype == torch.bfloat16 else 32,
+                            group_size, ranks=ranks, cols=cols)
+
+
+def _only_active(out, active):
+    """``out`` with the experts whose flag is 0 set to zero, as the kernels
+    write them."""
+    if active is None:
+        return out
+    return torch.where(active.reshape(-1, 1, 1).bool(), out, 0.0)
+
+
+def expert_active_clusters(op: str, E: int, M: int, N: int, K: int, w_bits: int,
+                           a_bits: int, group_size=None, *, ranks=None,
+                           cols=None) -> tuple[tuple, int]:
+    """(the tiling, clusters the card holds at once) for ``op``
+    (``expert_lut_gemm``, or ``expert_dequant_matmul`` with bf16
+    activations: a_bits 16) at these shapes: ``cudaOccupancyMaxActiveClusters``
+    of the launch on ``expert_partition``'s tiling (blocks at C 1). Builds
+    the library."""
+    part = expert_partition(E, M, N, K, w_bits, a_bits, group_size, ranks=ranks, cols=cols)
+    lib = build.library("expert_gemm")
+    query = (lib.expert_lut_gemm_active_clusters if op == "expert_lut_gemm"
+             else lib.expert_dequant_matmul_active_clusters)
+    n = query(E, M, N, K, w_bits, group_size or 0, *part)
+    if n < 0:
+        build.check(-n, f"{op} occupancy query")
+    return part, n
 
 
 def expert_dequant_matmul_plain(x, w_packed, codebook, scales, *, bits: int,
-                                group_size=None) -> torch.Tensor:
+                                group_size=None, active=None, ranks=None,
+                                cols=None) -> torch.Tensor:
     """The plain PyTorch version (any device): ``ref_expert_dequant_matmul``
-    summed in the kernel's order, one 4-byte word of packed codes a lane
-    step, so the two agree bit for bit."""
-    return warp_order_dequant_matmul(x, w_packed, codebook, scales, bits,
-                                     group_size,
-                                     step=WORD * packing.PACK_FACTOR[bits])
+    summed in the kernel's order on the kernel's tiling (``ranks`` and
+    ``cols`` as the kernel takes them), every expert at once, so the two
+    agree bit for bit."""
+    E, M, K = x.shape
+    N = w_packed.shape[1]
+    if min(E, M, N, K) == 0:
+        return torch.zeros((E, M, N), dtype=torch.float32, device=x.device)
+    _, _, C, kpr = _dequant_partition(x, N, bits, group_size, ranks, cols)
+    out = tile_order_dequant_matmul(x, w_packed, codebook, scales, bits, group_size,
+                                    ranks=C, k_per_rank=kpr)
+    return _only_active(out, active)
 
 
 def expert_lut_gemm_plain(a_packed, w_packed, lut_table, w_scales=None, *,
                           w_bits: int, a_bits: int, scheme: str = "d",
-                          group_size=None) -> torch.Tensor:
+                          group_size=None, active=None) -> torch.Tensor:
     """The plain PyTorch version (any device). Schemes 'a', 'c' and 'd'
     store the same bytes, so ``scheme`` changes nothing here."""
     del scheme
-    return ref_expert_lut_gemm(a_packed, w_packed,
-                               ProductLUT(lut_table, w_bits, a_bits),
-                               w_scales=w_scales, group_size=group_size)
+    out = ref_expert_lut_gemm(a_packed, w_packed, ProductLUT(lut_table, w_bits, a_bits),
+                              w_scales=w_scales, group_size=group_size)
+    return _only_active(out, active)
 
 
 def _common(what, tensors, bits, w_packed):
@@ -81,6 +128,17 @@ def _check_scales(what, scales, E, N, K, f, group_size):
                          f"K={K}, group_size={group_size}")
 
 
+def _check_active(what, active, E, device):
+    if active is None:
+        return None
+    if (active.dtype not in (torch.bool, torch.uint8) or active.shape != (E,)
+            or not active.is_contiguous() or active.device != device):
+        raise ValueError(f"{what} kernel: active must be a contiguous bool or uint8 "
+                         f"({E},) tensor on {device}, got {active.dtype} "
+                         f"{tuple(active.shape)} on {active.device}")
+    return active.data_ptr()
+
+
 def _launch(fn, out, *args):
     """Call a C entry point on the current stream; raise on its error."""
     err = fn(*args, torch.cuda.current_stream(out.device).cuda_stream)
@@ -88,8 +146,11 @@ def _launch(fn, out, *args):
 
 
 def expert_dequant_matmul_cuda(x, w_packed, codebook, scales, *, bits: int,
-                               group_size=None) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (CUDA tensors only)."""
+                               group_size=None, active=None, ranks=None,
+                               cols=None) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream (CUDA tensors only), on
+    the tiling of ``expert_partition`` (``ranks`` and ``cols`` passed on:
+    the sweep of ``bs_sweep.py`` and the tests)."""
     what = "expert_dequant_matmul"
     _common(what, (x, w_packed, codebook, scales), bits, w_packed)
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -107,22 +168,26 @@ def expert_dequant_matmul_cuda(x, w_packed, codebook, scales, *, bits: int,
     E, M, K = x.shape
     N = w_packed.shape[1]
     _check_scales(what, scales, E, N, K, f, group_size)
+    flags = _check_active(what, active, E, x.device)
+    if min(E, M, N, K) == 0:
+        return torch.zeros((E, M, N), dtype=torch.float32, device=x.device)
     out = torch.empty((E, M, N), dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
-        return out
     lib = build.library("expert_gemm")
     _launch(lib.expert_dequant_matmul_launch, out, x.data_ptr(),
             w_packed.data_ptr(), codebook.data_ptr(), scales.data_ptr(),
-            out.data_ptr(), E, M, N, K, bits, group_size or 0,
-            int(x.dtype == torch.bfloat16))
+            out.data_ptr(), flags, E, M, N, K, bits, group_size or 0,
+            int(x.dtype == torch.bfloat16),
+            *_dequant_partition(x, N, bits, group_size, ranks, cols))
     expert_dequant_matmul_cuda.launches += 1
     return out
 
 
 def expert_lut_gemm_cuda(a_packed, w_packed, lut_table, w_scales=None, *,
                          w_bits: int, a_bits: int, scheme: str = "d",
-                         group_size=None) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (CUDA tensors only)."""
+                         group_size=None, active=None, ranks=None,
+                         cols=None) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream (CUDA tensors only), on
+    the tiling of ``expert_partition`` (``ranks`` and ``cols`` passed on)."""
     what = "expert_lut_gemm"
     tensors = [a_packed, w_packed, lut_table] + (
         [w_scales] if w_scales is not None else [])
@@ -150,15 +215,18 @@ def expert_lut_gemm_cuda(a_packed, w_packed, lut_table, w_scales=None, *,
             raise ValueError(f"{what} kernel: group scales and group_size go "
                              "together")
         _check_scales(what, w_scales, E, N, K, f, group_size)
+    flags = _check_active(what, active, E, a_packed.device)
+    if min(E, M, N, K) == 0:
+        return torch.zeros((E, M, N), dtype=torch.float32, device=a_packed.device)
     out = torch.empty((E, M, N), dtype=torch.float32, device=a_packed.device)
-    if out.numel() == 0:
-        return out
     lib = build.library("expert_gemm")
     _launch(lib.expert_lut_gemm_launch, out, a_packed.data_ptr(),
             w_packed.data_ptr(), lut_table.data_ptr(),
             w_scales.data_ptr() if w_scales is not None else None,
-            out.data_ptr(), E, M, N, K, w_bits,
-            group_size if w_scales is not None else 0)
+            out.data_ptr(), flags, E, M, N, K, w_bits,
+            group_size if w_scales is not None else 0,
+            *expert_partition(E, M, N, K, w_bits, a_bits, group_size,
+                              ranks=ranks, cols=cols))
     expert_lut_gemm_cuda.launches += 1
     return out
 

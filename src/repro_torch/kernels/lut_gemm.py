@@ -13,9 +13,11 @@ raises) for CUDA tensors.
 ``dense_partition`` is the one place that chooses how this kernel and
 ``dequant_matmul``'s (``csrc/dense_common.cuh``) cut a call: MT rows x NT
 columns a block, and the C blocks of a thread-block cluster that split K
-into windows of ``k_per_rank`` codes. It reads static shapes only; the
-wrappers pass its result to the C entry points, and the dequant kernel's
-plain version replays the same cut (``ref.py::tile_order_matmul``).
+into windows of ``k_per_rank`` codes; ``expert_partition`` does the same
+for the two expert GEMMs (``kernels/expert_gemm.py``), which walk the same
+tiles with an expert axis. They read static shapes only; the wrappers
+pass their result to the C entry points, and the dequant kernels' plain
+versions replay the same cut (``ref.py::tile_order_matmul``).
 
 Bound on the H100 and design: see the notes at the top of the CUDA sources
 (latency-bound at the decode shapes, table-read-bound at the prefill's
@@ -88,19 +90,37 @@ def dense_partition(M: int, N: int, K: int, w_bits: int, a_bits: int,
     rounds. ``ranks`` and ``cols`` ask for another C and NT (the sweep and
     the tests); the cut still applies. Static shapes only: choosing needs
     no device read."""
-    if min(M, N, K) < 1:
-        raise ValueError(f"dense_partition: M={M}, N={N}, K={K} must be positive")
+    return expert_partition(1, M, N, K, w_bits, a_bits, group_size, ranks=ranks, cols=cols)
+
+
+def expert_partition(E: int, M: int, N: int, K: int, w_bits: int, a_bits: int,
+                     group_size: int | None = None, *, ranks: int | None = None,
+                     cols: int | None = None) -> tuple[int, int, int, int]:
+    """(MT, NT, C, k_per_rank): how ``expert_dequant_matmul`` and
+    ``expert_lut_gemm`` cut a call of E experts, each an (M, K) x (N, K)
+    product on the tiles of ``dense_partition`` (``a_bits`` as there: the
+    packed code width, or 16 / 32 for bf16 / f32 rows). The tiles that fill
+    the card are counted over every expert, E x ceil(N / NT) x row tiles:
+    with many experts C is 1 and a block walks its column tile's whole K in
+    one window where the tiles allow (at moonshot-v1-16b-a3b's decode
+    shape, w2: 64 columns x 2048 codes, one DRAM round trip a block, no
+    cluster merge). One tile of at most 4 rows takes NT 64, the widest
+    window. One expert is ``dense_partition``'s call. ``ranks`` and
+    ``cols`` as there; static shapes only."""
+    if min(E, M, N, K) < 1:
+        raise ValueError(f"partition: E={E}, M={M}, N={N}, K={K} must be positive")
     unit = dense_unit(w_bits)
     row_tiles = -(-M // DENSE_ROW_TILE)
     MT = -(-M // row_tiles)
     units = -(-K // unit)
     c_max = min(DENSE_MAX_CLUSTER, units)
-    decode = row_tiles == 1 and MT <= 4
+    small = row_tiles == 1 and MT <= 4            # one tile of at most 4 rows
+    decode = small and E == 1
     wide, narrow = DENSE_COL_TILES
-    NT = cols or (wide if not decode and -(-N // narrow) * row_tiles > 2 * CARD_SMS
+    NT = cols or (wide if not small and E * -(-N // narrow) * row_tiles > 2 * CARD_SMS
                   else narrow)
     if NT not in DENSE_COL_TILES or (ranks is not None and not 1 <= ranks <= c_max):
-        raise ValueError(f"dense_partition: cols={cols} is not one of {DENSE_COL_TILES}, "
+        raise ValueError(f"partition: cols={cols} is not one of {DENSE_COL_TILES}, "
                          f"or ranks={ranks} is not in 1..{c_max}")
     cap = min(DENSE_W_TILE_BYTES * 8 // (NT * w_bits),
               DENSE_A_TILE_BYTES * 8 // (MT * a_bits))
@@ -110,9 +130,9 @@ def dense_partition(M: int, N: int, K: int, w_bits: int, a_bits: int,
         NT = DENSE_COL_TILES[-1]
         cap = min(cap, (DENSE_S_TILE_BYTES // (NT * 4) - 2) * group_size)
     if cap < unit:
-        raise ValueError(f"dense_partition: no {unit}-code window fits the tiles "
+        raise ValueError(f"partition: no {unit}-code window fits the tiles "
                          f"(NT={NT}, group_size={group_size})")
-    tiles = -(-N // NT) * row_tiles
+    tiles = E * -(-N // NT) * row_tiles
     if ranks:
         want = ranks
     elif decode:

@@ -66,7 +66,8 @@ def _dequant(w_packed: torch.Tensor, codebook: torch.Tensor, scales: torch.Tenso
              bits: int, group_size: int | None) -> torch.Tensor:
     """(..., N, K/f) codes -> (..., N, K) f32 codebook levels, times the
     group scales when grouped (per-channel scales are the epilogue)."""
-    w_deq = codebook.float()[packing.unpack(w_packed, bits).long()]
+    codes = packing.unpack(w_packed, bits)
+    w_deq = codebook.float().index_select(0, codes.reshape(-1).int()).view(codes.shape)
     if group_size is not None:
         w_deq = w_deq * quant.expand_group_scales(scales.float(), group_size)
     return w_deq
@@ -91,65 +92,47 @@ ref_expert_dequant_matmul = ref_dequant_matmul
 ref_expert_lut_gemm = ref_lut_gemm
 
 
+# threads of a warp (butterfly_sum's lanes)
 WARP = 32
-
-
-def warp_order_matmul(a: torch.Tensor, w: torch.Tensor, step: int) -> torch.Tensor:
-    """a (..., M, K) f32 @ w (..., N, K).T f32 -> (..., M, N), summed in the
-    order of the CUDA dequant kernels: lane l of a warp takes the K slices
-    [s*step, (s+1)*step) for s = l, l + 32, l + 64, ... and adds their
-    products one at a time (each product and each sum rounded to f32: no
-    fused multiply-add), then the 32 lane sums meet in warp_sum's xor
-    butterfly (lane i with i + 16, then i + 8, ...). K is padded with zeros
-    to whole warp steps, which adds exact zeros. This replays the kernels'
-    present schedule: a kernel that changes its K walk, its reduction or
-    its rounding must change this function with it."""
-    pad = (-a.shape[-1]) % (WARP * step)
-    if pad:
-        a = torch.nn.functional.pad(a, (0, pad))
-        w = torch.nn.functional.pad(w, (0, pad))
-    T = a.shape[-1] // (WARP * step)
-    ar = a.reshape(*a.shape[:-1], T, WARP, step)
-    wr = w.reshape(*w.shape[:-1], T, WARP, step)
-    acc = torch.zeros((*a.shape[:-1], w.shape[-2], WARP), dtype=torch.float32,
-                      device=a.device)
-    for t in range(T):
-        for j in range(step):
-            acc += ar[..., t, :, j].unsqueeze(-2) * wr[..., t, :, j].unsqueeze(-3)
-    return butterfly_sum(acc)
 
 
 # k-lanes of a block of csrc/dense_common.cuh (its warps): lane j walks the
 # 4-byte weight words j, j + 8, ... of a window
 DENSE_LANES = 8
-# f32 elements of block sums tile_order_matmul holds at once (16 MB: the
-# passes over them stay in a card's L2)
-_BLOCK_BUDGET = 1 << 22
+# f32 elements of block sums tile_order_matmul holds at once (64 MB: few
+# passes over large tensors, the lanes' sums of a full-width expert call
+# five blocks at a time)
+_BLOCK_BUDGET = 1 << 24
 
 
 def tile_order_matmul(a: torch.Tensor, w: torch.Tensor, *, ranks: int,
                       k_per_rank: int, word: int,
                       group_scales: torch.Tensor | None = None,
                       group_size: int | None = None) -> torch.Tensor:
-    """a (M, K) f32 @ w (N, K).T f32 -> (M, N), summed in the order of the
-    CUDA dequant_matmul kernel (csrc/dense_common.cuh): K is cut into
-    windows of ``k_per_rank`` codes, rank c of the cluster taking windows
-    c, c + ranks, ... (rounds); in each window k-lane j takes the words of
+    """a (..., M, K) f32 @ w (..., N, K).T f32 -> (..., M, N), over any
+    leading axes the operands share (the expert axis of the expert GEMM),
+    summed in the order of the CUDA dequant walk (csrc/dense_dequant.cuh on
+    csrc/dense_common.cuh's tiling): K is cut into windows of
+    ``k_per_rank`` codes, rank c of the cluster taking windows c, c +
+    ranks, ... (rounds); in each window k-lane j takes the words of
     ``word`` codes j, j + DENSE_LANES, ...; each block of 8 codes is summed
     product by product into a block sum (times its group's scale with
-    ``group_scales`` (N, K / group_size), group_size a multiple of 8), and
-    the block sums are added one by one into the lane's sum (each product,
-    scaling and sum rounded to f32; where the kernel fuses multiply and add
-    the products are exact, which gives the same bits); the lanes' sums
-    then meet in a pairwise tree
+    ``group_scales`` (..., N, K / group_size), group_size a multiple of 8),
+    and the block sums are added one by one into the lane's sum (each
+    product, scaling and sum rounded to f32; where the kernel fuses
+    multiply and add the products are exact, which gives the same bits);
+    the lanes' sums then meet in a pairwise tree
     ((0 + 1) + (2 + 3)) + ((4 + 5) + (6 + 7)), and the ranks' partials are
     added in rank order. K is padded with zeros to whole rounds, which adds
-    exact zeros where the kernel skips. No host sync, so CUDA graphs can
-    capture it. This replays the kernel's present schedule: a kernel that
-    changes its walk, its merge or its rounding must change this function
-    with it."""
-    M, K = a.shape
-    N = w.shape[0]
+    exact zeros where the kernel skips. Every leading index runs at once
+    (no loop over experts) and nothing syncs with the host, so CUDA graphs
+    can capture it. This replays the kernel's present schedule: a kernel
+    that changes its walk, its merge or its rounding must change this
+    function with it."""
+    *lead, M, K = a.shape
+    N = w.shape[-2]
+    L = math.prod(lead)
+    a, w = a.reshape(L, M, K), w.reshape(L, N, K)
     lanes, step, nb = DENSE_LANES, DENSE_LANES * word, word // 8
     span = ranks * k_per_rank
     rounds = -(-K // span)
@@ -163,47 +146,61 @@ def tile_order_matmul(a: torch.Tensor, w: torch.Tensor, *, ranks: int,
     last = -(-min(k_per_rank, K - (rounds - 1) * span) // step)
 
     def blocks(x):
-        """(rows, K) -> (8, the blocks in a lane's order, C x lanes, rows)."""
-        rows = x.shape[0]
-        x = x.reshape(rows, rounds, ranks, steps, lanes, nb, 8).permute(6, 1, 3, 5, 2, 4, 0)
-        x = torch.cat([x[:, :-1].flatten(1, 3), x[:, -1, :last].flatten(1, 2)], dim=1)
-        return x.reshape(8, -1, ranks * lanes, rows)
+        """(L, rows, K) -> (the blocks in a lane's order, 8, C x lanes, L,
+        rows). First K outermost, a plain transpose (each cached line of x
+        is read again while it is cached), then the blocks in order, which
+        moves whole (L, rows) planes."""
+        n_lead, rows = x.shape[:2]
+        xt = x.reshape(n_lead * rows, -1).t().contiguous() \
+            .view(rounds, ranks, steps, lanes, nb, 8, n_lead, rows) \
+            .permute(0, 2, 4, 5, 1, 3, 6, 7)
+        x_blocks = xt[-1, :last].flatten(0, 1)
+        if rounds > 1:
+            x_blocks = torch.cat([xt[:-1].flatten(0, 2), x_blocks])
+        return x_blocks.reshape(-1, 8, ranks * lanes, n_lead, rows)
 
     xa, xw = blocks(a), blocks(w)
-    n_blocks = xa.shape[1]
+    n_blocks = xa.shape[0]
     if group_scales is not None:                  # each block's group (the last past K)
-        k0 = blocks(torch.arange(a.shape[1], device=a.device, dtype=torch.float32)[None])[0, ..., 0]
-        g = (k0.long() // group_size).clamp(max=group_scales.shape[1] - 1)
-        scale = group_scales.float()[:, g].permute(1, 2, 0).unsqueeze(-2)
-    acc = torch.zeros((ranks * lanes, M, N), dtype=torch.float32, device=a.device)
+        k_pos = torch.arange(a.shape[-1], device=a.device, dtype=torch.float32)
+        k0 = blocks(k_pos[None, None])[:, 0, :, 0, 0]             # (blocks, C x lanes)
+        g = (k0.long() // group_size).clamp(max=group_scales.shape[-1] - 1)
+        gs = group_scales.float().reshape(L, N, -1)
+        scale = gs[:, :, g].permute(2, 3, 0, 1).unsqueeze(-2)     # (blocks, CL, L, 1, N)
+    acc = torch.zeros((ranks * lanes, L, M, N), dtype=torch.float32, device=a.device)
     chunk = max(1, _BLOCK_BUDGET // acc.numel())
     for b0 in range(0, n_blocks, chunk):          # the blocks in order, a chunk at a time
         b1 = min(n_blocks, b0 + chunk)
-        part = torch.zeros((b1 - b0, *acc.shape), dtype=torch.float32, device=a.device)
-        for q in range(8):                        # the chunk's block sums at once
-            part += xa[q, b0:b1].unsqueeze(-1) * xw[q, b0:b1].unsqueeze(-2)
+        # the chunk's block sums at once, product by product; the first
+        # product stands for 0 + itself, which differs only where it is
+        # -0, and a -0 block sum leaves every lane's sum as it is
+        part = xa[b0:b1, 0].unsqueeze(-1) * xw[b0:b1, 0].unsqueeze(-2)
+        for q in range(1, 8):
+            part += xa[b0:b1, q].unsqueeze(-1) * xw[b0:b1, q].unsqueeze(-2)
         if group_scales is not None:
             part *= scale[b0:b1]
         for b in range(b1 - b0):                  # block sums into the lanes' sums
             acc += part[b]
-    acc = acc.view(ranks, lanes, M, N)
+    acc = acc.view(ranks, lanes, L, M, N)
     while acc.shape[1] > 1:                       # the lanes' pairwise tree
         acc = acc[:, 0::2] + acc[:, 1::2]
     out = acc[0, 0]
     for c in range(1, ranks):
         out = out + acc[c, 0]
-    return out.contiguous()
+    return out.reshape(*lead, M, N).contiguous()
 
 
 def tile_order_dequant_matmul(a: torch.Tensor, w_packed: torch.Tensor,
                               codebook: torch.Tensor, scales: torch.Tensor,
                               bits: int, group_size: int | None, *, ranks: int,
                               k_per_rank: int) -> torch.Tensor:
-    """``ref_dequant_matmul`` with its contraction in the CUDA dequant_matmul
-    kernel's order (``tile_order_matmul`` on the kernel's tiling: ``ranks``
-    windows of ``k_per_rank`` codes, words of 32 / bits codes), so the two
-    agree bit for bit. Group scales multiply each 8 codes' sum where the
-    group is a multiple of 8 codes, else fold into the levels, as there."""
+    """``ref_dequant_matmul`` with its contraction in the CUDA dequant walk's
+    order (``tile_order_matmul`` on the kernel's tiling: ``ranks`` windows
+    of ``k_per_rank`` codes, words of 32 / bits codes), over any leading
+    axes the operands share (``dequant_matmul``, and ``expert_dequant_matmul``
+    with its expert axis), so kernel and replay agree bit for bit. Group
+    scales multiply each 8 codes' sum where the group is a multiple of 8
+    codes, else fold into the levels, as there."""
     kw = dict(ranks=ranks, k_per_rank=k_per_rank, word=32 // bits)
     if group_size is None:
         y = tile_order_matmul(a.float(), _dequant(w_packed, codebook, scales, bits, None), **kw)
@@ -222,18 +219,6 @@ def butterfly_sum(x: torch.Tensor) -> torch.Tensor:
         half = x.shape[-1] // 2
         x = x[..., :half] + x[..., half:]
     return x[..., 0]
-
-
-def warp_order_dequant_matmul(a: torch.Tensor, w_packed: torch.Tensor,
-                              codebook: torch.Tensor, scales: torch.Tensor,
-                              bits: int, group_size: int | None, *,
-                              step: int) -> torch.Tensor:
-    """``ref_dequant_matmul`` with its contraction in the CUDA kernels' order
-    (``warp_order_matmul`` with ``step`` codes a lane step), so the kernels
-    agree with it bit for bit."""
-    y = warp_order_matmul(a.float(), _dequant(w_packed, codebook, scales, bits,
-                                              group_size), step)
-    return y if group_size is not None else y * scales.float().unsqueeze(-2)
 
 
 def _bitplane_pattern_matrix(device=None) -> torch.Tensor:

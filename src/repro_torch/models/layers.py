@@ -369,10 +369,13 @@ def _silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return g * (1 / (1 + torch.exp(-g))) * u
 
 
-def _expert_matmul(qw: QuantizedWeight, x: torch.Tensor, backend: str) -> torch.Tensor:
+def _expert_matmul(qw: QuantizedWeight, x: torch.Tensor, backend: str,
+                   active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Planned expert projection: x (E, M, in) -> (E, M, out) f32 through
     the per-expert kernels, after the K padding ``quantize_expert_weight``
-    applied. w{b}a{b} leaves ('lut_gemm' with a product LUT) quantize each
+    applied; ``active`` (E,) flags the experts that hold a token (the others
+    come out zero and their weights are not read), None computes all.
+    w{b}a{b} leaves ('lut_gemm' with a product LUT) quantize each
     (e, m) row with its own dynamic scale, pack the codes and run
     ``expert_lut_gemm``; the per-channel weight scale and the activation
     scale are the epilogue here (a grouped leaf's K-group scales run in the
@@ -392,11 +395,12 @@ def _expert_matmul(qw: QuantizedWeight, x: torch.Tensor, backend: str) -> torch.
         y = registry.dispatch(
             "expert_lut_gemm", packing.pack(a_idx, qw.a_bits), qw.packed, qw.plut,
             qw.scales if G is not None else None, w_bits=qw.bits,
-            a_bits=qw.a_bits, scheme=qw.scheme, group_size=G, backend=backend)
+            a_bits=qw.a_bits, scheme=qw.scheme, group_size=G, active=active,
+            backend=backend)
         return y * a_scale if G is not None else y * qw.scales[:, None, :] * a_scale
     return registry.dispatch("expert_dequant_matmul", x.contiguous(), qw.packed,
                              qw.codebook, qw.scales, bits=qw.bits, group_size=G,
-                             backend=backend)
+                             active=active, backend=backend)
 
 
 def moe_capacity(moe, T: int) -> tuple[int, int]:
@@ -436,8 +440,11 @@ def moe_apply(p: dict, x: torch.Tensor, *, cfg) -> torch.Tensor:
     dispatch and combine einsums are index gathers here: each kept
     assignment owns one (e, g, c) slot, so they move the same values. Pad
     rows of a prefill chunk and inactive decode rows take capacity as real
-    tokens do, in the order the caller lays them out. A shared expert adds
-    ``mlp_apply`` of x."""
+    tokens do, in the order the caller lays them out. The experts that no
+    slot of any group holds a token for are flagged once a layer, on the
+    device, and the expert ops skip them: their rows are zero, so their
+    outputs are zero either way, and the combine reads only filled slots.
+    A shared expert adds ``mlp_apply`` of x."""
     moe, pol = cfg.moe, cfg.quant
     B, S, D = x.shape
     E, K = moe.n_experts, moe.top_k
@@ -459,6 +466,7 @@ def moe_apply(p: dict, x: torch.Tensor, *, cfg) -> torch.Tensor:
     src.scatter_(0, slot.reshape(-1), tok.reshape(-1))
     xs = torch.cat([x.reshape(T, D), x.new_zeros((1, D))])
     xe = xs[src[:n_slots]].reshape(E, Gn * C, D)                # (E, G*C, D)
+    active = (src[:n_slots].view(E, Gn * C) < T).any(dim=1)     # (E,), no host sync
 
     be = plan_backend(pol)
 
@@ -469,7 +477,7 @@ def moe_apply(p: dict, x: torch.Tensor, *, cfg) -> torch.Tensor:
                 raise NotImplementedError(
                     "legacy (kernel=None) dequant-einsum leaves are not ported; "
                     "pack under a QuantPlan")
-            return _expert_matmul(leaf, xin.to(x.dtype), be)          # f32
+            return _expert_matmul(leaf, xin.to(x.dtype), be, active)  # f32
         return xin.to(x.dtype) @ leaf.to(x.dtype)
 
     h = _silu_mul(proj("we_gate", xe), proj("we_up", xe))

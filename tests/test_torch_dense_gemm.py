@@ -14,8 +14,6 @@ scalar emulation and between the exact and the rounding path:
 bit-identical.
 """
 
-import math
-
 import numpy as np
 import pytest
 import torch
@@ -24,7 +22,6 @@ import jax.numpy as jnp
 from repro.kernels import ref as jref
 from repro_torch.core import packing, quant
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.expert_gemm import WORD, expert_dequant_matmul_plain
 from repro_torch.kernels.lut_dequant_matmul import dequant_matmul_plain
 from repro_torch.kernels.lut_gemm import (DENSE_A_TILE_BYTES, DENSE_COL_TILES,
                                           DENSE_MAX_CLUSTER, DENSE_ROW_TILE,
@@ -268,23 +265,3 @@ def test_bf16_products_with_integer_levels_are_exact_in_f32():
     prod32 = (x[:, None] * levels[None, :]).double()
     prod64 = x.double()[:, None] * levels.double()[None, :]
     np.testing.assert_array_equal(prod32.numpy(), prod64.numpy())
-
-
-def test_warp_order_still_serves_the_expert_dequant_plain_version():
-    """Row 7 (expert_dequant_matmul) keeps its own tie: its plain version is
-    warp_order_matmul one 4-byte word a lane step, expert by expert."""
-    rng = np.random.default_rng(7)
-    E, M, K, N, bits = 3, 4, 512, 48, 2
-    x = torch.from_numpy(rng.normal(size=(E, M, K)).astype(np.float32)).to(torch.bfloat16)
-    w_idx = torch.from_numpy(rng.integers(0, 4, size=(E, N, K)).astype(np.uint8))
-    wp = packing.pack(w_idx, bits)
-    cb = quant.uniform_codebook(bits).levels.float()
-    sc = torch.from_numpy(rng.uniform(0.01, 0.1, size=(E, N)).astype(np.float32))
-    got = expert_dequant_matmul_plain(x, wp, cb, sc, bits=bits)
-    step = WORD * packing.PACK_FACTOR[bits]
-    for e in range(E):
-        want = tref.warp_order_matmul(x[e].float(), tref._dequant(wp[e], cb, sc[e], bits, None),
-                                      step) * sc[e][None, :]
-        np.testing.assert_array_equal(got[e].numpy(), want.numpy())
-    assert math.isclose(float(got.abs().max()), float(tref.ref_expert_dequant_matmul(
-        x, wp, cb, sc, bits).abs().max()), rel_tol=1e-5)

@@ -333,6 +333,40 @@ def test_moe_apply_matches_reference_with_capacity_drops(plan):
         np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
 
 
+@pytest.mark.parametrize("plan", ["w2a2", "w2a16", "w2a2g64"])
+def test_moe_apply_gives_the_same_bits_with_and_without_the_active_flag(plan,
+                                                                       monkeypatch):
+    """moe_apply flags the experts that hold a token and the expert ops zero
+    the others instead of computing them: the layer's output is the
+    unflagged run's bit for bit, with every expert filled (a 32-token
+    prefill) and at decode, where some experts hold no token."""
+    _, tc, _, _, tq = _setup(plan)
+    orig = L._expert_matmul
+    flags = []
+
+    def flagged(qw, x, backend, active=None):
+        flags.append(active)
+        return orig(qw, x, backend, active)
+
+    def unflagged(qw, x, backend, active=None):
+        return orig(qw, x, backend)
+
+    rng = np.random.default_rng(5)
+    for B, S in ((2, 16), (1, 1), (2, 1)):
+        x = torch.from_numpy(rng.normal(size=(B, S, tc.d_model)).astype(np.float32))
+        for i in range(tc.n_layers):
+            tp = tq["layers"][i]["moe"]
+            monkeypatch.setattr(L, "_expert_matmul", flagged)
+            got = L.moe_apply(tp, x, cfg=tc)
+            monkeypatch.setattr(L, "_expert_matmul", unflagged)
+            want = L.moe_apply(tp, x, cfg=tc)
+            np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert len(flags) == 3 * 3 * tc.n_layers
+    assert all(a.shape == (tc.moe.n_experts,) and a.dtype == torch.bool for a in flags)
+    assert any(not bool(a.all()) for a in flags)        # some experts were skipped
+    assert all(bool(a.any()) for a in flags)
+
+
 @pytest.mark.parametrize("plan", ["w2a2", "w2a16", "w2a8_bs"])
 def test_forward_logits_match_reference(plan):
     jc, tc, _, qp, tq = _setup(plan)

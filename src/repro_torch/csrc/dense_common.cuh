@@ -77,11 +77,21 @@ struct DenseArgs {
     int s_pitch;                  // floats of a scale-tile row
     int a_off, s_off, t_off, recv_off;   // shared memory (dense_layout)
     int red_off;                  // the k-lanes' sums: past the tiles, or 0 (over them)
-    // the expert axis (dense_expert)
+};
+
+// The expert kernels' arguments: the walk's, then the expert axis
+// (dense_expert). The dense kernels take DenseArgs alone: the walks sit at
+// the 128-register cap, and these fields in their struct, or ``active`` as
+// a separate parameter of the expert kernels, moved times by up to 15%.
+struct ExpertArgs : DenseArgs {
     const unsigned char* active;  // (E,): 0 where no token was dispatched to the expert, or null
     int E;                        // experts
     int s_row;                    // floats of a global scale row: K / G, or 1 per channel
 };
+
+// Experts a launch covers: the grid's z counts E x the row tiles.
+inline int dense_experts(const DenseArgs&) { return 1; }
+inline int dense_experts(const ExpertArgs& a) { return a.E; }
 
 struct DenseLayout {
     int a_off, s_off, t_off, recv_off, red_off, total;
@@ -97,9 +107,10 @@ __host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
 // the window's groups); then the table (``table_floats``), what the ranks
 // send this rank (C x share f32), and the k-lanes' sums (kLanes x MT x NT
 // f32) where the budget holds them, else over the tiles once the walk is
-// over (red_off 0: one more barrier).
+// over (red_off 0: one more barrier). ``static_bytes`` of static shared
+// memory (the LUT walk's table) come off the budget.
 inline DenseLayout dense_layout(int MT, int NT, int C, int kpr, int w_unit_bits,
-                                int a_unit_bits, int G, int table_floats) {
+                                int a_unit_bits, int G, int table_floats, int static_bytes) {
     const int w_words = kpr * w_unit_bits / 32;
     const int w_pitch = w_words | 1;
     const int wt = round16(NT * w_pitch * 4);
@@ -108,7 +119,7 @@ inline DenseLayout dense_layout(int MT, int NT, int C, int kpr, int w_unit_bits,
     const int red = kLanes * MT * NT * 4;
     const int share = (MT * NT + C - 1) / C;
     const int rest = round16(table_floats * 4) + round16(C * share * 4);
-    if (wt + at + st + rest + red <= kDenseSmemBudget) {
+    if (wt + at + st + rest + red + static_bytes <= kDenseSmemBudget) {
         const int t_off = wt + at + st, recv_off = t_off + round16(table_floats * 4);
         const int red_off = recv_off + round16(C * share * 4);
         return {wt, wt + at, t_off, recv_off, red_off, red_off + red};
@@ -121,10 +132,10 @@ inline DenseLayout dense_layout(int MT, int NT, int C, int kpr, int w_unit_bits,
 
 // Check the tiling a wrapper passes and fill the launch's arguments. The
 // window unit is kLanes weight words (128 units at 2 bits, 64 at 4).
-inline cudaError_t dense_args(DenseArgs& a, int NT, int w_unit_bits, int a_unit_bits,
-                              int table_floats, dim3& grid, int& smem) {
+inline cudaError_t dense_args(DenseArgs& a, int E, int NT, int w_unit_bits, int a_unit_bits,
+                              int table_floats, int static_bytes, dim3& grid, int& smem) {
     const int unit = kLanes * 32 / w_unit_bits;
-    if (a.E < 1 || a.M < 1 || a.N < 1 || a.K < 1 || a.MT < 1 || a.MT > kMaxMt ||
+    if (E < 1 || a.M < 1 || a.N < 1 || a.K < 1 || a.MT < 1 || a.MT > kMaxMt ||
         (NT != 64 && NT != 128) || a.C < 1 || a.C > kMaxDenseCluster || a.kpr < unit || a.kpr % unit ||
         static_cast<int64_t>(a.C) * a.kpr * (a.rounds - 1) >= a.K ||
         static_cast<int64_t>(a.C) * a.kpr * a.rounds < a.K ||
@@ -140,9 +151,8 @@ inline cudaError_t dense_args(DenseArgs& a, int NT, int w_unit_bits, int a_unit_
     a.w_pitch = (a.kpr * w_unit_bits / 32) | 1;
     a.a_pitch = a.kpr * a_unit_bits / 8;
     a.s_pitch = a.G > 0 ? (a.kpr + a.G - 1) / a.G + 1 : 0;
-    a.s_row = a.G > 0 ? a.K / a.G : 1;
     const DenseLayout l = dense_layout(a.MT, NT, a.C, a.kpr, w_unit_bits, a_unit_bits, a.G,
-                                       table_floats);
+                                       table_floats, static_bytes);
     a.share = (a.MT * NT + a.C - 1) / a.C;
     a.a_off = l.a_off;
     a.s_off = l.s_off;
@@ -150,7 +160,7 @@ inline cudaError_t dense_args(DenseArgs& a, int NT, int w_unit_bits, int a_unit_
     a.recv_off = l.recv_off;
     a.red_off = l.red_off;
     smem = l.total;
-    const int64_t z = static_cast<int64_t>(a.E) * ((a.M + a.MT - 1) / a.MT);
+    const int64_t z = static_cast<int64_t>(E) * ((a.M + a.MT - 1) / a.MT);
     grid = dim3(a.C, (a.N + NT - 1) / NT, static_cast<unsigned>(z));
     if (grid.y > 65535 || z > 65535) return cudaErrorInvalidValue;
     return cudaSuccess;
@@ -160,16 +170,14 @@ inline cudaError_t dense_args(DenseArgs& a, int NT, int w_unit_bits, int a_unit_
 // the shapes (K, group_size and k_per_rank in units) and the tiling; the
 // rounds of C windows that cover K.
 inline DenseArgs dense_make_args(const void* a, const void* w, const void* table,
-                                 const void* scales, void* out, const void* active, int E, int M,
-                                 int N, int K, int group_size, int MT, int C, int k_per_rank) {
+                                 const void* scales, void* out, int M, int N, int K,
+                                 int group_size, int MT, int C, int k_per_rank) {
     DenseArgs d{};
     d.a = a;
     d.w = static_cast<const uint8_t*>(w);
     d.table = static_cast<const float*>(table);
     d.scales = static_cast<const float*>(scales);
     d.out = static_cast<float*>(out);
-    d.active = static_cast<const unsigned char*>(active);
-    d.E = E;
     d.M = M;
     d.N = N;
     d.K = K;
@@ -228,7 +236,7 @@ struct DivBy {
 // zeros to its share of the output tile, loads no weights and returns -1:
 // the ranks of a cluster share z, so all of them return, before any
 // cluster barrier.
-__device__ __forceinline__ int dense_expert(DenseArgs& a, int NT) {
+__device__ __forceinline__ int dense_expert(ExpertArgs& a, int NT) {
     const int row_tiles = (a.M + a.MT - 1) / a.MT;
     const int e = blockIdx.z / row_tiles, i = blockIdx.z - e * row_tiles;
     a.out += static_cast<size_t>(e) * a.M * a.N;
@@ -393,17 +401,19 @@ __device__ __forceinline__ void dense_stage(const DenseArgs& a, DenseTile& t, in
 // Launch ``kernel`` on ``grid`` in clusters of C blocks along x (through
 // launch_cluster), or, for C == 1, as a plain launch: the kernels then skip
 // every cluster barrier. With ``clusters`` set, write the clusters (blocks
-// for C == 1) the card holds at once there instead of launching.
+// for C == 1) the card holds at once there instead of launching. A block
+// above 48 KB of shared memory in all, ``static_bytes`` of it static,
+// needs the kernel's dynamic limit raised first.
 template <typename... Params, typename... Args>
-cudaError_t dense_launch(void (*kernel)(Params...), dim3 grid, int C, int smem,
+cudaError_t dense_launch(void (*kernel)(Params...), dim3 grid, int C, int smem, int static_bytes,
                          cudaStream_t stream, int* clusters, Args... args) {
-    if (C > 1 || clusters)
-        return launch_cluster(kernel, grid, kDenseThreads, C, smem, stream, clusters, args...);
-    if (smem > 48 * 1024) {
+    if (smem + static_bytes > 48 * 1024) {
         const cudaError_t err =
             cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (err != cudaSuccess) return err;
     }
+    if (C > 1 || clusters)
+        return launch_cluster(kernel, grid, kDenseThreads, C, smem, stream, clusters, args...);
     kernel<<<grid, kDenseThreads, smem, stream>>>(args...);
     return cudaGetLastError();
 }

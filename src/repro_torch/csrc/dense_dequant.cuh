@@ -69,8 +69,10 @@ constexpr int kChannel = 0, kBlock = 1, kFold = 2;
 // The products of one weight word (CPW codes from k0) for every row and
 // column of the thread, 8 codes a block: each block's products are summed
 // one by one into a block sum (times its group scale under kBlock), which
-// is added into acc. FULL: the whole word lies below hi.
-template <int WB, int NC, int GM, typename TA, bool EXACT, bool FULL, bool EXPERT>
+// is added into acc. FULL: the whole word lies below hi. 2-bit levels are
+// read two at a time from the table of the 16 level pairs (cb2), which
+// halves the codebook reads; the same levels, so the same bits.
+template <int WB, int NC, int GM, typename TA, bool EXACT, bool FULL>
 __device__ __forceinline__ void dq_word(const DenseArgs& a, const DenseTile& t, int k0,
                                         const uint32_t (&wd)[NC], const float* cb,
                                         const float* st, const unsigned char* at,
@@ -83,7 +85,7 @@ __device__ __forceinline__ void dq_word(const DenseArgs& a, const DenseTile& t, 
     for (int b = 0; b < CPW / 8; ++b) {
         const int kb = k0 + 8 * b;
         float lv[8][NC];
-        if constexpr (EXPERT && WB == 2) {     // two neighbouring levels a read
+        if constexpr (WB == 2) {               // two neighbouring levels a read
 #pragma unroll
             for (int q = 0; q < 8; q += 2)
 #pragma unroll
@@ -135,7 +137,7 @@ __device__ __forceinline__ void dq_word(const DenseArgs& a, const DenseTile& t, 
 }
 
 // The walk of every round, then the merge.
-template <int WB, int NC, int GM, typename TA, bool EXACT, bool EXPERT>
+template <int WB, int NC, int GM, typename TA, bool EXACT>
 __device__ __forceinline__ void dq_run(const DenseArgs& a, DenseTile& t, unsigned char* smem,
                                        float (&acc)[kMaxMt][NC]) {
     constexpr int CPW = 32 / WB;
@@ -151,11 +153,9 @@ __device__ __forceinline__ void dq_run(const DenseArgs& a, DenseTile& t, unsigne
             for (int i = 0; i < NC; ++i) wd[i] = wt[(lane + 32 * i) * a.w_pitch + w];
             const int k0 = t.lo + w * CPW;
             if (k0 + CPW <= t.hi)
-                dq_word<WB, NC, GM, TA, EXACT, true, EXPERT>(a, t, k0, wd, cb, st, smem + a.a_off,
-                                                            acc);
+                dq_word<WB, NC, GM, TA, EXACT, true>(a, t, k0, wd, cb, st, smem + a.a_off, acc);
             else
-                dq_word<WB, NC, GM, TA, EXACT, false, EXPERT>(a, t, k0, wd, cb, st, smem + a.a_off,
-                                                             acc);
+                dq_word<WB, NC, GM, TA, EXACT, false>(a, t, k0, wd, cb, st, smem + a.a_off, acc);
         }
         if (++round == a.rounds) break;
         __syncthreads();                      // the next round rewrites the tiles
@@ -164,11 +164,8 @@ __device__ __forceinline__ void dq_run(const DenseArgs& a, DenseTile& t, unsigne
 }
 
 // One block's tile: row tile ``row_tile`` of a's operands (the kernels'
-// bodies: a.MT rows x 32 NC columns x its windows). EXPERT (the expert
-// kernel, issue-bound at its shapes, not latency-bound like the dense one's
-// decode): 2-bit levels are read two at a time from a table of the 16 level
-// pairs, which halves the codebook reads; the same levels, so the same bits.
-template <int WB, int NC, bool GROUPED, typename TA, bool EXPERT>
+// bodies: a.MT rows x 32 NC columns x its windows).
+template <int WB, int NC, bool GROUPED, typename TA>
 __device__ __forceinline__ void dequant_tile(const DenseArgs& a, int row_tile) {
     constexpr int NT = 32 * NC;
     constexpr int NCB = 1 << WB;
@@ -183,7 +180,7 @@ __device__ __forceinline__ void dequant_tile(const DenseArgs& a, int row_tile) {
         if (!GROUPED && threadIdx.x < t.cols)
             dense_cp4(esc + threadIdx.x, a.scales + t.n0 + threadIdx.x);
     });
-    if constexpr (EXPERT && WB == 2) {        // after the codebook: its 16 level pairs
+    if constexpr (WB == 2) {                  // after the codebook: its 16 level pairs
         float2* cb2 = reinterpret_cast<float2*>(esc + NT);
         if (threadIdx.x < 16) cb2[threadIdx.x] = make_float2(cb[threadIdx.x & 3], cb[threadIdx.x >> 2]);
         __syncthreads();
@@ -201,16 +198,16 @@ __device__ __forceinline__ void dequant_tile(const DenseArgs& a, int row_tile) {
         exact = exact && cb[i] == rintf(cb[i]) && fabsf(cb[i]) <= 65536.f;
     if constexpr (!GROUPED) {
         if (exact)
-            dq_run<WB, NC, kChannel, TA, true, EXPERT>(a, t, smem, acc);
+            dq_run<WB, NC, kChannel, TA, true>(a, t, smem, acc);
         else
-            dq_run<WB, NC, kChannel, TA, false, EXPERT>(a, t, smem, acc);
+            dq_run<WB, NC, kChannel, TA, false>(a, t, smem, acc);
     } else if (a.G % 8 == 0) {
         if (exact)
-            dq_run<WB, NC, kBlock, TA, true, EXPERT>(a, t, smem, acc);
+            dq_run<WB, NC, kBlock, TA, true>(a, t, smem, acc);
         else
-            dq_run<WB, NC, kBlock, TA, false, EXPERT>(a, t, smem, acc);
+            dq_run<WB, NC, kBlock, TA, false>(a, t, smem, acc);
     } else {
-        dq_run<WB, NC, kFold, TA, false, EXPERT>(a, t, smem, acc);
+        dq_run<WB, NC, kFold, TA, false>(a, t, smem, acc);
     }
     dense_merge<NC>(a, t, smem, acc, [&](int m, int n, float v) {
         if constexpr (!GROUPED) v = __fmul_rn(v, esc[n - t.n0]);
@@ -219,31 +216,31 @@ __device__ __forceinline__ void dequant_tile(const DenseArgs& a, int row_tile) {
 }
 
 // The launch on the kernels of a source: ``Kernels::get<WB, NC, GROUPED,
-// TA>()`` is its __global__ instantiation, which takes the DenseArgs;
-// ``Kernels::kExpert`` says whether it reads 2-bit levels in pairs
-// (dequant_tile's EXPERT).
-template <class Kernels, int WB, int NC, typename TA>
-cudaError_t dequant_launch_nc(DenseArgs& a, int NT, cudaStream_t stream, int* clusters) {
+// TA>()`` is its __global__ instantiation, which takes ``a`` (DenseArgs, or
+// the expert kernels' ExpertArgs).
+template <class Kernels, int WB, int NC, typename TA, class Args>
+cudaError_t dequant_launch_nc(Args& a, int NT, cudaStream_t stream, int* clusters) {
     dim3 grid;
     int smem = 0;
-    const int table = kCb + NT + (Kernels::kExpert && WB == 2 ? 32 : 0);
-    const cudaError_t err = dense_args(a, NT, WB, Acts<TA>::BITS, table, grid, smem);
+    const int table = kCb + NT + (WB == 2 ? 32 : 0);     // codebook, scales, level pairs
+    const cudaError_t err =
+        dense_args(a, dense_experts(a), NT, WB, Acts<TA>::BITS, table, 0, grid, smem);
     if (err != cudaSuccess) return err;
     if (a.G > 0)
-        return dense_launch(Kernels::template get<WB, NC, true, TA>(), grid, a.C, smem, stream,
+        return dense_launch(Kernels::template get<WB, NC, true, TA>(), grid, a.C, smem, 0, stream,
                             clusters, a);
-    return dense_launch(Kernels::template get<WB, NC, false, TA>(), grid, a.C, smem, stream,
+    return dense_launch(Kernels::template get<WB, NC, false, TA>(), grid, a.C, smem, 0, stream,
                         clusters, a);
 }
 
-template <class Kernels, int WB, typename TA>
-cudaError_t dequant_launch_bits(DenseArgs& a, int NT, cudaStream_t stream, int* clusters) {
+template <class Kernels, int WB, typename TA, class Args>
+cudaError_t dequant_launch_bits(Args& a, int NT, cudaStream_t stream, int* clusters) {
     if (NT == 64) return dequant_launch_nc<Kernels, WB, 2, TA>(a, NT, stream, clusters);
     return dequant_launch_nc<Kernels, WB, 4, TA>(a, NT, stream, clusters);
 }
 
-template <class Kernels>
-cudaError_t dequant_dispatch(DenseArgs& a, int bits, int a_bf16, int NT, cudaStream_t stream,
+template <class Kernels, class Args>
+cudaError_t dequant_dispatch(Args& a, int bits, int a_bf16, int NT, cudaStream_t stream,
                              int* clusters) {
     if (bits == 2)
         return a_bf16 ? dequant_launch_bits<Kernels, 2, __nv_bfloat16>(a, NT, stream, clusters)

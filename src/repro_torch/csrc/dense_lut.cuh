@@ -25,11 +25,12 @@
 constexpr int kLutNone = 0, kLutBlock = 1, kLutUnit = 2;
 
 // The lookups of one weight word (CPW units from k0) for every row and
-// column of the thread. FULL: the whole word lies below hi. STATIC: ``tab``
-// is a static shared array, and an entry's address is its byte offset
-// (activation unit << (UW + 2) | weight unit << 2) plus a constant; per
-// channel the entries of 8 units meet in a partial first (short chains).
-template <int UW, int UA, int NC, int GM, bool FULL, bool STATIC>
+// column of the thread. FULL: the whole word lies below hi. ``tab`` is a
+// static shared array, so an entry's address is its byte offset
+// (activation unit << (UW + 2) | weight unit << 2) plus a constant; the
+// entries of 8 units meet in a partial before they are added (per channel:
+// short chains) or scaled (kLutBlock).
+template <int UW, int UA, int NC, int GM, bool FULL>
 __device__ __forceinline__ void lut_word(const DenseArgs& a, const DenseTile& t, int k0,
                                          const uint32_t (&wd)[NC], const float* tab,
                                          const float* st, const unsigned char* at,
@@ -75,17 +76,13 @@ __device__ __forceinline__ void lut_word(const DenseArgs& a, const DenseTile& t,
             for (int q = 0; q < 8; ++q) {
                 const int u = 8 * b + q;
                 if (!FULL && k0 + u >= t.hi) break;
-                constexpr int SH = STATIC ? 2 : 0;
-                const unsigned au = ((aw[(UA * u) / 32] >> ((UA * u) % 32)) & AM) << (UW + SH);
+                const unsigned au = ((aw[(UA * u) / 32] >> ((UA * u) % 32)) & AM) << (UW + 2);
 #pragma unroll
                 for (int i = 0; i < NC; ++i) {
-                    const unsigned o = au | (((wd[i] >> (UW * u)) & WM) << SH);
-                    const float v = STATIC ? *reinterpret_cast<const float*>(
-                                                 reinterpret_cast<const char*>(tab) + o)
-                                           : tab[o];
-                    if constexpr (GM == kLutNone && !STATIC) {
-                        acc[r][i] += v;
-                    } else if constexpr (GM != kLutUnit) {
+                    const unsigned o = au | (((wd[i] >> (UW * u)) & WM) << 2);
+                    const float v = *reinterpret_cast<const float*>(
+                        reinterpret_cast<const char*>(tab) + o);
+                    if constexpr (GM != kLutUnit) {
                         part[i] += v;
                     } else {
                         const int g = t.group(k0 + u) - t.g_lo;
@@ -96,7 +93,7 @@ __device__ __forceinline__ void lut_word(const DenseArgs& a, const DenseTile& t,
             if constexpr (GM == kLutBlock) {
 #pragma unroll
                 for (int i = 0; i < NC; ++i) acc[r][i] = __fmaf_rn(s[b][i], part[i], acc[r][i]);
-            } else if constexpr (GM == kLutNone && STATIC) {
+            } else if constexpr (GM == kLutNone) {
 #pragma unroll
                 for (int i = 0; i < NC; ++i) acc[r][i] += part[i];
             }
@@ -104,7 +101,7 @@ __device__ __forceinline__ void lut_word(const DenseArgs& a, const DenseTile& t,
     }
 }
 
-template <int UW, int UA, int NC, int GM, bool STATIC>
+template <int UW, int UA, int NC, int GM>
 __device__ __forceinline__ void lut_walk(const DenseArgs& a, DenseTile& t, unsigned char* smem,
                                          const float* tab, float (&acc)[kMaxMt][NC]) {
     constexpr int CPW = 32 / UW;
@@ -119,11 +116,9 @@ __device__ __forceinline__ void lut_walk(const DenseArgs& a, DenseTile& t, unsig
             for (int i = 0; i < NC; ++i) wd[i] = wt[(lane + 32 * i) * a.w_pitch + w];
             const int k0 = t.lo + w * CPW;
             if (k0 + CPW <= t.hi)
-                lut_word<UW, UA, NC, GM, true, STATIC>(a, t, k0, wd, tab, st, smem + a.a_off,
-                                                       acc);
+                lut_word<UW, UA, NC, GM, true>(a, t, k0, wd, tab, st, smem + a.a_off, acc);
             else
-                lut_word<UW, UA, NC, GM, false, STATIC>(a, t, k0, wd, tab, st, smem + a.a_off,
-                                                        acc);
+                lut_word<UW, UA, NC, GM, false>(a, t, k0, wd, tab, st, smem + a.a_off, acc);
         }
         if (++round == a.rounds) break;
         __syncthreads();                      // the next round rewrites the tiles
@@ -134,23 +129,16 @@ __device__ __forceinline__ void lut_walk(const DenseArgs& a, DenseTile& t, unsig
 // One block's tile: row tile ``row_tile`` of a's operands (the kernels'
 // bodies). UW / UA: bits of a weight / activation unit; ``pair``: the units
 // are code pairs of w2a2 and the table is built from the 16-entry product
-// LUT. STATIC (the expert kernel, issue-bound at its shapes): the table is
-// a static shared array, so a lookup's address is one OR of two offsets
-// and a constant.
-template <int UW, int UA, int NC, bool GROUPED, bool STATIC>
+// LUT. The table is a static shared array, so a lookup's address is one OR
+// of two offsets and a constant.
+template <int UW, int UA, int NC, bool GROUPED>
 __device__ __forceinline__ void lut_tile(const DenseArgs& a, int pair, int row_tile) {
     constexpr int NT = 32 * NC;
     constexpr int NTAB = 1 << (UW + UA);
     extern __shared__ __align__(16) unsigned char smem[];
     if (a.C > 1) dense_arrive();
     DenseTile t(a, NT, row_tile);
-    float* tab;
-    if constexpr (STATIC) {
-        __shared__ __align__(16) float s_tab[NTAB];
-        tab = s_tab;
-    } else {
-        tab = reinterpret_cast<float*>(smem + a.t_off);
-    }
+    __shared__ __align__(16) float tab[NTAB];
     dense_stage<UW, UA, GROUPED>(a, t, 0, smem, [&] {
         if (pair) {                           // (a0 | a1 << 2) << 4 | (w0 | w1 << 2)
             const int i = threadIdx.x;        // NTAB == kDenseThreads
@@ -184,37 +172,37 @@ __device__ __forceinline__ void lut_tile(const DenseArgs& a, int pair, int row_t
 #pragma unroll
         for (int i = 0; i < NC; ++i) acc[r][i] = 0.f;
     if (!GROUPED)
-        lut_walk<UW, UA, NC, kLutNone, STATIC>(a, t, smem, tab, acc);
+        lut_walk<UW, UA, NC, kLutNone>(a, t, smem, tab, acc);
     else if (a.G % 8 == 0)
-        lut_walk<UW, UA, NC, kLutBlock, STATIC>(a, t, smem, tab, acc);
+        lut_walk<UW, UA, NC, kLutBlock>(a, t, smem, tab, acc);
     else
-        lut_walk<UW, UA, NC, kLutUnit, STATIC>(a, t, smem, tab, acc);
+        lut_walk<UW, UA, NC, kLutUnit>(a, t, smem, tab, acc);
     dense_merge<NC>(a, t, smem, acc, [&](int m, int n, float v) {
         a.out[static_cast<size_t>(m) * a.N + n] = v;
     });
 }
 
 // The launch on the kernels of a source: ``Kernels::get<UW, UA, NC,
-// GROUPED>()`` is its __global__ instantiation, which takes the DenseArgs
-// and ``pair``; ``Kernels::kStatic`` says whether it keeps its table in
-// static shared memory.
-template <class Kernels, int UW, int UA, int NC>
-cudaError_t lut_launch_nc(DenseArgs& a, int NT, int pair, cudaStream_t stream, int* clusters) {
+// GROUPED>()`` is its __global__ instantiation, which takes ``a``
+// (DenseArgs, or the expert kernels' ExpertArgs) and ``pair``. The table
+// is static shared memory, outside the layout but inside its budget.
+template <class Kernels, int UW, int UA, int NC, class Args>
+cudaError_t lut_launch_nc(Args& a, int NT, int pair, cudaStream_t stream, int* clusters) {
+    constexpr int kTableBytes = 4 << (UW + UA);
     dim3 grid;
     int smem = 0;
-    const int table = Kernels::kStatic ? 0 : 1 << (UW + UA);
-    const cudaError_t err = dense_args(a, NT, UW, UA, table, grid, smem);
+    const cudaError_t err =
+        dense_args(a, dense_experts(a), NT, UW, UA, 0, kTableBytes, grid, smem);
     if (err != cudaSuccess) return err;
     if (a.G > 0)
-        return dense_launch(Kernels::template get<UW, UA, NC, true>(), grid, a.C, smem, stream,
-                            clusters, a, pair);
-    return dense_launch(Kernels::template get<UW, UA, NC, false>(), grid, a.C, smem, stream,
-                        clusters, a, pair);
+        return dense_launch(Kernels::template get<UW, UA, NC, true>(), grid, a.C, smem,
+                            kTableBytes, stream, clusters, a, pair);
+    return dense_launch(Kernels::template get<UW, UA, NC, false>(), grid, a.C, smem, kTableBytes,
+                        stream, clusters, a, pair);
 }
 
-template <class Kernels, int UW, int UA>
-cudaError_t lut_launch_units(DenseArgs& a, int NT, int pair, cudaStream_t stream,
-                             int* clusters) {
+template <class Kernels, int UW, int UA, class Args>
+cudaError_t lut_launch_units(Args& a, int NT, int pair, cudaStream_t stream, int* clusters) {
     if (NT == 64) return lut_launch_nc<Kernels, UW, UA, 2>(a, NT, pair, stream, clusters);
     return lut_launch_nc<Kernels, UW, UA, 4>(a, NT, pair, stream, clusters);
 }

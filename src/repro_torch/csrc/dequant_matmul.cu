@@ -36,11 +36,10 @@ namespace {
 template <int WB, int NC, bool GROUPED, typename TA>
 __global__ void __launch_bounds__(kDenseThreads, kDenseMinBlocks)
 dequant_matmul_kernel(DenseArgs a) {
-    dequant_tile<WB, NC, GROUPED, TA, false>(a, blockIdx.z);
+    dequant_tile<WB, NC, GROUPED, TA>(a, blockIdx.z);
 }
 
 struct DequantMatmulKernels {
-    static constexpr bool kExpert = false;
     template <int WB, int NC, bool GROUPED, typename TA>
     static auto get() { return &dequant_matmul_kernel<WB, NC, GROUPED, TA>; }
 };
@@ -56,8 +55,8 @@ extern "C" int dequant_matmul_launch(const void* a, const void* w, const void* c
                                      const void* scales, void* out, int M, int N, int K,
                                      int bits, int group_size, int a_bf16, int MT, int NT,
                                      int C, int k_per_rank, void* stream) {
-    DenseArgs d = dense_make_args(a, w, codebook, scales, out, nullptr, 1, M, N, K, group_size,
-                                  MT, C, k_per_rank);
+    DenseArgs d = dense_make_args(a, w, codebook, scales, out, M, N, K, group_size, MT, C,
+                                  k_per_rank);
     return static_cast<int>(dequant_dispatch<DequantMatmulKernels>(
         d, bits, a_bf16, NT, static_cast<cudaStream_t>(stream), nullptr));
 }
@@ -66,8 +65,8 @@ extern "C" int dequant_matmul_launch(const void* a, const void* w, const void* c
 // clusters the card holds at once; a negative cudaError_t on failure.
 extern "C" int dequant_matmul_active_clusters(int M, int N, int K, int bits, int group_size,
                                               int MT, int NT, int C, int k_per_rank) {
-    DenseArgs d = dense_make_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, M, N,
-                                  K, group_size, MT, C, k_per_rank);
+    DenseArgs d = dense_make_args(nullptr, nullptr, nullptr, nullptr, nullptr, M, N, K,
+                                  group_size, MT, C, k_per_rank);
     int n = 0;
     const cudaError_t err = dequant_dispatch<DequantMatmulKernels>(d, bits, 1, NT, nullptr, &n);
     return err == cudaSuccess ? n : -static_cast<int>(err);

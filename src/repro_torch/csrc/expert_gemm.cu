@@ -25,12 +25,9 @@
 // all experts, so a block takes a whole column tile's K in one window where
 // the tiles allow (one DRAM round trip, no cluster merge); the activations
 // are staged once for all NT columns, each decoded weight serves the MT
-// rows, and a warp's table reads hit distinct banks. Two changes to the
-// walks cut the shared-memory reads and index arithmetic a product costs,
-// and are taken only here (rows 1-2's decode is latency-bound and keeps its
-// code): the dequant walk reads 2-bit levels in pairs (EXPERT), and the LUT
-// walk keeps its table at a static address with byte offsets precomputed
-// and sums 8 units' entries per channel before adding them (STATIC).
+// rows, and a warp's table reads hit distinct banks; the dequant walk reads
+// 2-bit levels in pairs, and the LUT walk keeps its table at a static
+// address and sums 8 units' entries before adding them.
 //
 // Experts that the dispatch left empty: with ``active`` (E,) given, a block
 // of an expert whose flag is 0 writes zeros to its output tile and loads
@@ -53,33 +50,31 @@ namespace {
 
 template <int WB, int NC, bool GROUPED, typename TA>
 __global__ void __launch_bounds__(kDenseThreads, kDenseMinBlocks)
-expert_dequant_kernel(DenseArgs a) {
+expert_dequant_kernel(ExpertArgs a) {
     const int row_tile = dense_expert(a, 32 * NC);
-    if (row_tile >= 0) dequant_tile<WB, NC, GROUPED, TA, true>(a, row_tile);
+    if (row_tile >= 0) dequant_tile<WB, NC, GROUPED, TA>(a, row_tile);
 }
 
 template <int UW, int UA, int NC, bool GROUPED>
 __global__ void __launch_bounds__(kDenseThreads, kDenseMinBlocks)
-expert_lut_kernel(DenseArgs a, int pair) {
+expert_lut_kernel(ExpertArgs a, int pair) {
     const int row_tile = dense_expert(a, 32 * NC);
-    if (row_tile >= 0) lut_tile<UW, UA, NC, GROUPED, true>(a, pair, row_tile);
+    if (row_tile >= 0) lut_tile<UW, UA, NC, GROUPED>(a, pair, row_tile);
 }
 
 struct ExpertDequantKernels {
-    static constexpr bool kExpert = true;
     template <int WB, int NC, bool GROUPED, typename TA>
     static auto get() { return &expert_dequant_kernel<WB, NC, GROUPED, TA>; }
 };
 
 struct ExpertLutKernels {
-    static constexpr bool kStatic = true;
     template <int UW, int UA, int NC, bool GROUPED>
     static auto get() { return &expert_lut_kernel<UW, UA, NC, GROUPED>; }
 };
 
 // w_bits == a_bits == bits: w2a2 walks code pairs through the pair table,
 // w4a4 single codes; both on 4-bit units.
-cudaError_t lut_dispatch(DenseArgs& a, int bits, int NT, cudaStream_t stream, int* clusters) {
+cudaError_t lut_dispatch(ExpertArgs& a, int bits, int NT, cudaStream_t stream, int* clusters) {
     if (bits == 2) {
         const cudaError_t err = lut_pairs(a);
         if (err != cudaSuccess) return err;
@@ -87,6 +82,20 @@ cudaError_t lut_dispatch(DenseArgs& a, int bits, int NT, cudaStream_t stream, in
     }
     if (bits == 4) return lut_launch_units<ExpertLutKernels, 4, 4>(a, NT, 0, stream, clusters);
     return cudaErrorInvalidValue;
+}
+
+// The walk's arguments (shapes in codes) with the expert axis: E experts,
+// ``active`` (E,) u8 or null, rows of K / group_size scales (1 per channel).
+ExpertArgs expert_args(const void* a, const void* w, const void* table, const void* scales,
+                       void* out, const void* active, int E, int M, int N, int K,
+                       int group_size, int MT, int C, int k_per_rank) {
+    ExpertArgs x;
+    static_cast<DenseArgs&>(x) = dense_make_args(a, w, table, scales, out, M, N, K, group_size,
+                                                 MT, C, k_per_rank);
+    x.active = static_cast<const unsigned char*>(active);
+    x.E = E;
+    x.s_row = group_size > 0 ? K / group_size : 1;
+    return x;
 }
 
 }  // namespace
@@ -106,8 +115,8 @@ extern "C" int expert_dequant_matmul_launch(const void* x, const void* w, const 
                                             int E, int M, int N, int K, int bits,
                                             int group_size, int x_bf16, int MT, int NT, int C,
                                             int k_per_rank, void* stream) {
-    DenseArgs d = dense_make_args(x, w, codebook, scales, out, active, E, M, N, K, group_size,
-                                  MT, C, k_per_rank);
+    ExpertArgs d = expert_args(x, w, codebook, scales, out, active, E, M, N, K, group_size, MT,
+                               C, k_per_rank);
     return static_cast<int>(dequant_dispatch<ExpertDequantKernels>(
         d, bits, x_bf16, NT, static_cast<cudaStream_t>(stream), nullptr));
 }
@@ -115,11 +124,10 @@ extern "C" int expert_dequant_matmul_launch(const void* x, const void* w, const 
 extern "C" int expert_dequant_matmul_active_clusters(int E, int M, int N, int K, int bits,
                                                      int group_size, int MT, int NT, int C,
                                                      int k_per_rank) {
-    DenseArgs d = dense_make_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, E, M, N,
-                                  K, group_size, MT, C, k_per_rank);
+    ExpertArgs d = expert_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, E, M, N, K,
+                               group_size, MT, C, k_per_rank);
     int n = 0;
-    const cudaError_t err =
-        dequant_dispatch<ExpertDequantKernels>(d, bits, 1, NT, nullptr, &n);
+    const cudaError_t err = dequant_dispatch<ExpertDequantKernels>(d, bits, 1, NT, nullptr, &n);
     return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
@@ -129,16 +137,16 @@ extern "C" int expert_lut_gemm_launch(const void* a, const void* w, const void* 
                                       const void* scales, void* out, const void* active, int E,
                                       int M, int N, int K, int bits, int group_size, int MT,
                                       int NT, int C, int k_per_rank, void* stream) {
-    DenseArgs d = dense_make_args(a, w, lut, scales, out, active, E, M, N, K,
-                                  scales ? group_size : 0, MT, C, k_per_rank);
+    ExpertArgs d = expert_args(a, w, lut, scales, out, active, E, M, N, K,
+                               scales ? group_size : 0, MT, C, k_per_rank);
     return static_cast<int>(lut_dispatch(d, bits, NT, static_cast<cudaStream_t>(stream), nullptr));
 }
 
 extern "C" int expert_lut_gemm_active_clusters(int E, int M, int N, int K, int bits,
                                                int group_size, int MT, int NT, int C,
                                                int k_per_rank) {
-    DenseArgs d = dense_make_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, E, M, N,
-                                  K, group_size, MT, C, k_per_rank);
+    ExpertArgs d = expert_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, E, M, N, K,
+                               group_size, MT, C, k_per_rank);
     int n = 0;
     const cudaError_t err = lut_dispatch(d, bits, NT, nullptr, &n);
     return err == cudaSuccess ? n : -static_cast<int>(err);

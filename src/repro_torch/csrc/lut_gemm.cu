@@ -28,11 +28,10 @@ namespace {
 template <int UW, int UA, int NC, bool GROUPED>
 __global__ void __launch_bounds__(kDenseThreads, kDenseMinBlocks)
 lut_gemm_kernel(DenseArgs a, int pair) {
-    lut_tile<UW, UA, NC, GROUPED, false>(a, pair, blockIdx.z);
+    lut_tile<UW, UA, NC, GROUPED>(a, pair, blockIdx.z);
 }
 
 struct LutGemmKernels {
-    static constexpr bool kStatic = false;
     template <int UW, int UA, int NC, bool GROUPED>
     static auto get() { return &lut_gemm_kernel<UW, UA, NC, GROUPED>; }
 };
@@ -64,8 +63,8 @@ extern "C" int lut_gemm_launch(const void* a, const void* w, const void* lut, co
                                void* out, int M, int N, int K, int w_bits, int a_bits,
                                int group_size, int MT, int NT, int C, int k_per_rank,
                                void* stream) {
-    DenseArgs d = dense_make_args(a, w, lut, scales, out, nullptr, 1, M, N, K,
-                                  scales ? group_size : 0, MT, C, k_per_rank);
+    DenseArgs d = dense_make_args(a, w, lut, scales, out, M, N, K, scales ? group_size : 0, MT,
+                                  C, k_per_rank);
     return static_cast<int>(
         dispatch(d, w_bits, a_bits, static_cast<cudaStream_t>(stream), NT, nullptr));
 }
@@ -74,8 +73,8 @@ extern "C" int lut_gemm_launch(const void* a, const void* w, const void* lut, co
 // holds at once; a negative cudaError_t on failure.
 extern "C" int lut_gemm_active_clusters(int M, int N, int K, int w_bits, int a_bits,
                                         int group_size, int MT, int NT, int C, int k_per_rank) {
-    DenseArgs d = dense_make_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, M, N,
-                                  K, group_size, MT, C, k_per_rank);
+    DenseArgs d = dense_make_args(nullptr, nullptr, nullptr, nullptr, nullptr, M, N, K,
+                                  group_size, MT, C, k_per_rank);
     int n = 0;
     const cudaError_t err = dispatch(d, w_bits, a_bits, nullptr, NT, &n);
     return err == cudaSuccess ? n : -static_cast<int>(err);

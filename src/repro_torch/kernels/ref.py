@@ -99,10 +99,9 @@ WARP = 32
 # k-lanes of a block of csrc/dense_common.cuh (its warps): lane j walks the
 # 4-byte weight words j, j + 8, ... of a window
 DENSE_LANES = 8
-# f32 elements of block sums tile_order_matmul holds at once (64 MB: few
-# passes over large tensors, the lanes' sums of a full-width expert call
-# five blocks at a time)
-_BLOCK_BUDGET = 1 << 24
+# f32 elements of block sums tile_order_matmul holds at once (16 MB: the
+# passes over them stay in a card's L2)
+_BLOCK_BUDGET = 1 << 22
 
 
 def tile_order_matmul(a: torch.Tensor, w: torch.Tensor, *, ranks: int,

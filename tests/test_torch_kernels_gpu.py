@@ -116,6 +116,32 @@ def test_lut_gemm_kernel_matches_plain_on_card(cuda, M, K, N, wb, ab, group):
 
 
 @pytest.mark.gpu
+def test_lut_gemm_first_launch_counts_its_static_table_on_card(cuda):
+    """In a fresh process (no earlier launch has raised the kernel's shared-
+    memory limit), w4a8 at M 32, 1024 x 1024 launches first: its block
+    takes under 48 KB of dynamic shared memory but above 48 KB with its
+    16 KB static table, so the launch must raise the limit itself."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    code = (
+        "import torch\n"
+        "from test_torch_kernels_gpu import _lut_operands\n"
+        "from repro_torch.kernels.lut_gemm import lut_gemm_cuda, lut_gemm_plain\n"
+        "ops = [None if x is None else torch.from_numpy(x).cuda()\n"
+        "       for x in _lut_operands(7, 32, 1024, 1024, 4, 8)]\n"
+        "got = lut_gemm_cuda(*ops, w_bits=4, a_bits=8)\n"
+        "want = lut_gemm_plain(*ops, w_bits=4, a_bits=8)\n"
+        "torch.testing.assert_close(got, want, rtol=0, atol=0)\n")
+    here = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": f"{here.parent / 'src'}:{here}"}
+    run = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("M,K,N,bits,group,dtype",
                          [(M, K, N, b, g, dt) for M in (1, 4, 9, 32, 128)
                           for (K, N) in _GPU_DENSE_SHAPES

@@ -186,6 +186,33 @@ def test_expert_kernels_every_tiling_matches_plain_on_card(cuda, op):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("op", ["expert_dequant_matmul", "expert_lut_gemm"])
+@pytest.mark.parametrize("E,M,K,N", [(64, 4, 2048, 1408), (5, 9, 200, 33)])
+def test_expert_kernels_skip_flagged_experts_with_live_rows_on_card(cuda, op, E, M,
+                                                                    K, N):
+    """A flagged-off expert keeps non-zero rows and weights: the kernel must
+    skip it, not compute it. Its output is exactly zero (the unflagged call
+    on the same operands gives non-zero there), and every active expert
+    equals the plain version."""
+    if op == "expert_dequant_matmul":
+        ops = _dq_operands(E + K, E, M, K, N, 2, None, "bfloat16", cuda)
+        kern, plain, kw = expert_dequant_matmul_cuda, expert_dequant_matmul_plain, dict(bits=2)
+    else:
+        ops = _lut_operands(E + K, E, M, K, N, 2, None, cuda)
+        kern, plain, kw = expert_lut_gemm_cuda, expert_lut_gemm_plain, dict(w_bits=2, a_bits=2)
+    active = _active(E + N, E, True, cuda)
+    assert (~active).any()
+    full = kern(*ops, **kw)
+    before = kern.launches
+    got = kern(*ops, **kw, active=active)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert (full[~active] != 0).any(dim=(1, 2)).all()
+    assert not got[~active].any()
+    torch.testing.assert_close(got, plain(*ops, **kw, active=active), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
 def test_expert_kernels_reject_bad_operands_on_card(cuda):
     x, wp, cb, sc = _dq_operands(1, 2, 4, 64, 16, 2, None, "float32", cuda)
     with pytest.raises(TypeError):

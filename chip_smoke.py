@@ -32,11 +32,17 @@ Phases, each printing its lines:
               columns, C cluster ranks, the rounds), its blocks and
               cudaOccupancyMaxActiveClusters; the
               paged-attention pair at the qwen and codeqwen serve shapes,
-              at 8k and 32k context (block 512), with G = 8 and at the edges
+              at 8k and 32k context (block 512), one sequence at 32k with
+              kv_splits 1, 16 and 32 (two clusters a head and the merge
+              pass), with G = 8 (hd 128 at kv_splits 16: the largest block
+              in the largest cluster) and at the edges
               (length 1, lengths off the block size, null-padded tables,
               kv_splits above the table width, chunks past every length,
               and a ragged 5008-row table whose single pass runs on 10
-              cluster ranks, 8 of them past one sequence's length),
+              cluster ranks, 8 of them past one sequence's length); each
+              split line prints its clusters a head and ranks a cluster
+              (kernels/paged_attention.py::split_clusters), its blocks and
+              cudaOccupancyMaxActiveClusters,
               the library time being scaled_dot_product_attention over the
               pre-dequantized bf16 view; and the two expert GEMMs at
               moonshot-v1-16b-a3b's decode shapes (E 64, M 4, K x N =
@@ -85,8 +91,10 @@ Phases, each printing its lines:
               first step with attention on its plain version; every
               attention call of the first step checked against its plain
               version on the same inputs; launch counts, logits, tokens,
-              step times and a profile of each; and, not as a gate, how far
-              the plain single pass and the plain split move the logits
+              step times and a profile of each, the kv_splits 8 profile
+              with no merge_kernel (8 chunks merge on chip); and, not as a
+              gate, how far the plain single pass and the plain split move
+              the logits
   9 codeqwen  codeqwen1.5-7b at full width (32 layers, untied head, int4
               pool) under w2a8_bs serving the 12 requests, with the
               attention-plain comparison and a profile, after the qwen
@@ -735,6 +743,11 @@ ATTN_ROWS = (
     ("edge off-block, padded", 3, 4, 2, 64, 4, 16, (17, 37, 95), 8, 3, "bf16"),
     ("edge splits > nb", 2, 4, 2, 64, 8, 16, (3, 40), 3, 7, "f32"),
     ("ragged, ranks past a length", 2, 16, 1, 64, 8, 16, (4999, 700), 313, 1, "bf16"),
+    ("long 32k, one sequence", 1, 16, 1, 64, 8, 512, (32768,), 64, 1, "bf16"),
+    ("long 32k, one sequence", 1, 16, 1, 64, 8, 512, (32768,), 64, 16, "bf16"),
+    ("long 32k, one sequence", 1, 16, 1, 64, 8, 512, (32768,), 64, 32, "bf16"),
+    ("long 32k", 2, 16, 1, 64, 8, 512, (32768, 32768), 68, 16, "bf16"),
+    ("G=8", 2, 2, 8, 128, 8, 16, (100, 300), 20, 16, "f32"),
 )
 REPRESENTATIVE_ATTN = {"paged_attention": ("qwen serve", 1),
                        "paged_attention_splitkv": ("long 32k", 8)}
@@ -802,8 +815,12 @@ def phase_attention(torch, dev):
             grid = (f"cluster {C}, {B * KV * C} blocks, {active} clusters active "
                     "at once")
         else:
-            ns = PA.split_partition(nb, ks)[0]
-            grid = f"{B * KV * ns} blocks + merge"
+            K, C, active = PA.paged_attention_splitkv_active_clusters(
+                B, KV, G, hd, bs, nb, bits, q_dtype, ks)
+            row.update(clusters_per_head=K, cluster=C, blocks=B * KV * K * C,
+                       active_clusters=active)
+            grid = (f"{K} cluster(s) a head of {C} ranks, {B * KV * K * C} blocks"
+                    f"{' + merge' if K > 1 else ''}, {active} clusters active at once")
         rows[name].append(row)
         print(f"  {name:23s} {label:26s} B={B} KV={KV} G={G} hd={hd} int{bits} "
               f"bs={bs} len={list(lengths) if len(set(lengths)) > 1 else lengths[0]} "
@@ -934,8 +951,9 @@ def profile_steps(torch, step, steps: int, label: str) -> dict:
         by_dev[e.name] = by_dev.get(e.name, 0.0) + e.time_range.elapsed_us()
     top_dev = sorted(by_dev.items(), key=lambda kv: -kv[1])[:5]
     top_cpu = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:6]
-    # kernel families by name: paged_attn_ is the paged single pass
-    # (paged_attn_cluster_kernel) and the split (paged_attn_split_kernel)
+    # kernel families by name: paged_attn_ is the paged single pass and the
+    # split (paged_attn_cluster_kernel; paged_attn_split_kernel above one
+    # cluster a head, followed by merge_kernel)
     fam_ms = {k: sum(us for n, us in by_dev.items() if k in n) / 1e3 / steps
               for k in ("paged_attn_", "merge_kernel", "kv_cache_attn_kernel",
                         "expert_dequant_kernel", "expert_lut_kernel")}
@@ -1143,7 +1161,8 @@ def main() -> int:
     from repro_torch.kernels.lut_gemm import lut_gemm_cuda
     from repro_torch.kernels.lut_gemm_bitsliced import (lut_gemm_bitsliced_cuda,
                                                         lut_gemm_bs_fused_cuda)
-    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+    from repro_torch.kernels.paged_attention import (auto_kv_splits,
+                                                     paged_attention_cuda,
                                                      paged_attention_splitkv_cuda)
     from repro_torch.launch import mesh, serve
     from repro_torch.models import lm
@@ -1315,6 +1334,16 @@ def main() -> int:
         if n_calls != 2 * n or call_err > TOL_ATTN:
             fail(f"ctx {ctx}: {n_calls} checked attention calls (want {2 * n}), "
                  f"max rel err {call_err} > {TOL_ATTN}")
+        print(f"[8 long] ctx {ctx}: kv_splits auto picks "
+              f"{auto_kv_splits(LC_SLOTS, cfg.n_kv_heads, ctx + 4 * LC_BLOCK)} at this "
+              "engine's shapes", flush=True)
+        merge_ms = split["profile"]["attention_device_ms_per_step"]["merge_kernel"]
+        print(f"[8 long] ctx {ctx}: merge_kernel "
+              f"{'ran' if merge_ms > 0 else 'did not run'} in the kv_splits "
+              f"{LC_SPLITS} profile ({merge_ms:.3f} ms/step)", flush=True)
+        if merge_ms > 0:
+            fail(f"ctx {ctx}: merge_kernel ran at kv_splits {LC_SPLITS}, which "
+                 "one cluster a head merges on chip")
         rel_s = rel_diff(split["first_logits"], single["first_logits"])
         rel_r = rel_diff(split["first_logits"], ref["first_logits"])
         same = sum(a == b for a, b in zip(split["tokens"], single["tokens"]))

@@ -1,21 +1,16 @@
-// The walks that the decode-attention kernels share (paged_attention.cu and
-// kv_cache_attention.cu). Both fold K/V rows [t_begin, t_end) of one
-// (sequence, KV head) into an online softmax for the G query rows of that
-// head, in tiles of kTile rows, with kThreads threads a block:
+// The walk that the decode-attention kernels share (paged_attention.cu and
+// kv_cache_attention.cu): attend_rows_cluster folds K/V rows [t_begin,
+// t_end) of one (sequence, KV head) into an online softmax for the G query
+// rows of that head, in tiles of kTile rows, with kThreads threads a block.
+// The walk of a head is cut along the sequence into the C ranks of a
+// thread-block cluster; each rank walks its chunk through a cp.async ring,
+// and the ranks merge their partials on chip through distributed shared
+// memory, into the normalised output (the single passes, and the split at
+// kv_splits <= kMaxCluster) or into one unnormalised partial (m, l, acc) of
+// the cluster (the split above kMaxCluster chunks, whose clusters a second
+// pass merges).
 //
-//   attend_rows          one block walks its rows with registers-then-
-//                        shared-memory staging and writes unnormalised
-//                        partials (m, l, acc) for a second merge pass; the
-//                        split kernel paged_attention_splitkv runs it
-//   attend_rows_cluster  the single-pass kernels (paged_attention,
-//                        kv_cache_attention): the walk of one (sequence, KV
-//                        head) is cut along the sequence into the C ranks of
-//                        a thread-block cluster, each rank walks its chunk
-//                        through a cp.async ring, and the ranks merge their
-//                        partials on chip through distributed shared
-//                        memory, in one launch
-//
-// What bounds both on the H100: the bytes of the K and V rows they must
+// What bounds it on the H100: the bytes of the K and V rows it must
 // read (rows * KV * (hd * bits / 8 + 4) * 2 a sequence; 142.6 MB at 32k
 // context, B 2, KV 16, hd 64, int8: 42.6 us at 3.35 TB/s). The
 // operations, 4 * G * hd a row and head, sit far below the tensor cores'
@@ -24,11 +19,12 @@
 // a byte or half a byte a code the SMs' instruction rate binds it as much
 // as the bytes do (PERF.md section 6 has the measurements). One block per
 // (sequence, KV head) (B 2, KV 16: 32 blocks on 132 SMs) that loads a
-// tile, waits and then computes reaches neither. attend_rows_cluster:
-//   - C ranks give B * KV * C blocks, C from kernels/paged_attention.py::
-//     cluster_ranks (static shapes only): as many as stay resident in one
-//     wave, three blocks an SM (two for G > 1); up to 16, above 8 as a
-//     non-portable cluster;
+// tile, waits and then computes reaches neither. So:
+//   - C ranks give B * KV * C blocks; the single passes take C from
+//     kernels/paged_attention.py::cluster_ranks (static shapes only): as
+//     many as stay resident in one wave, three blocks an SM (two for G >
+//     1); the split takes one rank a chunk (split_clusters); up to 16,
+//     above 8 as a non-portable cluster;
 //   - a ring of kStages tiles: the copies of the next tile fly while a
 //     tile is consumed, and the rows of that next tile (the table entries
 //     of the pool) are read before the wait for the current one;
@@ -42,11 +38,11 @@
 //
 // Each kernel says where row t lives: the index of the (token, head) pair,
 // so that its codes start at byte row * hd * BITS / 8 of the code tensor
-// and its scale is scale[row]. attend_rows takes ``row_of(t)``;
-// attend_rows_cluster takes ``tile_rows(s0)``, which gives the row of token
-// s0 + tl of a tile as ``row_of(tl)``, so that a tile inside one pool block
-// reads its table entry once. The paged kernels read the block table
-// there; the dense-cache kernel computes (b * S + t) * KV + e.
+// and its scale is scale[row]. attend_rows_cluster takes ``tile_rows(s0)``,
+// which gives the row of token s0 + tl of a tile as ``row_of(tl)``, so that
+// a tile inside one pool block reads its table entry once. The paged
+// kernels read the block table there; the dense-cache kernel computes (b *
+// S + t) * KV + e.
 //
 // Every product and every sum is rounded on its own (__fmul_rn /
 // __fadd_rn: no fused multiply-add), in the order written here, so that a
@@ -54,11 +50,10 @@
 // kv_cache_attention_walk) gives the same bits on the card. A change to the
 // walk's order or rounding must change that replay with it.
 //
-// Per tile of kTile rows (both walks, the same arithmetic):
-//   - staging: attend_rows loads the tile's K/V rows as 8-byte words into
-//     registers, then shared memory; attend_rows_cluster copies them with
-//     cp.async, 16 bytes a copy where rows are 16 bytes or more (the codes
-//     must then start on a 16-byte boundary), else 8;
+// Per tile of kTile rows:
+//   - staging: cp.async copies of the tile's K/V rows and scales, 16 bytes
+//     a copy where rows are 16 bytes or more (the codes must then start on
+//     a 16-byte boundary), else 8;
 //   - scores: the words of a token's row are dotted with the G query rows
 //     of the head, each word's 64 / BITS codes in one chain, and the words
 //     meet in an xor butterfly; the K scale multiplies the sum;
@@ -76,7 +71,8 @@
 // max(sum_c w_c l_c, 1e-30). A rank with no row weighs expf(-1e30 - M) =
 // 0; at C = 1, w = 1 and the output is acc / max(l, 1e-30), the
 // arithmetic of one block over the whole extent, bit for bit (the rank
-// writes it without the cluster barriers).
+// writes it without the cluster barriers). Asked for the cluster's partial
+// instead, the merge writes M, sum_c w_c l_c and sum_c w_c acc_c, unscaled.
 //
 // hd is 16, 32, 64 or 128 and G at most kMaxG; GT is the number of query
 // rows compiled in: 1, or kMaxG for any G up to it.
@@ -97,11 +93,8 @@ constexpr int kThreads = 256;                 // 8 warps per block
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 128;                    // tokens per tile
 constexpr int kMaxG = 8;                      // query rows per KV head
-constexpr int kMaxHd = 128;
-constexpr int kTileWords = kTile * kMaxHd / 8;        // 8-byte words, int8 at hd 128
-constexpr int kWordsPerThread = kTileWords / kThreads;
 constexpr float kNeg = -1e30f;
-constexpr int kStages = 2;                    // attend_rows_cluster: ring stages
+constexpr int kStages = 2;                    // ring stages
 constexpr int kMaxCluster = 16;               // ranks a cluster (above 8: non-portable)
 constexpr size_t kNoRow = ~static_cast<size_t>(0);
 
@@ -118,198 +111,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     return v;
-}
-
-// The 64 / BITS codes of one 8-byte word, as floats, in row order.
-template <int BITS>
-__device__ __forceinline__ void decode_word(uint2 w, float* c) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-        const unsigned byte = ((j < 4 ? w.x : w.y) >> (8 * (j & 3))) & 0xffu;
-        if (BITS == 8) {
-            c[j] = static_cast<float>(static_cast<int8_t>(byte));
-        } else {
-            c[2 * j] = static_cast<float>(static_cast<int>(byte & 0xfu) - 8);
-            c[2 * j + 1] = static_cast<float>(static_cast<int>(byte >> 4) - 8);
-        }
-    }
-}
-
-// Walk rows [t_begin, t_end) of one head. qh: the head's G query rows (G,
-// hd). Writes the unnormalised sums to out_h (G, hd) and the running max
-// and sum of exponentials to m_h and l_h (G).
-template <int BITS, typename TQ, int GT, typename RowOf>
-__device__ __forceinline__ void attend_rows(
-    const TQ* __restrict__ qh, const uint8_t* __restrict__ k_codes,
-    const float* __restrict__ k_sc, const uint8_t* __restrict__ v_codes,
-    const float* __restrict__ v_sc, RowOf row_of, int t_begin, int t_end, int G,
-    int hd_shift, float scale, float* __restrict__ out_h, float* __restrict__ m_h,
-    float* __restrict__ l_h) {
-    constexpr int CPW = 64 / BITS;            // codes per 8-byte word
-    constexpr int CPW_SHIFT = BITS == 8 ? 3 : 4;
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int hd = 1 << hd_shift;
-    const int wpr_shift = hd_shift - CPW_SHIFT;
-    const int wpr = 1 << wpr_shift;           // words per K/V row: 1..16
-    const int row_bytes = wpr * 8;
-
-    __shared__ __align__(16) uint2 s_k[kTileWords];
-    __shared__ __align__(16) uint2 s_v[kTileWords];
-    __shared__ float s_ksc[kTile], s_vsc[kTile];
-    __shared__ float s_q[kMaxG * kMaxHd];
-    __shared__ float s_p[kMaxG * kTile];
-    __shared__ float s_m[kMaxG], s_l[kMaxG], s_corr[kMaxG];
-
-    for (int i = tid; i < G * hd; i += kThreads) s_q[i] = to_f32(qh[i]);
-    if (tid < kMaxG) {
-        s_m[tid] = kNeg;
-        s_l[tid] = 0.f;
-        s_corr[tid] = 1.f;
-    }
-
-    const int R = kThreads >> hd_shift;       // token groups of the PV step
-    const int d = tid & (hd - 1), r = tid >> hd_shift;
-    float acc[GT];
-#pragma unroll
-    for (int g = 0; g < GT; ++g) acc[g] = 0.f;
-    __syncthreads();
-
-    for (int s0 = t_begin; s0 < t_end; s0 += kTile) {
-        const int n_live = min(kTile, t_end - s0);
-        // 1. stage the tile's K/V words and scales (zeros past the live rows)
-        uint2 kr[kWordsPerThread], vr[kWordsPerThread];
-#pragma unroll
-        for (int i = 0; i < kWordsPerThread; ++i) {
-            const int w = tid + i * kThreads;
-            const int tl = w >> wpr_shift;
-            kr[i] = vr[i] = make_uint2(0u, 0u);
-            if (tl < n_live) {
-                const size_t off = (static_cast<size_t>(row_of(s0 + tl)) << wpr_shift) +
-                                   (w & (wpr - 1));
-                kr[i] = reinterpret_cast<const uint2*>(k_codes)[off];
-                vr[i] = reinterpret_cast<const uint2*>(v_codes)[off];
-            }
-        }
-        float ksc = 0.f, vsc = 0.f;
-        if (tid < n_live) {
-            const size_t row = row_of(s0 + tid);
-            ksc = k_sc[row];
-            vsc = v_sc[row];
-        }
-        __syncthreads();                      // the previous tile is consumed
-#pragma unroll
-        for (int i = 0; i < kWordsPerThread; ++i) {
-            const int w = tid + i * kThreads;
-            if (w < kTile * wpr) {
-                s_k[w] = kr[i];
-                s_v[w] = vr[i];
-            }
-        }
-        if (tid < kTile) {
-            s_ksc[tid] = ksc;
-            s_vsc[tid] = vsc;
-        }
-        __syncthreads();
-
-        // 2. scores: a group of wpr lanes holds one token's row
-        const int tpw = 32 >> wpr_shift;
-        const int grp = lane >> wpr_shift, part = lane & (wpr - 1);
-        for (int tl0 = warp * tpw; tl0 < kTile; tl0 += kWarps * tpw) {
-            const int tl = tl0 + grp;
-            float codes[CPW];
-            decode_word<BITS>(s_k[tl * wpr + part], codes);
-            const float* qd = s_q + part * CPW;
-            float dot[GT];
-#pragma unroll
-            for (int g = 0; g < GT; ++g) {
-                dot[g] = 0.f;
-                if (GT == 1 || g < G) {
-#pragma unroll
-                    for (int j = 0; j < CPW; ++j)
-                        dot[g] = __fadd_rn(dot[g], __fmul_rn(qd[g * hd + j], codes[j]));
-                }
-            }
-            for (int o = wpr >> 1; o > 0; o >>= 1) {
-#pragma unroll
-                for (int g = 0; g < GT; ++g)
-                    dot[g] += __shfl_xor_sync(0xffffffffu, dot[g], o);
-            }
-            if (part == 0) {
-#pragma unroll
-                for (int g = 0; g < GT; ++g)
-                    if (GT == 1 || g < G)
-                        s_p[g * kTile + tl] =
-                            tl < n_live ? __fmul_rn(__fmul_rn(dot[g], s_ksc[tl]), scale) : kNeg;
-            }
-        }
-        __syncthreads();
-
-        // 3. online softmax: one warp per query row
-        for (int g = warp; g < G; g += kWarps) {
-            float* sp = s_p + g * kTile;
-            float mx = kNeg;
-            for (int i = lane; i < kTile; i += 32) mx = fmaxf(mx, sp[i]);
-            mx = warp_max(mx);
-            const float m_prev = s_m[g];
-            const float m_new = fmaxf(m_prev, mx);
-            float sum = 0.f;
-            for (int i = lane; i < kTile; i += 32) {
-                const float p = i < n_live ? expf(sp[i] - m_new) : 0.f;
-                sp[i] = p;
-                sum += p;
-            }
-            sum = warp_sum(sum);
-            if (lane == 0) {
-                const float corr = expf(m_prev - m_new);
-                s_corr[g] = corr;
-                s_l[g] = __fadd_rn(__fmul_rn(s_l[g], corr), sum);
-                s_m[g] = m_new;
-            }
-        }
-        __syncthreads();
-
-        // 4. PV: thread (r, d) sums tokens r, r + R, ... of the tile for dim
-        //    d, then folds the tile's sum into its running one
-        float tacc[GT];
-#pragma unroll
-        for (int g = 0; g < GT; ++g) tacc[g] = 0.f;
-        const uint8_t* vb = reinterpret_cast<const uint8_t*>(s_v);
-        for (int tl = r; tl < n_live; tl += R) {
-            float code;
-            if (BITS == 8) {
-                code = static_cast<float>(static_cast<int8_t>(vb[tl * row_bytes + d]));
-            } else {
-                const unsigned by = vb[tl * row_bytes + (d >> 1)];
-                code = static_cast<float>(static_cast<int>((d & 1) ? (by >> 4) : (by & 0xfu)) - 8);
-            }
-            const float vv = __fmul_rn(code, s_vsc[tl]);
-#pragma unroll
-            for (int g = 0; g < GT; ++g)
-                if (GT == 1 || g < G)
-                    tacc[g] = __fadd_rn(tacc[g], __fmul_rn(s_p[g * kTile + tl], vv));
-        }
-#pragma unroll
-        for (int g = 0; g < GT; ++g)
-            if (GT == 1 || g < G) acc[g] = __fadd_rn(__fmul_rn(acc[g], s_corr[g]), tacc[g]);
-    }
-
-    // 5. reduce the R groups' sums in shared memory (over the K tile)
-    __syncthreads();
-    float* s_red = reinterpret_cast<float*>(s_k);     // R * G * hd <= 2048 floats
-#pragma unroll
-    for (int g = 0; g < GT; ++g)
-        if (GT == 1 || g < G) s_red[(r * G + g) * hd + d] = acc[g];
-    __syncthreads();
-    for (int i = tid; i < G * hd; i += kThreads) {
-        const int g = i / hd, dd = i - g * hd;
-        float sum = 0.f;
-        for (int rr = 0; rr < R; ++rr) sum += s_red[(rr * G + g) * hd + dd];
-        out_h[i] = sum;
-    }
-    if (tid < G) {
-        m_h[tid] = s_m[tid];
-        l_h[tid] = s_l[tid];
-    }
 }
 
 // cp.async of BYTES (4, 8 or 16) from global to shared memory; 16-byte
@@ -343,8 +144,8 @@ __host__ __device__ constexpr int ilog2(int v) { return v > 1 ? 1 + ilog2(v >> 1
 constexpr float kBias8 = 8388736.f;           // 2^23 + 128: int8 code c stored as c + 128
 constexpr float kBias4 = 8388616.f;           // 2^23 + 8: 4-bit code n stands for n - 8
 
-// decode_word's codes (the 64 / BITS codes of one 8-byte word, as floats,
-// in row order) by the exact bias above: byte j of a 32-bit half goes to
+// The 64 / BITS codes of one 8-byte word, as floats, in row order, by the
+// exact bias above: byte j of a 32-bit half goes to
 // the low byte of 0x4b000000 with one byte permute.
 template <int BITS>
 __device__ __forceinline__ void decode_word_exact(uint2 w, float* c) {
@@ -411,8 +212,11 @@ __host__ __device__ inline WalkSmem walk_smem(int G, int hd, int row_bytes) {
 
 // Walk rows [t_begin, t_end) of one head as rank cluster.block_rank() of
 // its cluster, then merge the ranks' partials into out_h (G, HD), which
-// the ranks write in shares. Every block of the cluster must call it (a
-// rank with no row too): with C > 1 it synchronises the cluster twice.
+// the ranks write in shares: normalised, or with m_h and l_h (G) given,
+// the cluster's unnormalised partial (the sums in out_h, the max and the
+// sum of exponentials in m_h and l_h). Every block of the cluster must
+// call it (a rank with no row too): with C > 1 it synchronises the cluster
+// twice.
 // qh: the head's G query rows (G, HD). Rows of 16 bytes or more are copied
 // in 16-byte units (the codes must start on a 16-byte boundary), shorter
 // ones in 8. HD is compiled in, so every loop bound is a constant.
@@ -421,7 +225,8 @@ __device__ __forceinline__ void attend_rows_cluster(
     const TQ* __restrict__ qh, const uint8_t* __restrict__ k_codes,
     const float* __restrict__ k_sc, const uint8_t* __restrict__ v_codes,
     const float* __restrict__ v_sc, TileRows tile_rows, int t_begin, int t_end, int G,
-    float scale, float* __restrict__ out_h) {
+    float scale, float* __restrict__ out_h, float* __restrict__ m_h = nullptr,
+    float* __restrict__ l_h = nullptr) {
     namespace cg = cooperative_groups;
     constexpr int CPW = 64 / BITS;            // codes per 8-byte word
     constexpr int WPR = HD / CPW;             // words per K/V row: 1..16
@@ -673,11 +478,17 @@ __device__ __forceinline__ void attend_rows_cluster(
 #pragma unroll
         for (int rr = 0; rr < R; ++rr) sum += s_red[(rr * G + g) * HD + dd];
         if (C == 1)                           // the merge's arithmetic at weight 1
-            out_h[i] = sum / fmaxf(s_l[g], 1e-30f);
+            out_h[i] = m_h ? sum : sum / fmaxf(s_l[g], 1e-30f);
         else
             s_q[i] = sum;
     }
-    if (C == 1) return;
+    if (C == 1) {
+        if (m_h && tid < G) {
+            m_h[tid] = s_m[tid];
+            l_h[tid] = s_l[tid];
+        }
+        return;
+    }
 
     // 5. merge the ranks' partials through distributed shared memory
     cg::cluster_group cluster = cg::this_cluster();
@@ -695,7 +506,15 @@ __device__ __forceinline__ void attend_rows_cluster(
             num = c ? __fadd_rn(num, a) : a;
             den = c ? __fadd_rn(den, b) : b;
         }
-        out_h[i] = num / fmaxf(den, 1e-30f);
+        if (!m_h) {
+            out_h[i] = num / fmaxf(den, 1e-30f);
+            continue;
+        }
+        out_h[i] = num;
+        if ((i & (HD - 1)) == 0) {
+            m_h[g] = M;
+            l_h[g] = den;
+        }
     }
     cluster.sync();                           // no rank leaves while its memory is read
 }

@@ -138,8 +138,8 @@ cudaError_t run(const void* q, const void* k, const void* k_sc, const void* v,
 // C entry point (bound with ctypes). q: (B, KV, G, hd) f32 (q_bf16 == 0) or
 // bf16; k, v (B, S, KV, hd * bits / 8) int8 / u8 codes; scales (B, S, KV)
 // f32; lengths (B,) int64; out (B, KV, G, hd) f32; C ranks of rows_per_rank
-// rows each (cluster_ranks), C <= 8 and (C - 1) * rows_per_rank < S <= C *
-// rows_per_rank. Returns the cudaError_t of the launch (0 on success).
+// rows each (cluster_ranks), C <= kMaxCluster (16) and (C - 1) *
+// rows_per_rank < S <= C * rows_per_rank. Returns the cudaError_t of the launch (0 on success).
 extern "C" int kv_cache_attention_launch(const void* q, const void* k, const void* k_sc,
                                          const void* v, const void* v_sc,
                                          const void* lengths, void* out, int B, int S,

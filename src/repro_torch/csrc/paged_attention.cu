@@ -12,11 +12,12 @@
 //
 // Replaces src/repro/kernels/paged_attention.py: paged_attention_pallas
 // (:74, pallas_call at :128) and paged_attention_splitkv_pallas (:210,
-// pallas_call at :270) with the jnp merge_splitkv_partials (:151), here a
-// second small CUDA pass. The Pallas grids walk the table on a sequential
-// grid axis with the running (m, l, acc) carried in revisited output
-// blocks; here blocks walk their rows in a loop and keep (m, l, acc) on
-// chip, reading their own table entries (the Pallas scalar prefetch).
+// pallas_call at :270) with the jnp merge_splitkv_partials (:151), here
+// done on chip, or above kMaxCluster chunks in a second small CUDA pass.
+// The Pallas grids walk the table on a sequential grid axis with the
+// running (m, l, acc) carried in revisited output blocks; here blocks walk
+// their rows in a loop and keep (m, l, acc) on chip, reading their own
+// table entries (the Pallas scalar prefetch).
 //
 // What bounds both on the H100: the bytes of the K and V rows they must
 // read, lengths[b] * KV * (hd * bits / 8 + 4) * 2 per sequence (142.6 MB
@@ -24,38 +25,40 @@
 // 3.35 TB/s), and the SMs' instruction rate for a walk that rounds every
 // product and sum on its own. The operations, 4 * H * hd per row, are far
 // below the tensor cores' rate. Reaching the byte rate needs enough loads
-// in flight on enough SMs, and few instructions a code:
-//   - single pass (paged_attention): the walk of one (b, KV head) is cut
-//     into C chunks of nbc table entries (whole tiles and whole entries,
-//     as split_partition cuts a table), walked at once by the C blocks of
-//     one thread-block cluster and merged on chip through distributed
-//     shared memory (attend_rows_cluster in attn_common.cuh, shared with
-//     the dense-cache kernel in kv_cache_attention.cu): grid (C * KV, B),
-//     C from kernels/paged_attention.py::cluster_ranks on nb * bs, B, KV
-//     and G alone (12 at 32k with block 512, B 2, KV 16; 1 at the serve
-//     shapes), one launch and no scratch. Each rank copies tiles with
-//     cp.async into a ring, the table entry of the next tile read before
-//     it waits for the current one (once a tile where bs >= kTile);
-//   - split (paged_attention_splitkv): one block per (b, chunk, KV head)
-//     walks with attend_rows (registers-then-shared-memory staging, up to
-//     8 independent 8-byte loads a thread before any is used) and writes
-//     unnormalised partials to scratch, which merge_kernel reduces in a
-//     second pass; kv_splits is the caller's.
-// Both walks stop at lengths[b] (the reference walks every table entry and
-// masks), share the per-tile arithmetic (scores by lane groups with
-// warp-shuffle sums, one warp per query row for the online softmax, a
-// two-level PV sum) and reduce the R = 256 / hd PV groups in shared
-// memory at the end.
+// in flight on enough SMs, and few instructions a code. Both kernels run
+// the one cluster walk attend_rows_cluster (attn_common.cuh, shared with
+// the dense-cache kernel in kv_cache_attention.cu): the walk of one (b, KV
+// head) is cut into chunks of nbc table entries (whole entries), walked at
+// once by the ranks of a thread-block cluster and merged on chip through
+// distributed shared memory. Each rank copies tiles with cp.async into a
+// ring, the table entry of the next tile read before it waits for the
+// current one (once a tile where bs >= kTile).
+//   - single pass (paged_attention): C chunks, one cluster of C ranks a
+//     head: grid (C * KV, B), C from kernels/paged_attention.py::
+//     cluster_ranks on nb * bs, B, KV and G alone (12 at 32k with block
+//     512, B 2, KV 16; 1 at the serve shapes), one launch and no scratch;
+//   - split (paged_attention_splitkv): the caller's kv_splits gives ns
+//     chunks (split_partition), one rank a chunk, in K clusters of C ranks
+//     a head (split_clusters: K = 1 up to kMaxCluster chunks). At K = 1
+//     it is the single pass's kernel on those chunks: one launch, no
+//     scratch. Above, paged_attn_split_kernel (grid (C * K * KV, B))
+//     writes each cluster's unnormalised partial (m, l, acc) to scratch,
+//     and merge_kernel reduces the K partials in a second pass.
+// The walk stops at lengths[b] (the reference walks every table entry and
+// masks).
 //
-// Masking: rows t >= lengths[b] score -1e30 and weigh exactly 0. A chunk
-// or rank with no live row carries m = -1e30, l = 0, acc = 0, which a
-// merge weighs by exp(-1e30 - M) = 0. With lengths[b] == 0 no row is read
-// and the output is 0 (the reference's oracle averages every row there).
+// Masking: rows t >= lengths[b] score -1e30 and weigh exactly 0. A chunk,
+// rank or cluster with no live row carries m = -1e30, l = 0, acc = 0,
+// which a merge weighs by exp(-1e30 - M) = 0. With lengths[b] == 0 no row
+// is read and the output is 0 (the reference's oracle averages every row
+// there).
 //
 // The kernels take hd 16, 32, 64 or 128, G up to 8 (compiled for G == 1
 // and for any G up to 8), and a block size that is a power of two.
 //
 // Build without --use_fast_math: expf stays accurate.
+
+#include <type_traits>
 
 #include "attn_common.cuh"
 
@@ -74,22 +77,30 @@ struct PagedArgs {
     float scale;
 };
 
-// The single pass: grid (C * KV, B), clusters of C along x; block x is rank
-// x % C of KV head x / C and walks table entries [rank * nbc, (rank + 1) *
-// nbc) of sequence b, cut at lengths[b]. out (B, KV, G, hd). GT is the
-// number of query rows compiled in: 1 (G == 1, the dense models' MHA) or
-// kMaxG (any G up to it). bs is a power of two (bs_shift); row t of
-// sequence b lives at offset t % bs of block tables[b, t / bs].
+// The split above kMaxCluster chunks: ns chunks a head in K clusters of C
+// ranks; out holds the clusters' unnormalised sums (B, K, KV, G, hd), m and
+// l their max and sum of exponentials (B, K, KV, G).
+struct SplitArgs : PagedArgs {
+    float* m;
+    float* l;
+    int ns, K;
+};
+
+// Walk chunk c of sequence b, KV head e: table entries [c * nbc, min((c +
+// 1) * nbc, nb)), cut at lengths[b] (none for c * nbc >= nb), as this
+// block's rank of its cluster; the merge goes to out_h (G, HD), and with
+// m_h and l_h given it is the cluster's unnormalised partial. bs is a
+// power of two (bs_shift); row t of sequence b lives at offset t % bs of
+// block tables[b, t / bs].
 template <int BITS, int HD, typename TQ, int GT>
-__global__ void __launch_bounds__(kThreads) paged_attn_cluster_kernel(const PagedArgs a) {
-    const int rank = blockIdx.x % a.C, e = blockIdx.x / a.C, b = blockIdx.y;
+__device__ __forceinline__ void walk_chunk(const PagedArgs& a, int b, int e, int c,
+                                           float* out_h, float* m_h, float* l_h) {
     const int bs_shift = a.bs_shift, KV = a.KV;
     const int64_t* tbl = a.tables + static_cast<size_t>(b) * a.nb;
-    const int t_begin = (rank * a.nbc) << bs_shift;
-    const int64_t chunk_end = static_cast<int64_t>(min((rank + 1) * a.nbc, a.nb)) << bs_shift;
+    const int t_begin = (c * a.nbc) << bs_shift;
+    const int64_t chunk_end = static_cast<int64_t>(min((c + 1) * a.nbc, a.nb)) << bs_shift;
     const int t_end = static_cast<int>(a.lengths[b] < chunk_end ? a.lengths[b] : chunk_end);
     const size_t head = static_cast<size_t>(b) * KV + e;
-    const size_t gh = static_cast<size_t>(a.G) * HD;
     // a tile starts on a multiple of kTile from a block boundary, so with
     // bs >= kTile it lies inside one block: one table read for the tile
     const bool one_block = (1 << bs_shift) >= kTile;
@@ -104,153 +115,161 @@ __global__ void __launch_bounds__(kThreads) paged_attn_cluster_kernel(const Page
                     (t & ((1 << bs_shift) - 1))) * KV + e;
         };
     };
-    attend_rows_cluster<BITS, HD, TQ, GT>(static_cast<const TQ*>(a.q) + head * gh, a.k,
-                                          a.k_sc, a.v, a.v_sc, tile_rows, t_begin, t_end, a.G,
-                                          a.scale, a.out + head * gh);
+    attend_rows_cluster<BITS, HD, TQ, GT>(
+        static_cast<const TQ*>(a.q) + head * a.G * HD, a.k, a.k_sc, a.v, a.v_sc, tile_rows,
+        t_begin, t_end, a.G, a.scale, out_h, m_h, l_h);
 }
 
-template <int BITS, int HD, typename TQ>
-cudaError_t run_hd(const PagedArgs& a, int B, cudaStream_t stream, int* clusters) {
-    const int smem = walk_smem(a.G, HD, HD * BITS / 8).total;
-    const dim3 grid(a.C * a.KV, B);
-    if (a.G == 1)
-        return launch_cluster(paged_attn_cluster_kernel<BITS, HD, TQ, 1>, grid, kThreads,
-                              a.C, smem, stream, clusters, a);
-    return launch_cluster(paged_attn_cluster_kernel<BITS, HD, TQ, kMaxG>, grid, kThreads,
-                          a.C, smem, stream, clusters, a);
+// The single pass, and the split up to kMaxCluster chunks: grid (C * KV,
+// B), clusters of C along x; block x is rank x % C of KV head x / C and
+// walks chunk rank. out (B, KV, G, hd). GT is the number of query rows
+// compiled in: 1 (G == 1, the dense models' MHA) or kMaxG (any G up to it).
+template <int BITS, int HD, typename TQ, int GT>
+__global__ void __launch_bounds__(kThreads) paged_attn_cluster_kernel(const PagedArgs a) {
+    const int rank = blockIdx.x % a.C, e = blockIdx.x / a.C, b = blockIdx.y;
+    const size_t head = static_cast<size_t>(b) * a.KV + e;
+    walk_chunk<BITS, HD, TQ, GT>(a, b, e, rank, a.out + head * a.G * HD, nullptr, nullptr);
 }
 
-template <int BITS, typename TQ>
-cudaError_t run_typed(const PagedArgs& a, int hd, int B, cudaStream_t stream, int* clusters) {
-    switch (hd) {
-        case 16: return run_hd<BITS, 16, TQ>(a, B, stream, clusters);
-        case 32: return run_hd<BITS, 32, TQ>(a, B, stream, clusters);
-        case 64: return run_hd<BITS, 64, TQ>(a, B, stream, clusters);
-        default: return run_hd<BITS, 128, TQ>(a, B, stream, clusters);
-    }
+// The split above kMaxCluster chunks: grid (C * K * KV, B), clusters of C
+// along x; block x is rank x % C of cluster k = (x / C) % K of KV head x /
+// (C * K). Cluster k walks ns / K chunks, one more for the first ns % K
+// clusters, in order; a rank past its cluster's chunks walks none.
+template <int BITS, int HD, typename TQ, int GT>
+__global__ void __launch_bounds__(kThreads) paged_attn_split_kernel(const SplitArgs a) {
+    const int rank = blockIdx.x % a.C, k = (blockIdx.x / a.C) % a.K;
+    const int e = blockIdx.x / (a.C * a.K), b = blockIdx.y;
+    const int base = a.ns / a.K, extra = a.ns % a.K;
+    const int first = k * base + min(k, extra), size = base + (k < extra ? 1 : 0);
+    const size_t part = (static_cast<size_t>(b) * a.K + k) * a.KV + e;
+    walk_chunk<BITS, HD, TQ, GT>(a, b, e, rank < size ? first + rank : a.ns,
+                                 a.out + part * a.G * HD, a.m + part * a.G, a.l + part * a.G);
 }
 
-// The single pass: launch, or with ``clusters`` set report the active
-// clusters instead.
-cudaError_t run(const void* q, const void* kp, const void* ksc, const void* vp,
-                const void* vsc, const void* tables, const void* lengths, void* out, int B,
-                int KV, int G, int hd, int bs, int nb, int bits, int q_bf16, int C, int nbc,
-                cudaStream_t stream, int* clusters) {
-    if ((hd != 16 && hd != 32 && hd != 64 && hd != 128) || G < 1 || G > kMaxG || B < 1 ||
-        KV < 1 || log2_exact(bs) < 0 || nb < 1 || (bits != 8 && bits != 4) || C < 1 ||
-        C > kMaxCluster || nbc < 1 || C * nbc < nb || (C - 1) * nbc >= nb)
-        return cudaErrorInvalidValue;
-    const int row_bytes = hd * bits / 8;      // copied in 16-byte units from 16 bytes up
-    if (row_bytes >= 16 &&
-        (reinterpret_cast<uintptr_t>(kp) | reinterpret_cast<uintptr_t>(vp)) % 16 != 0)
-        return cudaErrorInvalidValue;
-    PagedArgs a{q, static_cast<const uint8_t*>(kp), static_cast<const float*>(ksc),
-                static_cast<const uint8_t*>(vp), static_cast<const float*>(vsc),
-                static_cast<const int64_t*>(tables), static_cast<const int64_t*>(lengths),
-                static_cast<float*>(out), KV, G, log2_exact(bs), nb, C, nbc,
-                static_cast<float>(1.0 / sqrt(static_cast<double>(hd)))};
-    if (bits == 8)
-        return q_bf16 ? run_typed<8, __nv_bfloat16>(a, hd, B, stream, clusters)
-                      : run_typed<8, float>(a, hd, B, stream, clusters);
-    return q_bf16 ? run_typed<4, __nv_bfloat16>(a, hd, B, stream, clusters)
-                  : run_typed<4, float>(a, hd, B, stream, clusters);
-}
-
-// The split: grid (KV, ns, B); writes the unnormalised partials acc (B, ns,
-// KV, G, hd), m and l (B, ns, KV, G) of chunk c = table entries [c * nbc,
-// (c + 1) * nbc) through attend_rows (attn_common.cuh). GT as above.
-template <int BITS, typename TQ, int GT>
-__global__ void __launch_bounds__(kThreads)
-paged_attn_split_kernel(const TQ* __restrict__ q, const uint8_t* __restrict__ k_pool,
-                        const float* __restrict__ k_sc, const uint8_t* __restrict__ v_pool,
-                        const float* __restrict__ v_sc, const int64_t* __restrict__ tables,
-                        const int64_t* __restrict__ lengths, float* __restrict__ out,
-                        float* __restrict__ m_out, float* __restrict__ l_out, int KV, int G,
-                        int hd_shift, int bs_shift, int nb, int nbc, float scale) {
-    const int e = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
-    const int ns = gridDim.y;
-    const int bs = 1 << bs_shift;
-    const int64_t* tbl = tables + static_cast<size_t>(b) * nb;
-    const int t_begin = c * nbc * bs;
-    const int64_t chunk_end = static_cast<int64_t>(min((c + 1) * nbc, nb)) * bs;
-    const int t_end = static_cast<int>(lengths[b] < chunk_end ? lengths[b] : chunk_end);
-    const size_t head = (static_cast<size_t>(b) * ns + c) * KV + e;
-    const size_t gh = static_cast<size_t>(G) << hd_shift;
-    auto row_of = [=](int t) {
-        return ((static_cast<size_t>(tbl[t >> bs_shift]) << bs_shift) + (t & (bs - 1))) *
-                   KV + e;
-    };
-    attend_rows<BITS, TQ, GT>(
-        q + (static_cast<size_t>(b) * KV + e) * gh, k_pool, k_sc, v_pool, v_sc, row_of,
-        t_begin, t_end, G, hd_shift, scale, out + head * gh, m_out + head * G,
-        l_out + head * G);
-}
-
-// grid (KV, B): out = sum_c e^(m_c - M) acc_c / max(sum_c e^(m_c - M) l_c, 1e-30).
+// grid (KV, B): out = sum_k w_k acc_k / max(sum_k w_k l_k, 1e-30), w_k =
+// e^(m_k - M), M = max_k m_k, over the K clusters' partials in cluster
+// order, each product and sum rounded on its own (the cluster merge's
+// arithmetic).
 __global__ void merge_kernel(const float* __restrict__ acc, const float* __restrict__ m,
                              const float* __restrict__ l, float* __restrict__ out, int KV,
-                             int G, int hd, int ns) {
+                             int G, int hd, int K) {
     const int e = blockIdx.x, b = blockIdx.y;
     for (int i = threadIdx.x; i < G * hd; i += blockDim.x) {
         const int g = i / hd;
         float M = kNeg;
-        for (int c = 0; c < ns; ++c)
-            M = fmaxf(M, m[((static_cast<size_t>(b) * ns + c) * KV + e) * G + g]);
+        for (int k = 0; k < K; ++k)
+            M = fmaxf(M, m[((static_cast<size_t>(b) * K + k) * KV + e) * G + g]);
         float num = 0.f, den = 0.f;
-        for (int c = 0; c < ns; ++c) {
-            const size_t head = (static_cast<size_t>(b) * ns + c) * KV + e;
-            const float w = expf(m[head * G + g] - M);
-            num += w * acc[head * G * hd + i];
-            den += w * l[head * G + g];
+        for (int k = 0; k < K; ++k) {
+            const size_t part = (static_cast<size_t>(b) * K + k) * KV + e;
+            const float w = expf(m[part * G + g] - M);
+            const float x = __fmul_rn(w, acc[part * G * hd + i]);
+            const float y = __fmul_rn(w, l[part * G + g]);
+            num = k ? __fadd_rn(num, x) : x;
+            den = k ? __fadd_rn(den, y) : y;
         }
         out[(static_cast<size_t>(b) * KV + e) * G * hd + i] = num / fmaxf(den, 1e-30f);
     }
 }
 
-template <int BITS, typename TQ>
-cudaError_t split_typed(const void* q, const void* kp, const void* ksc, const void* vp,
-                        const void* vsc, const void* tables, const void* lengths, float* out,
-                        float* m, float* l, int B, int KV, int G, int hd, int bs, int nb,
-                        int ns, int nbc, cudaStream_t stream) {
-    const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
-    const dim3 grid(KV, ns, B);
-    auto* pq = static_cast<const TQ*>(q);
-    auto* pk = static_cast<const uint8_t*>(kp);
-    auto* pks = static_cast<const float*>(ksc);
-    auto* pv = static_cast<const uint8_t*>(vp);
-    auto* pvs = static_cast<const float*>(vsc);
-    auto* pt = static_cast<const int64_t*>(tables);
-    auto* pl = static_cast<const int64_t*>(lengths);
-    const int hs = log2_exact(hd), bss = log2_exact(bs);
-    if (G == 1)
-        paged_attn_split_kernel<BITS, TQ, 1><<<grid, kThreads, 0, stream>>>(
-            pq, pk, pks, pv, pvs, pt, pl, out, m, l, KV, G, hs, bss, nb, nbc, scale);
-    else
-        paged_attn_split_kernel<BITS, TQ, kMaxG><<<grid, kThreads, 0, stream>>>(
-            pq, pk, pks, pv, pvs, pt, pl, out, m, l, KV, G, hs, bss, nb, nbc, scale);
-    return cudaGetLastError();
+template <int BITS, int HD, typename TQ, typename Args>
+cudaError_t run_hd(const Args& a, dim3 grid, cudaStream_t stream, int* clusters) {
+    const int smem = walk_smem(a.G, HD, HD * BITS / 8).total;
+    if constexpr (std::is_same<Args, SplitArgs>::value) {
+        if (a.G == 1)
+            return launch_cluster(paged_attn_split_kernel<BITS, HD, TQ, 1>, grid, kThreads, a.C,
+                                  smem, stream, clusters, a);
+        return launch_cluster(paged_attn_split_kernel<BITS, HD, TQ, kMaxG>, grid, kThreads,
+                              a.C, smem, stream, clusters, a);
+    } else {
+        if (a.G == 1)
+            return launch_cluster(paged_attn_cluster_kernel<BITS, HD, TQ, 1>, grid, kThreads,
+                                  a.C, smem, stream, clusters, a);
+        return launch_cluster(paged_attn_cluster_kernel<BITS, HD, TQ, kMaxG>, grid, kThreads,
+                              a.C, smem, stream, clusters, a);
+    }
 }
 
-cudaError_t split(const void* q, const void* kp, const void* ksc, const void* vp,
-                  const void* vsc, const void* tables, const void* lengths, float* out,
-                  float* m, float* l, int B, int KV, int G, int hd, int bs, int nb, int bits,
-                  int q_bf16, int ns, int nbc, cudaStream_t stream) {
-    if ((hd != 16 && hd != 32 && hd != 64 && hd != 128) || G < 1 || G > kMaxG ||
-        log2_exact(bs) < 0 || nb < 1 || ns < 1 || nbc < 1)
-        return cudaErrorInvalidValue;
+template <int BITS, typename TQ, typename Args>
+cudaError_t run_typed(const Args& a, int hd, dim3 grid, cudaStream_t stream, int* clusters) {
+    switch (hd) {
+        case 16: return run_hd<BITS, 16, TQ>(a, grid, stream, clusters);
+        case 32: return run_hd<BITS, 32, TQ>(a, grid, stream, clusters);
+        case 64: return run_hd<BITS, 64, TQ>(a, grid, stream, clusters);
+        default: return run_hd<BITS, 128, TQ>(a, grid, stream, clusters);
+    }
+}
+
+// Launch ``a`` on ``grid`` (or with ``clusters`` set report the active
+// clusters instead) with the kernel its type names, for its bits and q type.
+template <typename Args>
+cudaError_t run(const Args& a, int hd, int bits, int q_bf16, dim3 grid, cudaStream_t stream,
+                int* clusters) {
     if (bits == 8)
-        return q_bf16 ? split_typed<8, __nv_bfloat16>(q, kp, ksc, vp, vsc, tables, lengths,
-                                                      out, m, l, B, KV, G, hd, bs, nb, ns,
-                                                      nbc, stream)
-                      : split_typed<8, float>(q, kp, ksc, vp, vsc, tables, lengths, out, m,
-                                              l, B, KV, G, hd, bs, nb, ns, nbc, stream);
-    if (bits == 4)
-        return q_bf16 ? split_typed<4, __nv_bfloat16>(q, kp, ksc, vp, vsc, tables, lengths,
-                                                      out, m, l, B, KV, G, hd, bs, nb, ns,
-                                                      nbc, stream)
-                      : split_typed<4, float>(q, kp, ksc, vp, vsc, tables, lengths, out, m,
-                                              l, B, KV, G, hd, bs, nb, ns, nbc, stream);
-    return cudaErrorInvalidValue;
+        return q_bf16 ? run_typed<8, __nv_bfloat16>(a, hd, grid, stream, clusters)
+                      : run_typed<8, float>(a, hd, grid, stream, clusters);
+    return q_bf16 ? run_typed<4, __nv_bfloat16>(a, hd, grid, stream, clusters)
+                  : run_typed<4, float>(a, hd, grid, stream, clusters);
+}
+
+// The checks both kernels share, then their arguments in ``a``.
+cudaError_t paged_args(PagedArgs& a, const void* q, const void* kp, const void* ksc,
+                       const void* vp, const void* vsc, const void* tables,
+                       const void* lengths, void* out, int B, int KV, int G, int hd, int bs,
+                       int nb, int bits, int C, int nbc) {
+    if ((hd != 16 && hd != 32 && hd != 64 && hd != 128) || G < 1 || G > kMaxG || B < 1 ||
+        KV < 1 || log2_exact(bs) < 0 || nb < 1 || (bits != 8 && bits != 4) || C < 1 ||
+        C > kMaxCluster || nbc < 1)
+        return cudaErrorInvalidValue;
+    const int row_bytes = hd * bits / 8;      // copied in 16-byte units from 16 bytes up
+    if (row_bytes >= 16 &&
+        (reinterpret_cast<uintptr_t>(kp) | reinterpret_cast<uintptr_t>(vp)) % 16 != 0)
+        return cudaErrorInvalidValue;
+    a = PagedArgs{q, static_cast<const uint8_t*>(kp), static_cast<const float*>(ksc),
+                  static_cast<const uint8_t*>(vp), static_cast<const float*>(vsc),
+                  static_cast<const int64_t*>(tables), static_cast<const int64_t*>(lengths),
+                  static_cast<float*>(out), KV, G, log2_exact(bs), nb, C, nbc,
+                  static_cast<float>(1.0 / sqrt(static_cast<double>(hd)))};
+    return cudaSuccess;
+}
+
+// The single pass: C ranks of nbc table entries each, (C - 1) * nbc < nb
+// <= C * nbc.
+cudaError_t single(const void* q, const void* kp, const void* ksc, const void* vp,
+                   const void* vsc, const void* tables, const void* lengths, void* out, int B,
+                   int KV, int G, int hd, int bs, int nb, int bits, int q_bf16, int C, int nbc,
+                   cudaStream_t stream, int* clusters) {
+    PagedArgs a;
+    const cudaError_t err = paged_args(a, q, kp, ksc, vp, vsc, tables, lengths, out, B, KV, G,
+                                       hd, bs, nb, bits, C, nbc);
+    if (err != cudaSuccess) return err;
+    if (C * nbc < nb || (C - 1) * nbc >= nb) return cudaErrorInvalidValue;
+    return run(a, hd, bits, q_bf16, dim3(C * KV, B), stream, clusters);
+}
+
+// The split: ns chunks of nbc table entries (ns * nbc >= nb; chunks past
+// nb walk nothing) in K clusters of C = ceil(ns / K) ranks. K == 1 runs
+// the single pass's kernel on those chunks into out; above, the split
+// kernel writes the clusters' partials to acc, m and l, and merge_kernel
+// reduces them into out.
+cudaError_t split(const void* q, const void* kp, const void* ksc, const void* vp,
+                  const void* vsc, const void* tables, const void* lengths, float* acc,
+                  float* m, float* l, float* out, int B, int KV, int G, int hd, int bs, int nb,
+                  int bits, int q_bf16, int ns, int nbc, int K, int C, cudaStream_t stream,
+                  int* clusters) {
+    if (ns < 1 || K < 1 || static_cast<int64_t>(ns) * nbc < nb || C != (ns + K - 1) / K ||
+        (K > 1 && !clusters && !(acc && m && l)))
+        return cudaErrorInvalidValue;
+    PagedArgs a;
+    cudaError_t err = paged_args(a, q, kp, ksc, vp, vsc, tables, lengths, K == 1 ? out : acc,
+                                 B, KV, G, hd, bs, nb, bits, C, nbc);
+    if (err != cudaSuccess) return err;
+    if (K == 1) return run(a, hd, bits, q_bf16, dim3(C * KV, B), stream, clusters);
+    const SplitArgs sa{a, m, l, ns, K};
+    err = run(sa, hd, bits, q_bf16, dim3(C * K * KV, B), stream, clusters);
+    if (err != cudaSuccess || clusters) return err;
+    merge_kernel<<<dim3(KV, B), 128, 0, stream>>>(acc, m, l, out, KV, G, hd, K);
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -260,16 +279,16 @@ cudaError_t split(const void* q, const void* kp, const void* ksc, const void* vp
 // (n_blocks, bs, KV) f32; tables (B, nb) and lengths (B,) int64; out (B, KV,
 // G, hd) f32. Each returns the cudaError_t of its launches (0 on success).
 //
-// The single pass: C ranks of nbc table entries each (cluster_ranks), C <= 8
-// and (C - 1) * nbc < nb <= C * nbc.
+// The single pass: C ranks of nbc table entries each (cluster_ranks), C <=
+// kMaxCluster (16) and (C - 1) * nbc < nb <= C * nbc.
 extern "C" int paged_attention_launch(const void* q, const void* k_pool, const void* k_sc,
                                       const void* v_pool, const void* v_sc,
                                       const void* tables, const void* lengths, void* out,
                                       int B, int KV, int G, int hd, int bs, int nb,
                                       int bits, int q_bf16, int C, int nbc, void* stream) {
-    return static_cast<int>(run(q, k_pool, k_sc, v_pool, v_sc, tables, lengths, out, B, KV,
-                                G, hd, bs, nb, bits, q_bf16, C, nbc,
-                                static_cast<cudaStream_t>(stream), nullptr));
+    return static_cast<int>(single(q, k_pool, k_sc, v_pool, v_sc, tables, lengths, out, B, KV,
+                                   G, hd, bs, nb, bits, q_bf16, C, nbc,
+                                   static_cast<cudaStream_t>(stream), nullptr));
 }
 
 // cudaOccupancyMaxActiveClusters of the single pass with these shapes: the
@@ -277,30 +296,40 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pool, const v
 extern "C" int paged_attention_active_clusters(int B, int KV, int G, int hd, int bs, int nb,
                                                int bits, int q_bf16, int C, int nbc) {
     int n = 0;
-    const cudaError_t err = run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                nullptr, B, KV, G, hd, bs, nb, bits, q_bf16, C, nbc, nullptr,
-                                &n);
+    const cudaError_t err = single(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                   nullptr, nullptr, B, KV, G, hd, bs, nb, bits, q_bf16, C,
+                                   nbc, nullptr, &n);
     return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
-// The split: ns chunks of nbc table entries; acc (B, ns, KV, G, hd), m and l
-// (B, ns, KV, G) f32 are the caller's scratch for the partials, which the
-// merge pass reduces into out.
+// The split: ns chunks of nbc table entries (split_partition) in K clusters
+// of C ranks (split_clusters). At K > 1, acc (B, K, KV, G, hd), m and l (B,
+// K, KV, G) f32 are the caller's scratch for the clusters' partials, which
+// the merge pass reduces into out; at K == 1 they are not read and may be
+// null.
 extern "C" int paged_attention_splitkv_launch(const void* q, const void* k_pool,
                                               const void* k_sc, const void* v_pool,
                                               const void* v_sc, const void* tables,
                                               const void* lengths, void* acc, void* m,
                                               void* l, void* out, int B, int KV, int G,
                                               int hd, int bs, int nb, int bits, int q_bf16,
-                                              int ns, int nbc, void* stream) {
-    auto st = static_cast<cudaStream_t>(stream);
-    auto* pa = static_cast<float*>(acc);
-    auto* pm = static_cast<float*>(m);
-    auto* pl = static_cast<float*>(l);
-    const cudaError_t err = split(q, k_pool, k_sc, v_pool, v_sc, tables, lengths, pa, pm, pl,
-                                  B, KV, G, hd, bs, nb, bits, q_bf16, ns, nbc, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    merge_kernel<<<dim3(KV, B), 128, 0, st>>>(pa, pm, pl, static_cast<float*>(out), KV, G, hd,
-                                              ns);
-    return static_cast<int>(cudaGetLastError());
+                                              int ns, int nbc, int K, int C, void* stream) {
+    return static_cast<int>(split(q, k_pool, k_sc, v_pool, v_sc, tables, lengths,
+                                  static_cast<float*>(acc), static_cast<float*>(m),
+                                  static_cast<float*>(l), static_cast<float*>(out), B, KV, G,
+                                  hd, bs, nb, bits, q_bf16, ns, nbc, K, C,
+                                  static_cast<cudaStream_t>(stream), nullptr));
+}
+
+// cudaOccupancyMaxActiveClusters of the split's walk with these shapes (the
+// cluster kernel at K == 1, the split kernel above): the clusters the card
+// holds at once (>= 0), or minus the cudaError_t.
+extern "C" int paged_attention_splitkv_active_clusters(int B, int KV, int G, int hd, int bs,
+                                                       int nb, int bits, int q_bf16, int ns,
+                                                       int nbc, int K, int C) {
+    int n = 0;
+    const cudaError_t err = split(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                  nullptr, nullptr, nullptr, nullptr, B, KV, G, hd, bs, nb, bits,
+                                  q_bf16, ns, nbc, K, C, nullptr, &n);
+    return err == cudaSuccess ? n : -static_cast<int>(err);
 }

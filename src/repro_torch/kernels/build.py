@@ -44,8 +44,9 @@ SIGNATURES = {
     ("lut_gemm_bs_fused", "lut_gemm_bs_fused_active_clusters"): [_I] * 12,
     ("paged_attention", "paged_attention_launch"): [_P] * 8 + [_I] * 10 + [_P],
     ("paged_attention", "paged_attention_active_clusters"): [_I] * 10,
-    ("paged_attention", "paged_attention_splitkv_launch"): [_P] * 11 + [_I] * 10
+    ("paged_attention", "paged_attention_splitkv_launch"): [_P] * 11 + [_I] * 12
                                                            + [_P],
+    ("paged_attention", "paged_attention_splitkv_active_clusters"): [_I] * 12,
     ("expert_gemm", "expert_dequant_matmul_launch"): [_P] * 6 + [_I] * 11 + [_P],
     ("expert_gemm", "expert_dequant_matmul_active_clusters"): [_I] * 10,
     ("expert_gemm", "expert_lut_gemm_launch"): [_P] * 6 + [_I] * 10 + [_P],

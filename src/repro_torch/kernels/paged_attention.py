@@ -18,18 +18,21 @@ Three formulations live here:
                          what the card's kernels are held against)
   ``paged_attention_walk`` the kernels' own walk in torch: tiles of
                          ``KERNEL_TILE`` tokens with a running (m, l, acc)
-                         over chunks of the table, then the exact merge.
-                         The split's chunks are ns = min(kv_splits, nb) of
-                         nbc = ceil(nb / ns) entries; the single pass's are
-                         the C ranks of its thread-block cluster, from
-                         ``cluster_ranks``. Each stops at lengths[b] instead
-                         of the reference's null-padded tail
+                         over chunks of the table, the chunks of a cluster
+                         merged in rank order, then the clusters' exact
+                         merge. The split's chunks are ns = min(kv_splits,
+                         nb) of nbc = ceil(nb / ns) entries, one rank each,
+                         in the clusters of ``split_clusters``; the single
+                         pass's are the C ranks of its one cluster, from
+                         ``cluster_ranks``. Each stops at lengths[b]
+                         instead of the reference's null-padded tail
   ``*_cuda``             the kernel wrappers; each launches or raises
 
 ``cluster_ranks`` is the one place that chooses how many ranks C the
 single-pass kernels (this one and ``kv_cache_attention``) split a walk
-into; it reads static shapes only, so no decode step waits on the device
-to choose it.
+into, and ``split_clusters`` how the split groups its chunks into
+clusters; both read static shapes only, so no decode step waits on the
+device to choose them.
 
 Callers go through ``kernels/registry.py``. Where lengths[b] is 0 the
 oracle averages every row of the table (softmax of all-masked scores);
@@ -62,6 +65,12 @@ POOL_DTYPE = {8: torch.int8, 4: torch.uint8}
 MAX_CLUSTER = 16
 BLOCKS_PER_SM = (3, 2)
 MIN_RANK_TILES = 2
+# the engine's kv_splits "auto" (auto_kv_splits): the split from
+# AUTO_SPLIT_ROWS rows of max_len on, for up to AUTO_SPLIT_HEADS (sequence,
+# KV head) walks, in AUTO_SPLITS chunks
+AUTO_SPLIT_ROWS = 32768
+AUTO_SPLIT_HEADS = 64
+AUTO_SPLITS = 24
 
 
 def merge_splitkv_partials(o: torch.Tensor, m: torch.Tensor,
@@ -100,6 +109,47 @@ def split_partition(nb: int, kv_splits: int) -> tuple[int, int]:
     return ns, -(-nb // ns)
 
 
+def split_clusters(ns: int, G: int, hd: int, bits: int) -> tuple[int, int]:
+    """(K, C): the split's ns chunks of a (sequence, KV head), one rank
+    each, form K clusters of C ranks, C <= MAX_CLUSTER: one cluster up to
+    MAX_CLUSTER chunks (merged on chip, one launch), else K =
+    ceil(ns / MAX_CLUSTER) clusters of near-equal size (the first ns % K
+    take ns // K + 1 chunks, the others ns // K; C = ceil(ns / K)), whose
+    partials a second pass merges. Static shapes only; G, hd and bits
+    (the walk's shared memory) leave the rule unchanged, since
+    ``cudaOccupancyMaxActiveClusters`` holds at least one cluster of
+    MAX_CLUSTER ranks at every size the kernel takes (G 8, hd 128, int8
+    included: ``paged_attention_splitkv_active_clusters``)."""
+    ns = int(ns)
+    if ns < 1:
+        raise ValueError(f"split_clusters: ns must be >= 1, got {ns}")
+    K = -(-ns // MAX_CLUSTER)
+    return K, -(-ns // K)
+
+
+def auto_kv_splits(n_slots: int, KV: int, max_len: int) -> int:
+    """The engine's kv_splits "auto", from ``attn_sweep.py --only split``
+    on the H100 (PERF.md section 6): 1, the single pass, below
+    AUTO_SPLIT_ROWS rows of ``max_len`` or above AUTO_SPLIT_HEADS walks
+    (``n_slots`` sequences x ``KV`` heads); else AUTO_SPLITS chunks (two
+    clusters of 12 ranks a head and the merge pass), which took 0.64-0.98x
+    the single pass's time at 32k in every swept shape (B 1-4, KV 8-32, G
+    1 and 4, hd 64 and 128, int8 and int4), while at 8k and 16k the best
+    single kv_splits took 1.24x and 1.002x the single pass's time at its
+    worst shape. Static shapes only: nothing on the device is read."""
+    if max_len < AUTO_SPLIT_ROWS or n_slots * KV > AUTO_SPLIT_HEADS:
+        return 1
+    return AUTO_SPLITS
+
+
+def cluster_chunks(ns: int, K: int) -> list[range]:
+    """The chunks each of the K clusters walks, in rank order (the split
+    kernel's assignment)."""
+    base, extra = divmod(ns, K)
+    starts = [k * base + min(k, extra) for k in range(K + 1)]
+    return [range(starts[k], starts[k + 1]) for k in range(K)]
+
+
 def cluster_ranks(extent: int, B: int, KV: int, G: int,
                   unit: int = 1) -> tuple[int, int]:
     """(C, rows_per_rank): how the single-pass kernels cut the walk of one
@@ -122,6 +172,20 @@ def cluster_ranks(extent: int, B: int, KV: int, G: int,
     return -(-extent // rows), rows
 
 
+def merge_rank_order(acc: torch.Tensor, m: torch.Tensor,
+                     l: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """One cluster's merge of its ranks' partials over axis 1, in rank
+    order, unnormalised: (sum_c w_c acc_c, M, sum_c w_c l_c) with M =
+    max_c m_c and w_c = e^(m_c - M), the sums taken rank after rank."""
+    M = m.amax(dim=1)
+    num = den = None
+    for c in range(m.shape[1]):
+        w = torch.exp(m[:, c] - M)
+        a, b = acc[:, c] * w[..., None], l[:, c] * w
+        num, den = (a, b) if c == 0 else (num + a, den + b)
+    return num, M, den
+
+
 def paged_attention_walk(q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths,
                          *, bits: int, kv_splits: int = 1,
                          tile: int = KERNEL_TILE, partials: bool = False):
@@ -131,15 +195,21 @@ def paged_attention_walk(q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths,
     split's chunks for kv_splits > 1, the single pass's cluster ranks
     (``cluster_ranks``) for kv_splits == 1. With ``partials`` it returns
     the chunks' (acc, m, l); a chunk with no live token keeps m = -1e30,
-    l = 0, acc = 0. Otherwise it merges them, as both kernels do."""
+    l = 0, acc = 0. Otherwise it merges them as the kernels do: the ranks
+    of each cluster (the split's ``split_clusters`` / ``cluster_chunks``,
+    the single pass's one cluster) in rank order, then the clusters'
+    partials by ``merge_splitkv_partials`` (at one cluster that is the
+    normalisation alone)."""
     B, KV, G, hd = q.shape
     nb = block_tables.shape[1]
     bs = k_pool.shape[1]
     if kv_splits == 1:
         ns, rows = cluster_ranks(nb * bs, B, KV, G, unit=bs)
         nbc = rows // bs
+        groups = [range(ns)]
     else:
         ns, nbc = split_partition(nb, kv_splits)
+        groups = cluster_chunks(ns, split_clusters(ns, G, hd, bits)[0])
     dev = q.device
     qf = q.float()
     scale = hd ** -0.5
@@ -165,7 +235,9 @@ def paged_attention_walk(q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths,
                 m[b, c] = m_new
     if partials:
         return acc, m, l
-    return merge_splitkv_partials(acc, m, l)
+    parts = [merge_rank_order(*(x[:, r.start:r.stop] for x in (acc, m, l)))
+             for r in groups]
+    return merge_splitkv_partials(*(torch.stack(x, dim=1) for x in zip(*parts)))
 
 
 def check_operands(what: str, tensors, q, k_codes, v_codes,
@@ -284,31 +356,54 @@ def paged_attention_active_clusters(B: int, KV: int, G: int, hd: int, bs: int,
 def paged_attention_splitkv_cuda(q, k_pool, k_sc, v_pool, v_sc, block_tables,
                                  lengths, *, bits: int,
                                  kv_splits: int) -> torch.Tensor:
-    """Launch the split kernel, one block per (b, chunk, KV head), and its
-    merge pass on the current stream (CUDA tensors only). The (acc, m, l)
-    partials are scratch of this call. Block ids as for
-    ``paged_attention_cuda``."""
+    """Launch the split on the current stream (CUDA tensors only): the ns
+    chunks of ``split_partition``, one cluster rank each, in the K
+    clusters of ``split_clusters``. At K == 1 (kv_splits <= MAX_CLUSTER)
+    one launch merges on chip and writes the output, with no scratch;
+    above, the clusters' (acc, m, l) partials are scratch of this call
+    and a merge pass follows. Block ids as for ``paged_attention_cuda``."""
     ops = (q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths)
     B, KV, G, hd, bs, nb = _check(*ops, bits)
+    check_wide_rows("paged_attention_splitkv kernel", k_pool, v_pool, hd * bits // 8)
     if int(kv_splits) < 1:
         raise ValueError(f"paged_attention_splitkv kernel: kv_splits must be "
                          f">= 1, got {kv_splits}")
     ns, nbc = split_partition(nb, kv_splits)
+    K, C = split_clusters(ns, G, hd, bits)
     dev = q.device
     out = torch.empty((B, KV, G, hd), dtype=torch.float32, device=dev)
     if B == 0:
         return out
-    acc = torch.empty((B, ns, KV, G, hd), dtype=torch.float32, device=dev)
-    ml = torch.empty((2, B, ns, KV, G), dtype=torch.float32, device=dev)
+    scratch = (None, None, None)
+    if K > 1:
+        acc = torch.empty((B, K, KV, G, hd), dtype=torch.float32, device=dev)
+        ml = torch.empty((2, B, K, KV, G), dtype=torch.float32, device=dev)
+        scratch = (acc.data_ptr(), ml[0].data_ptr(), ml[1].data_ptr())
     lib = build.library("paged_attention")
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.paged_attention_splitkv_launch(
-        *_ptrs(*ops), acc.data_ptr(), ml[0].data_ptr(), ml[1].data_ptr(),
-        out.data_ptr(), B, KV, G, hd, bs, nb, bits, int(q.dtype == torch.bfloat16),
-        ns, nbc, stream)
+        *_ptrs(*ops), *scratch, out.data_ptr(), B, KV, G, hd, bs, nb, bits,
+        int(q.dtype == torch.bfloat16), ns, nbc, K, C, stream)
     build.check(err, "paged_attention_splitkv")
     paged_attention_splitkv_cuda.launches += 1
     return out
 
 
 paged_attention_splitkv_cuda.launches = 0
+
+
+def paged_attention_splitkv_active_clusters(B: int, KV: int, G: int, hd: int,
+                                            bs: int, nb: int, bits: int,
+                                            q_dtype: torch.dtype,
+                                            kv_splits: int) -> tuple[int, int, int]:
+    """(K, C, clusters the card holds at once) for the split at these
+    shapes: K clusters of C ranks a (sequence, KV head) from
+    ``split_clusters``, and ``cudaOccupancyMaxActiveClusters`` of its
+    walk (builds the library)."""
+    ns, nbc = split_partition(nb, kv_splits)
+    K, C = split_clusters(ns, G, hd, bits)
+    n = build.library("paged_attention").paged_attention_splitkv_active_clusters(
+        B, KV, G, hd, bs, nb, bits, int(q_dtype == torch.bfloat16), ns, nbc, K, C)
+    if n < 0:
+        build.check(-n, "paged_attention_splitkv occupancy query")
+    return K, C, n

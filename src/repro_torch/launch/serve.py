@@ -17,8 +17,10 @@ decode attention over the int8/int4 cache runs through
 ``kv_cache_attention``. With ``--paged`` (``serve_paged``): a stream of
 ``--requests`` mixed-length requests is admitted through chunked prefill
 into the paged pool; decode attention runs through ``paged_attention``,
-or with ``--kv-splits N`` (N > 1; "auto" gives one split per 4096 rows of
-context) through the split-KV ``paged_attention_splitkv``.
+or with ``--kv-splits N`` (N > 1; "auto" follows the card's rule,
+``kernels/paged_attention.py::auto_kv_splits``: 24 chunks from 32768 rows
+of context for up to 64 slot and KV-head walks, else 1) through the
+split-KV ``paged_attention_splitkv``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --plan w2a2                              # fixed batch, on the card

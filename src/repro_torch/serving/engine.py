@@ -24,8 +24,10 @@ decode, (1, chunk_size) prefill). Pools are updated in place.
 
 Decode steps attend through the registry's paged attention ops on an int8
 or int4 pool: ``paged_attention`` with ``kv_splits`` 1, the split-KV
-``paged_attention_splitkv`` above 1 ("auto": one split per 4096 rows of
-``max_len``, at most 16, as in the reference). On CUDA tensors those are
+``paged_attention_splitkv`` above 1 ("auto": the card's rule,
+``kernels/paged_attention.py::auto_kv_splits``, on n_slots, KV heads and
+``max_len``: 1 below 32768 rows; the reference takes one split per 4096
+rows, at most 16, a TPU rule). On CUDA tensors those are
 the port's kernels; the reference's engine attends through jnp there.
 ``attn_backend`` "ref" sends the attention op to its plain version on any
 device, so a run on the card can hold the kernels against it.
@@ -56,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.dist import sharding
+from repro_torch.kernels.paged_attention import auto_kv_splits
 from repro_torch.models import lm
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.metrics import MetricsRegistry
@@ -153,7 +156,7 @@ class Engine:
             raise ValueError(f"chunk_size {chunk_size} must be a multiple of "
                              f"block_size and divide max_len")
         if kv_splits == "auto":
-            self.kv_splits = max(1, min(16, max_len // 4096))
+            self.kv_splits = auto_kv_splits(n_slots, cfg.n_kv_heads, max_len)
         else:
             self.kv_splits = int(kv_splits)
             if self.kv_splits < 1:

@@ -201,6 +201,103 @@ def test_kv_splits_above_table_width(bits):
     assert PA.split_partition(3, 7) == (3, 1)
 
 
+# the split above one cluster (MAX_CLUSTER chunks): nb 40 of block 16 with
+# kv_splits 17 (two clusters, 9 + 8 ranks, chunks of 3 entries, the last
+# three past nb), 24 (12 + 12, chunks of 2, four past nb) and 33 (three
+# clusters of 11, chunks of 2, thirteen past nb); lengths 1, 300 (cutting a
+# chunk) and 500 leave the chunks past row 500 past every length
+SPLIT_LENGTHS, SPLIT_NB = (1, 300, 500), 40
+
+
+@pytest.mark.parametrize("kv_splits", [17, 24, 33])
+@pytest.mark.parametrize("bits,G,hd", [(8, 1, 64), (4, 8, 16), (8, 4, 128)])
+def test_walk_above_one_cluster_matches_reference_oracle(bits, G, hd, kv_splits):
+    ops = _pool_operands(kv_splits + bits + G + hd, bits=bits, G=G, hd=hd,
+                         lengths=SPLIT_LENGTHS, nb=SPLIT_NB)
+    t = _t(ops)
+    assert PA.split_clusters(PA.split_partition(SPLIT_NB, kv_splits)[0], G, hd,
+                             bits)[0] > 1
+    want = jref.ref_paged_attention_splitkv(*ops, bits, kv_splits=kv_splits)
+    _close(PA.paged_attention_splitkv_plain(*t, bits=bits, kv_splits=kv_splits), want)
+    for tile in (PA.KERNEL_TILE, 5):
+        _close(PA.paged_attention_walk(*t, bits=bits, kv_splits=kv_splits,
+                                       tile=tile), want)
+
+
+@pytest.mark.parametrize("kv_splits", [17, 24, 33])
+@pytest.mark.parametrize("bits,G", [(8, 1), (4, 8)])
+def test_walk_above_one_cluster_matches_pallas_interpret(bits, G, kv_splits):
+    ops = _pool_operands(40 + kv_splits + bits + G, bits=bits, G=G, hd=64,
+                         lengths=SPLIT_LENGTHS, nb=SPLIT_NB)
+    want = paged_attention_splitkv_pallas(*ops, bits=bits, kv_splits=kv_splits,
+                                          interpret=True)
+    _close(PA.paged_attention_walk(*_t(ops), bits=bits, kv_splits=kv_splits), want)
+
+
+def test_walk_merges_each_cluster_in_rank_order_then_the_clusters():
+    """kv_splits 33 on 40 entries: the walk's output is the clusters'
+    rank-order merges (three clusters of 11 chunks) merged exactly, the
+    chunks past nb and past every length weighing 0."""
+    ops = _pool_operands(12, bits=8, G=2, hd=16, lengths=SPLIT_LENGTHS, nb=SPLIT_NB)
+    t = _t(ops)
+    acc, m, l = PA.paged_attention_walk(*t, bits=8, kv_splits=33, partials=True)
+    assert m.shape[1] == 33 and (m[:, 20:] == -1e30).all()
+    groups = PA.cluster_chunks(33, PA.split_clusters(33, 2, 16, 8)[0])
+    assert [list(g) for g in groups] == [list(range(0, 11)), list(range(11, 22)),
+                                         list(range(22, 33))]
+    parts = [PA.merge_rank_order(acc[:, g.start:g.stop], m[:, g.start:g.stop],
+                                 l[:, g.start:g.stop]) for g in groups]
+    assert (parts[2][1] == -1e30).all() and (parts[2][2] == 0).all()
+    got = PA.paged_attention_walk(*t, bits=8, kv_splits=33)
+    want = PA.merge_splitkv_partials(*(torch.stack(x, dim=1) for x in zip(*parts)))
+    assert torch.equal(got, want)
+    _close(got, PA.merge_splitkv_partials(acc, m, l))
+    _close(got, jref.ref_paged_attention(*ops, 8))
+
+
+@pytest.mark.parametrize("ns", list(range(1, 70)) + [100, 255, 256, 257, 1000])
+def test_split_clusters_sizes(ns):
+    """At most MAX_CLUSTER ranks a cluster, as few clusters as that allows,
+    near-equal groups that take every chunk once in order, one cluster
+    (no merge pass) up to MAX_CLUSTER chunks; the same for every G, hd and
+    bits the kernels take."""
+    K, C = PA.split_clusters(ns, 1, 64, 8)
+    assert K == -(-ns // PA.MAX_CLUSTER) and C <= PA.MAX_CLUSTER
+    assert (K, C) == ((1, ns) if ns <= PA.MAX_CLUSTER else (K, -(-ns // K)))
+    groups = PA.cluster_chunks(ns, K)
+    assert [c for g in groups for c in g] == list(range(ns))
+    sizes = [len(g) for g in groups]
+    assert max(sizes) == C and max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+    assert all(PA.split_clusters(ns, G, hd, bits) == (K, C) for G in (1, 4, 8)
+               for hd in PA.KERNEL_HEAD_DIMS for bits in (8, 4))
+
+
+def test_split_clusters_reads_static_shapes_only():
+    """Integers in, integers out: nothing on a device is read to choose the
+    clusters, and kv_splits <= 0 has no cluster shape."""
+    K, C = PA.split_clusters(PA.split_partition(68, 8)[0], 1, 64, 8)
+    assert (K, C) == (1, 8) and all(type(x) is int for x in (K, C))
+    with pytest.raises(ValueError):
+        PA.split_clusters(0, 1, 64, 8)
+
+
+@pytest.mark.parametrize("n_slots,KV,max_len,want", [
+    (2, 16, 64, 1), (2, 16, 4095, 1), (2, 16, 8192, 1),
+    (2, 16, 10240, 1),                 # chip_smoke.py phase 8 at 8k
+    (1, 16, 16384, 1), (2, 16, 32767, 1),
+    (2, 16, 34816, 24),                # phase 8 at 32k
+    (1, 8, 32768, 24), (4, 16, 32768, 24), (2, 32, 65536, 24),
+    (8, 16, 32768, 1), (3, 32, 32768, 1)])
+def test_auto_kv_splits_rule(n_slots, KV, max_len, want):
+    """The engine's "auto": 1 below 4096 rows of max_len as before, and
+    the single pass up to 32k, then 24 chunks (two clusters of 12) for up
+    to 64 (sequence, KV head) walks, as attn_sweep.py's split sweep found
+    on the H100."""
+    assert PA.auto_kv_splits(n_slots, KV, max_len) == want
+    assert PA.split_clusters(PA.split_partition(max_len // 512 + 4, want)[0], 1, 64,
+                             8) == ((2, 12) if want == 24 else (1, 1))
+
+
 def test_all_masked_chunk_partials_weigh_zero():
     """A chunk past the length keeps m = -1e30 with finite l and acc (here
     0, as the kernel writes), and the merge weighs it by exactly 0."""
@@ -431,7 +528,12 @@ def test_untied_init_params_shapes():
 def test_engine_kv_splits_and_attn_backend_arguments():
     _, tc, _, tq, _ = _engine_setup("qwen1.5-0.5b", "int8")
     assert Engine(tc, tq, **ENGINE_KW).kv_splits == 1
-    assert Engine(tc, tq, **{**ENGINE_KW, "max_len": 8192}).kv_splits == 2
+    # "auto" is the card's rule (PA.auto_kv_splits): the single pass at 8k,
+    # the split in AUTO_SPLITS chunks from 32k rows for up to 64 walks
+    assert Engine(tc, tq, **{**ENGINE_KW, "max_len": 8192}).kv_splits == 1
+    long = {**ENGINE_KW, "max_len": 32768, "n_blocks": 16}
+    assert Engine(tc, tq, **long).kv_splits == PA.AUTO_SPLITS
+    assert Engine(tc, tq, **{**long, "n_slots": 64 // tc.n_kv_heads + 1}).kv_splits == 1
     assert Engine(tc, tq, **ENGINE_KW, kv_splits="3").kv_splits == 3
     with pytest.raises(ValueError, match="kv_splits"):
         Engine(tc, tq, **ENGINE_KW, kv_splits=0)

@@ -124,6 +124,60 @@ def test_single_pass_across_a_cluster_on_card(cuda, bs, nb, lengths, KV, bits, G
     assert C_ == C and clusters >= 1
 
 
+# the split at and above one cluster of MAX_CLUSTER ranks: kv_splits 16 is
+# one cluster of 16; 17, 24 and 32 are two clusters (9 + 8, 12 + 12, 16 +
+# 16 ranks) and a merge pass. nb 40 of block 16: kv_splits 17 gives chunks
+# of 3 entries, 24 and 32 chunks of 2, so the last ranks of the second
+# cluster lie past nb; lengths 1, 300 (cutting a chunk) and 500 leave the
+# chunks past row 500 past every length
+SPLIT_CLUSTER_SHAPES = [(8, 1, 64), (4, 1, 128), (8, 4, 64), (4, 4, 128), (8, 8, 128),
+                        (4, 8, 64)]
+
+
+def _split_allocations(ops, bits, kv_splits):
+    """The split kernel's output, its launches and the device allocations
+    of one call (the output alone where no scratch is taken)."""
+    stats = torch.cuda.memory_stats
+    before = (PA.paged_attention_splitkv_cuda.launches, stats()["allocation.all.allocated"])
+    got = PA.paged_attention_splitkv_cuda(*ops, bits=bits, kv_splits=kv_splits)
+    torch.cuda.synchronize()
+    return got, (PA.paged_attention_splitkv_cuda.launches - before[0],
+                 stats()["allocation.all.allocated"] - before[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_splits", [16, 17, 24, 32])
+@pytest.mark.parametrize("bits,G,hd", SPLIT_CLUSTER_SHAPES)
+def test_split_clusters_match_plain_on_card(cuda, bits, G, hd, kv_splits):
+    ops = _operands(kv_splits * 10 + G + hd + bits, bits=bits, G=G, hd=hd,
+                    lengths=(1, 300, 500), nb=40, bs=16, dev=cuda,
+                    q_dtype=torch.bfloat16 if G == 4 else torch.float32)
+    ns = PA.split_partition(40, kv_splits)[0]
+    K, C = PA.split_clusters(ns, G, hd, bits)
+    assert (K, C) == {16: (1, 16), 17: (2, 9), 24: (2, 12), 32: (2, 16)}[kv_splits]
+    got, (launches, allocs) = _split_allocations(ops, bits, kv_splits)
+    assert launches == 1
+    assert allocs == (1 if K == 1 else 3)          # out, then acc and (m, l)
+    _check(got, PA.paged_attention_splitkv_plain(*ops, bits=bits, kv_splits=kv_splits))
+    K_, C_, active = PA.paged_attention_splitkv_active_clusters(
+        3, 2, G, hd, 16, 40, bits, ops[0].dtype, kv_splits)
+    assert (K_, C_) == (K, C) and active >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_splits", [2, 16, 17, 33])
+@pytest.mark.parametrize("bits,G,hd", [(8, 1, 64), (8, 8, 128), (4, 4, 128)])
+def test_split_clusters_at_block_512_on_card(cuda, bits, G, hd, kv_splits):
+    """Block 512, 40 entries: one entry a chunk from kv_splits 40 on;
+    kv_splits 33 takes three clusters (11 ranks each), the last with
+    chunks past nb."""
+    ops = _operands(kv_splits + G + hd, bits=bits, G=G, hd=hd, lengths=(20000, 5, 700),
+                    nb=40, bs=512, KV=2, dev=cuda)
+    got, (launches, allocs) = _split_allocations(ops, bits, kv_splits)
+    assert launches == 1 and allocs == (1 if kv_splits <= PA.MAX_CLUSTER else 3)
+    _check(got, PA.paged_attention_splitkv_plain(*ops, bits=bits, kv_splits=kv_splits))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kv_splits", [3, 4, 7])
 def test_split_kernel_above_table_width_on_card(cuda, kv_splits):
@@ -137,6 +191,16 @@ def test_split_kernel_above_table_width_on_card(cuda, kv_splits):
 def test_length_zero_returns_zero_on_card(cuda, kv_splits):
     ops = _operands(5, bits=4, G=2, hd=64, lengths=(0, 17), nb=2, bs=16, dev=cuda)
     got, want = _both(ops, 4, kv_splits)
+    assert (got[0] == 0).all()
+    _check(got[1:], want[1:])
+
+
+@pytest.mark.gpu
+def test_length_zero_through_two_clusters_on_card(cuda):
+    """kv_splits 17 on 20 entries: two clusters and the merge pass, every
+    rank of sequence 0 empty."""
+    ops = _operands(6, bits=8, G=2, hd=64, lengths=(0, 170), nb=20, bs=16, dev=cuda)
+    got, want = _both(ops, 8, 17)
     assert (got[0] == 0).all()
     _check(got[1:], want[1:])
 

@@ -99,13 +99,14 @@ Phases, each printing its lines:
               pool) under w2a8_bs serving the 12 requests, with the
               attention-plain comparison and a profile, after the qwen
               engines are freed
-  10 moe      moonshot-v1-16b-a3b at full width (48 layers, 64 experts,
-              top-6, two shared experts, untied head, int8 pool), drawn and
-              packed layer by layer, serving the 12 requests under w2a2
+  10 moe      moonshot-v1-16b-a3b at full width, cut to its first 4 of 48
+              layers (64 experts, top-6, two shared experts, untied head,
+              int8 pool; phase 12 keeps its full depth), drawn and packed
+              layer by layer, serving the 12 requests under w2a2
               (expert_lut_gemm + lut_gemm) and w2a16 (expert_dequant_matmul +
               dequant_matmul), after the codeqwen engine is freed: launch
-              counts exact (the expert op 3 x 48 per forward, the dense op
-              7 x 48, paged_attention 48 per decode step, the others 0); a
+              counts exact (the expert op 3 x 4 per forward, the dense op
+              7 x 4, paged_attention 4 per decode step, the others 0); a
               re-run with the expert and dense GEMMs on their plain versions
               (w2a2: tokens and first-step logits identical; w2a16: logits
               within the stated tolerance); a profile; peak device memory
@@ -143,6 +144,36 @@ Phases, each printing its lines:
               Prints the backend, the decode-only step, tok/s and the bytes
               per rank: two ranks sharing one card through gloo measure
               correctness, not tensor-parallel speed
+  14 features the paged engine's serving features, qwen1.5-0.5b at full
+              width and depth under w2a8_bs (int8 pool): phase 5's 12
+              requests, each prompt a shared 48-token prefix (3 blocks of
+              16) before its own 4-32 tokens, 4 slots, 16 generated; the
+              baseline is the chunked greedy engine. --prefix-cache and
+              --prefill-batch 2 give the baseline's tokens, the cache
+              sharing prompt tokens and computed prompt tokens falling by
+              exactly as many; spec mode (a w2a2 drafter of the same
+              weights, spec-k 4) leaves the baseline's greedy tokens only
+              at near ties (top-2 margin below 2 x TOL_LOGITS of
+              max|logit|), its logits on shared contexts within
+              TOL_SHARED_LOGITS (printed: every divergence with its margin, acceptance,
+              tokens a round, drafter evictions). --prefill whole attends
+              the prompt's unquantized K/V where chunked prefill attends
+              the int8 pool's, so its divergences and first-step logits
+              are printed, not gated; its plain-GEMM re-run gives
+              identical tokens.
+              Seeded sampling (temperature 0.8, top-k 50, top-p 0.9, seed
+              0) under w2a8_bs: a second run, a --prefill-batch 2 run and a
+              plain-GEMM run give identical tokens, and top-k 1 gives the
+              baseline's tokens; under spec mode at spec-k 1 (two drafter
+              forwards a round, where spec-k 4 takes five): a second run,
+              with --prefill-batch 2, and a plain-GEMM run give identical
+              tokens, and top-k 1 leaves the baseline's tokens only at near
+              ties. Launch
+              counts exact in every kernel run (lut_gemm 7 x 24 per drafter
+              forward, lut_gemm_bs_fused 7 x 24 per target forward,
+              verify included, paged_attention 24 per one-token forward of
+              either tree, the others 0); each run prints its decode-only
+              step and tok/s beside the card's name and power limit
 
 Any failure exits nonzero. The line before the last is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}. Without a CUDA
@@ -160,6 +191,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -211,6 +244,10 @@ LC_SPLITS = 8
 # (capacity 4), gate/up at a prefill-like M
 EXPERT_SHAPES = ((64, 4, 2048, 1408), (64, 4, 1408, 2048), (64, 16, 2048, 1408))
 EXPERT_REPRESENTATIVE = (64, 4, 2048, 1408)
+# phase 10 serves moonshot through the engine at this depth (full width):
+# its plain-GEMM re-runs at 48 layers took most of the script's time, which
+# phase 14 needs; phase 12 runs moonshot at full depth
+MOE_ENGINE_LAYERS = 4
 # experts a decode call of moonshot's fills: 4 slots x top-6 assignments
 # reach at most 24 of the 64 experts
 EXPERT_ACTIVE = 24
@@ -909,21 +946,38 @@ def phase_kv_cache_attention(torch, dev):
     return {"kv_cache_attention": rows}
 
 
-def run_engine(torch, serve, cfg, qparams, args, capture: dict, **engine_kw):
-    """One serve run through the CLI's code path; checks every decode
-    step's logits are finite and keeps the first step's."""
-    engine = serve.make_engine(cfg, qparams, args, **engine_kw)
-    inner = engine._decode_fn
+def run_engine(torch, serve, cfg, qparams, args, capture: dict, requests=None,
+               logits_by_step: dict | None = None, **engine_kw):
+    """One serve run through the CLI's code path (of ``requests``, else the
+    CLI's own); checks every decode and verify forward's logits are finite
+    and keeps the first decode step's. With ``logits_by_step``, the logits
+    each emitted token was chosen from, by (uid, step): a decode step's
+    row, or the verify row at the token's position (a later round
+    overwrites a position a rejected draft had filled)."""
+    from repro_torch.serving.engine import _DECODE
 
-    def checked(*a):
-        logits = inner(*a)
+    engine = serve.make_engine(cfg, qparams, args, **engine_kw)
+    inner_d, inner_v = engine._decode_fn, engine._verify_fn
+
+    def record(logits):
         if not bool(torch.isfinite(logits).all()):
             fail(f"{cfg.name} {cfg.quant} produced non-finite logits")
+        if logits_by_step is not None:
+            rows = logits if logits.ndim == 3 else logits[:, None]
+            for i, s in enumerate(engine.slots):
+                if s.state == _DECODE:
+                    for j in range(rows.shape[1]):
+                        logits_by_step[(s.req.uid, len(s.req.out) + j)] = rows[i, j].clone()
+        return logits
+
+    def decode(*a):
+        logits = record(inner_d(*a))
         capture.setdefault("first_logits", logits.clone())
         return logits
 
-    engine._decode_fn = checked
-    res = serve.serve_paged(cfg, qparams, args, engine=engine)
+    engine._decode_fn = decode
+    engine._verify_fn = lambda *a: record(inner_v(*a))
+    res = serve.serve_paged(cfg, qparams, args, engine=engine, requests=requests)
     if not all(r.done for r in res["requests"]):
         fail("not every request finished")
     res["weight_bytes"] = res.pop("engine").per_device_weight_bytes()
@@ -1143,6 +1197,211 @@ def long_context_run(torch, cfg, qparams, ctx: int, kv_splits: int, wrappers,
            "profile": prof}
     del engine
     torch.cuda.empty_cache()
+    return out
+
+
+# phase 14: the paged engine's serving features, qwen1.5-0.5b at full width
+FEAT_ARGS = ["--arch", "qwen1.5-0.5b", "--paged", "--plan", "w2a8_bs", "--device",
+             "cuda"]
+FEAT_PREFIX = 48               # shared prompt prefix: 3 blocks of 16
+FEAT_SAMPLING = ["--temperature", "0.8", "--top-k", "50", "--top-p", "0.9",
+                 "--seed", "0"]
+# a greedy divergence between two float formulations is a near tie when the
+# baseline's top-2 margin at that step is below what each may move a logit:
+# TOL_LOGITS of max|logit| each, so twice that
+NEAR_TIE_REL = 2 * TOL_LOGITS
+# spec's verify (S = k+1, gathered plain attention) against plain decode
+# (S = 1, the paged kernel) on the same contexts, over every step: on random
+# quantized weights two formulations' last-ulp differences have moved
+# logits by up to 0.14 of max|logit| (two plain attention passes at 32k;
+# ROADMAP queue 3); a wrong context moves them by the order of max|logit|
+TOL_SHARED_LOGITS = 0.15
+FEAT_SAMPLED_SPEC_K = 1        # the sampled spec runs: 2 drafter forwards a round
+
+
+def near_ties(want: list, got: list, logits: dict, other: dict | None = None):
+    """Where ``got``'s tokens leave ``want``'s: (uid, step, top-2 margin of
+    want's logits there relative to their max|logit|) for every request that
+    diverges, and, with ``other`` (got's logits by step), the largest
+    relative difference of the two runs' logits over the steps of ``other``
+    whose context is still shared (up to and including the first
+    divergence)."""
+    ties, worst = [], 0.0
+    for uid, (w, g) in enumerate(zip(want, got)):
+        d = next((i for i, (a, b) in enumerate(zip(w, g)) if a != b), len(w))
+        if d < len(w):
+            top = logits[(uid, d)].topk(2).values
+            ties.append((uid, d, float((top[0] - top[1]) / logits[(uid, d)].abs().max())))
+        if other is not None:
+            for s in range(min(d + 1, len(w))):
+                if (uid, s) in other:
+                    worst = max(worst, rel_diff(other[(uid, s)], logits[(uid, s)]))
+    return ties, worst
+
+
+def phase_features(torch, serve, wrappers: dict, gemms: dict, smi: str,
+                   expect_launches) -> dict:
+    """Phase 14 (see the module docstring)."""
+    from repro_torch.serving import Request
+
+    parse = serve.build_parser().parse_args
+    long_args = FEAT_ARGS + ["--prompt-len", str(FEAT_PREFIX + 32)]
+    args = parse(long_args)
+    cfg, qparams = serve.prepare(args)
+    dcfg, dparams = serve.prepare_drafter(parse(FEAT_ARGS + ["--spec-draft-plan", "w2a2"]),
+                                          cfg)
+    prefix = np.random.default_rng(args.seed + 1).integers(0, cfg.vocab_size, FEAT_PREFIX)
+    prompts = [np.concatenate([prefix, r.prompt])
+               for r in serve.make_requests(cfg, parse(FEAT_ARGS))]
+    n = cfg.n_layers
+    plain = {"cfg": dataclasses.replace(cfg, quant=dataclasses.replace(
+        cfg.quant, backend="ref")), "spec": (dataclasses.replace(
+            dcfg, quant=dataclasses.replace(dcfg.quant, backend="ref")), dparams)}
+    out: dict = {}
+
+    def run(label, run_args, spec=False, gemm_plain=False, logits=None, **kw):
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        use_spec = (plain["spec"] if gemm_plain else (dcfg, dparams)) if spec else None
+        reqs = [Request(uid=i, prompt=p, max_new=run_args.gen)
+                for i, p in enumerate(prompts)]
+        res = run_engine(torch, serve, plain["cfg"] if gemm_plain else cfg, qparams,
+                         run_args, {}, requests=reqs, logits_by_step=logits,
+                         spec=use_spec, **kw)
+        launches = {name: w.launches for name, w in wrappers.items()}
+        m = res["metrics"]
+        if gemm_plain:
+            if any(gemms[g].launches for g in gemms):
+                fail(f"features {label}: the plain-GEMM run launched a GEMM kernel")
+        elif spec:
+            sp, k = m["spec"], run_args.spec_k
+            expect_launches(f"features {label}", launches, {
+                "lut_gemm": 7 * n * ((k + 1) * sp["rounds"] + sp["draft_prefill_chunks"]),
+                "lut_gemm_bs_fused": 7 * n * (m["prefill_chunks"] + sp["rounds"]),
+                "paged_attention": n * (k + 1) * sp["rounds"]})
+        else:
+            whole = len(prompts) if run_args.prefill == "whole" else 0
+            if whole and m["preemptions"]:
+                fail(f"features {label}: {m['preemptions']} preemptions in an ample pool")
+            expect_launches(f"features {label}", launches, {
+                "lut_gemm_bs_fused": 7 * n * (m["prefill_chunks"] + whole
+                                              + m["decode_steps"]),
+                "paged_attention": n * m["decode_steps"]})
+        step = res["decode_step_ms"]
+        line = (f"[14 features] {label}: {res['tokens']} tokens, {res['tok_per_s']:.1f} "
+                f"tok/s, decode-only step {f'{step:.3f} ms' if step else 'none'} on "
+                f"{smi} | decode steps {m['decode_steps']}, prefill chunks "
+                f"{m['prefill_chunks']}, prefill tokens computed "
+                f"{m['prefill_tokens_computed']} / shared {m['prefill_tokens_shared']}"
+                f" | {time.perf_counter() - t0:.1f}s")
+        if m["spec"] is not None:
+            sp = m["spec"]
+            line += (f" | spec: {sp['rounds']} rounds, {sp['emitted']} tokens "
+                     f"({sp['emitted'] / max(sp['rounds'], 1):.2f} a round, "
+                     f"{sp['accepted_tokens_per_step']:.3f} a slot-step), acceptance "
+                     f"{sp['acceptance_rate']:.3f} of {sp['draft_tokens']} drafts, "
+                     f"{sp['draft_evictions']} drafter evictions, "
+                     f"{sp['draft_prefill_chunks']} drafter catch-up chunks")
+        print(line, flush=True)
+        out[label] = {"tok_per_s": res["tok_per_s"], "decode_step_ms": step,
+                      "launches": launches, "seconds": time.perf_counter() - t0,
+                      **{key: m[key] for key in ("decode_steps", "prefill_chunks",
+                                                 "prefill_tokens_computed",
+                                                 "prefill_tokens_shared", "spec")}}
+        return [r.out for r in reqs], m
+
+    def same(label, want, got):
+        ok = sum(a == b for a, b in zip(want, got))
+        print(f"[14 features] {label}: tokens identical for {ok}/{len(want)} "
+              "requests", flush=True)
+        if ok != len(want):
+            fail(f"features {label}: tokens identical for {ok}/{len(want)} requests")
+
+    def tie_gate(label, want, got, logits, other, gate=True):
+        ties, worst = near_ties(want, got, logits, other)
+        print(f"[14 features] {label}: {len(ties)} of {len(want)} requests leave the "
+              f"baseline's tokens, at (uid, step, top-2 margin / max|logit|) {ties}; "
+              f"logits on shared contexts within {worst:.3g} of max|logit|"
+              + ("" if gate else " (not a gate)"), flush=True)
+        bad = [t for t in ties if t[2] >= NEAR_TIE_REL]
+        if gate and (bad or worst > TOL_SHARED_LOGITS):
+            fail(f"features {label}: divergences past a near tie ({NEAR_TIE_REL} of "
+                 f"max|logit|) {bad}, or logits on shared contexts {worst} > "
+                 f"{TOL_SHARED_LOGITS}")
+        out[label] = {"near_ties": ties, "shared_context_logits_rel_diff": worst}
+
+    base_logits: dict = {}
+    baseline, m0 = run("baseline (chunked, greedy)", args, logits=base_logits)
+    pc, m1 = run("--prefix-cache", parse(long_args + ["--prefix-cache"]))
+    same("--prefix-cache against the baseline", baseline, pc)
+    drop = m0["prefill_tokens_computed"] - m1["prefill_tokens_computed"]
+    print(f"[14 features] --prefix-cache: prefill tokens shared "
+          f"{m1['prefill_tokens_shared']}, computed fell by {drop}; radix "
+          f"{m1['prefix_cache']}", flush=True)
+    if not 0 < m1["prefill_tokens_shared"] == drop:
+        fail(f"features --prefix-cache: shared {m1['prefill_tokens_shared']}, "
+             f"computed fell by {drop}")
+    pb, _ = run("--prefill-batch 2", parse(long_args + ["--prefill-batch", "2"]))
+    same("--prefill-batch 2 against the baseline", baseline, pb)
+    whole_logits: dict = {}
+    wh, _ = run("--prefill whole", parse(long_args + ["--prefill", "whole"]),
+                logits=whole_logits)
+    # whole-prompt prefill attends the prompt's unquantized K/V, chunked
+    # prefill the int8 pool's (the reference's engine docstring says the
+    # same), so the two differ by more than a float formulation: reported
+    tie_gate("--prefill whole against the baseline", baseline, wh, base_logits,
+             {key: v for key, v in whole_logits.items() if key[1] == 0}, gate=False)
+    wh_p, _ = run("--prefill whole, plain GEMMs",
+                  parse(long_args + ["--prefill", "whole"]), gemm_plain=True)
+    same("--prefill whole plain-GEMM re-run against --prefill whole", wh, wh_p)
+    spec_logits: dict = {}
+    sp, _ = run("spec w2a2 drafter, k 4", args, spec=True, logits=spec_logits)
+    tie_gate("spec against the baseline", baseline, sp, base_logits, spec_logits)
+    del spec_logits, whole_logits
+
+    # seeded sampling under w2a8_bs: a second run, --prefill-batch 2 and the
+    # plain GEMMs give the same tokens, top-k 1 the greedy ones
+    sargs = parse(long_args + FEAT_SAMPLING)
+    a, _ = run("sampled w2a8_bs", sargs)
+    b, _ = run("sampled w2a8_bs, again", sargs)
+    same("sampled w2a8_bs: two runs", a, b)
+    c, _ = run("sampled w2a8_bs, --prefill-batch 2",
+               parse(long_args + ["--prefill-batch", "2"] + FEAT_SAMPLING))
+    same("sampled w2a8_bs: --prefill-batch 2", a, c)
+    d, _ = run("sampled w2a8_bs, plain GEMMs", sargs, gemm_plain=True)
+    same("sampled w2a8_bs: plain-GEMM re-run", a, d)
+    t1, _ = run("sampled w2a8_bs, top-k 1",
+                parse(long_args + ["--temperature", "0.8", "--top-k", "1"]))
+    same("sampled w2a8_bs, top-k 1: against the baseline", baseline, t1)
+    diff = sum(x != y for x, y in zip(a, baseline))
+    print(f"[14 features] sampled w2a8_bs: {diff}/{len(a)} requests differ from the "
+          "baseline", flush=True)
+    if not diff:
+        fail("features sampled w2a8_bs: every request decoded greedily")
+    # seeded sampling under spec mode, at spec-k 1 (a round of two drafter
+    # forwards, not five): a second run, with --prefill-batch 2, and the
+    # plain GEMMs give the same tokens, and top-k 1 leaves the baseline's
+    # tokens only at near ties, as greedy spec decoding does
+    k1 = ["--spec-k", str(FEAT_SAMPLED_SPEC_K)]
+    sa, _ = run("sampled spec, k 1", parse(long_args + FEAT_SAMPLING + k1), spec=True)
+    sb, _ = run("sampled spec, k 1, --prefill-batch 2",
+                parse(long_args + FEAT_SAMPLING + k1 + ["--prefill-batch", "2"]), spec=True)
+    same("sampled spec: a second run, with --prefill-batch 2", sa, sb)
+    sp_p, _ = run("sampled spec, k 1, plain GEMMs", parse(long_args + FEAT_SAMPLING + k1),
+                  spec=True, gemm_plain=True)
+    same("sampled spec: plain-GEMM re-run", sa, sp_p)
+    diff = sum(x != y for x, y in zip(sa, baseline))
+    print(f"[14 features] sampled spec: {diff}/{len(sa)} requests differ from the "
+          "baseline", flush=True)
+    if not diff:
+        fail("features sampled spec: every request decoded greedily")
+    t1_logits: dict = {}
+    st1, _ = run("sampled spec, k 1, top-k 1",
+                 parse(long_args + ["--temperature", "0.8", "--top-k", "1"] + k1),
+                 spec=True, logits=t1_logits)
+    tie_gate("sampled spec, k 1, top-k 1 against the baseline", baseline, st1,
+             base_logits, t1_logits)
     return out
 
 
@@ -1451,7 +1710,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         base_gb = torch.cuda.memory_allocated() / 1e9     # held before packing
         t0 = time.perf_counter()
-        cfg, qparams = serve.prepare(args)
+        cfg, qparams = serve.prepare(args, layers=MOE_ENGINE_LAYERS)
         pack_s = time.perf_counter() - t0
         packed_gb = torch.cuda.memory_allocated() / 1e9 - base_gb
         pack_peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1462,7 +1721,7 @@ def main() -> int:
         launches = {name: w.launches for name, w in wrappers.items()}
         m = res_k["metrics"]
         forwards = m["decode_steps"] + m["prefill_chunks"]
-        print(f"[10 moe] {cfg.name} {plan} ({n} layers, {E} experts top-"
+        print(f"[10 moe] {cfg.name} {plan} ({n} of 48 layers, {E} experts top-"
               f"{cfg.moe.top_k}, int8 pool, full width): {len(res_k['requests'])} "
               f"requests, {res_k['tokens']} tokens, {res_k['tok_per_s']:.1f} tok/s, "
               f"decode-only step {res_k['decode_step_ms']:.3f} ms on {smi} | "
@@ -1715,6 +1974,11 @@ def main() -> int:
                     "weight_bytes_per_rank": [rk["weight_bytes"] for rk in res["ranks"]],
                     "weight_bytes_tp1": ref["weight_bytes"]}
     results["tp"] = tp
+
+    # 14: the paged engine's serving features
+    print(f"[14 features] started at {time.perf_counter() - t_start:.1f}s", flush=True)
+    results["features"] = phase_features(torch, serve, wrappers, gemms, smi,
+                                         expect_launches)
 
     print("[results] " + json.dumps({"engine": results}), flush=True)
     lc_split = long_ctx[LC_CONTEXTS[-1]]["split_launches"]

@@ -51,15 +51,32 @@ every rank. Ranks on one card talk through gloo, ranks on cards of their
 own through NCCL. MoE models under ``--tp`` wait for the expert TP rules
 (ROADMAP queue 1, item 11).
 
-It takes the reference's flags and its rules: the engine's features
-(``--prefix-cache``, ``--prefill-batch`` > 1, ``--tp`` > 1,
-``--spec-draft-plan``, an explicit ``--kv-splits``, ``--ring``,
-``--trace-out``, ``--metrics-out``) require ``--paged``. Flags of features
-not ported yet are rejected loudly. Prompts come from numpy's
-``default_rng(seed)``; the reference draws them with JAX's threefry,
-whose numbers are not reproduced. The enc-dec and vision inputs of the
-reference's fixed loop come with their families (ROADMAP queue 1, item
-9).
+The paged engine's serving features follow the reference's flags:
+``--prefix-cache`` (the radix cache), ``--prefill-batch N`` (N requests a
+prefill chunk), ``--prefill whole`` (whole-prompt admission),
+``--temperature`` / ``--top-k`` / ``--top-p`` with ``--seed`` (seeded
+sampling) and ``--spec-draft-plan PLAN`` with ``--spec-k`` (speculative
+decoding with a drafter packed from the same weights under PLAN):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+      --paged --plan w2a8_bs --prefix-cache --prefill-batch 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+      --paged --plan w2a8_bs --spec-draft-plan w2a2 --temperature 0.8
+
+It takes the reference's rules: the engine's features (``--prefix-cache``,
+``--prefill-batch`` > 1, ``--tp`` > 1, ``--spec-draft-plan``, an explicit
+``--kv-splits``, ``--ring``, ``--trace-out``, ``--metrics-out``) require
+``--paged``; ``--prefix-cache`` and ``--spec-draft-plan`` refuse
+``--prefill whole``. One rule is the port's own: the sampling flags
+require ``--paged`` (the reference's fixed loop ignores them and decodes
+greedily). Flags of features not ported yet are rejected loudly: ring-paged
+local layers, the tracer, static activation scales, k-means codebooks, the
+legacy plan, MoE under ``--tp``, and speculative decoding under ``--tp``
+(the drafter's TP rules, ROADMAP queue 1, item 11). Prompts come from
+numpy's ``default_rng(seed)``; the reference draws them with JAX's
+threefry, whose numbers are not reproduced. The enc-dec and vision inputs
+of the reference's fixed loop come with their families (ROADMAP queue 1,
+item 9).
 """
 
 from __future__ import annotations
@@ -82,7 +99,7 @@ from repro_torch.launch import mesh
 from repro_torch.launch import steps as St
 from repro_torch.models import lm
 from repro_torch.obs import metrics as obs_metrics
-from repro_torch.serving import Engine, Request
+from repro_torch.serving import Engine, Request, SamplerConfig
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -125,8 +142,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def validate_args(args) -> None:
-    """Reject flags that need ``--paged`` without it (the reference's
-    rules), then flags of features the port does not carry yet, loudly."""
+    """Reject incoherent flag combinations (the reference's rules), then
+    flags of features the port does not carry yet, loudly."""
     if not args.paged:
         needs_paged = [
             (args.prefix_cache, "--prefix-cache", "the radix cache shares "
@@ -145,23 +162,47 @@ def validate_args(args) -> None:
              "tracing hooks into the paged engine's loop"),
             (args.metrics_out is not None, "--metrics-out", "the metrics "
              "snapshot is the paged engine's registry"),
+            (args.temperature > 0 or args.top_k or args.top_p < 1.0,
+             "--temperature/--top-k/--top-p", "the sampler runs in the "
+             "paged engine's decode step"),
         ]
         for bad, flag, why in needs_paged:
             if bad:
                 raise ValueError(f"{flag} requires --paged: {why}; the "
                                  "fixed-batch loop has none")
+    if args.prefix_cache and args.prefill == "whole":
+        raise ValueError("--prefix-cache is incompatible with --prefill whole: "
+                         "whole-prompt admission recomputes from scratch and "
+                         "cannot consume cached blocks; use --prefill chunked")
+    if args.spec_draft_plan is not None:
+        if args.prefill == "whole":
+            raise ValueError("--spec-draft-plan is incompatible with --prefill "
+                             "whole: the drafter's catch-up prefill replays the "
+                             "fed-token stream in chunks; use --prefill chunked")
+        if args.spec_draft_plan not in PLANS:
+            raise ValueError(f"--spec-draft-plan {args.spec_draft_plan!r} is not "
+                             f"a known plan ({', '.join(sorted(PLANS))})")
+    if args.spec_k < 1:
+        raise ValueError(f"--spec-k must be >= 1, got {args.spec_k}")
+    if args.temperature < 0:
+        raise ValueError(f"--temperature must be >= 0 (0 = greedy), got "
+                         f"{args.temperature}")
+    if not 0.0 < args.top_p <= 1.0:
+        raise ValueError(f"--top-p must be in (0, 1] (1 = off), got {args.top_p}")
+    if args.top_k < 0:
+        raise ValueError(f"--top-k must be >= 0 (0 = off), got {args.top_k}")
+    if args.prefill_batch < 1:
+        raise ValueError(f"--prefill-batch must be >= 1, got {args.prefill_batch}")
     item6 = "ROADMAP queue 1, item 6"
     checks = [
-        (args.prefix_cache, f"--prefix-cache (radix cache) is not ported yet: {item6}"),
-        (args.prefill_batch > 1, f"--prefill-batch > 1 is not ported yet: {item6}"),
-        (args.prefill == "whole", f"--prefill whole is not ported yet: {item6}"),
-        (args.spec_draft_plan is not None,
-         f"--spec-draft-plan (speculative decoding) is not ported yet: {item6}"),
         (args.ring, f"--ring (ring-paged local layers) is not ported yet: {item6}"),
         (args.tp > 1 and args.arch in ARCHS
          and get_config(args.arch).moe is not None,
          "--tp > 1 on an MoE model (the expert TP rules) is not ported yet: "
          "ROADMAP queue 1, item 11"),
+        (args.tp > 1 and args.spec_draft_plan is not None,
+         "--spec-draft-plan under --tp > 1 (the drafter's TP rules) is not "
+         "ported yet: ROADMAP queue 1, item 11"),
         (args.trace_out is not None, f"--trace-out (tracer) is not ported yet: {item6}"),
         (args.a_scale == "static", "--a-scale static (calibration) is not "
          "ported yet: ROADMAP queue 1, item 2"),
@@ -169,9 +210,6 @@ def validate_args(args) -> None:
          "yet: ROADMAP queue 1, item 2"),
         (args.plan == "legacy", "--plan legacy (dequant-einsum leaves) is not "
          "ported: pick a kernel-backed plan"),
-        (args.temperature > 0 or args.top_k or args.top_p < 1.0,
-         "--temperature/--top-k/--top-p (seeded sampling) are not ported yet: "
-         "ROADMAP queue 1, item 5; the port decodes greedily"),
     ]
     for bad, msg in checks:
         if bad:
@@ -206,13 +244,21 @@ def make_requests(cfg, args) -> list[Request]:
                     max_new=args.gen) for i, P in enumerate(lens)]
 
 
-def make_engine(cfg, qparams, args, **engine_kw) -> Engine:
-    """The engine the flags ask for; ``engine_kw`` reaches ``Engine`` (a
-    caller's ``attn_backend``, a rank's ``tp_group``)."""
+def make_engine(cfg, qparams, args, spec=None, **engine_kw) -> Engine:
+    """The engine the flags ask for; ``spec`` is the drafter's ``(cfg,
+    params)`` (``prepare_drafter``) and ``engine_kw`` reaches ``Engine``
+    (a caller's ``attn_backend``, a rank's ``tp_group``)."""
     max_len = args.prompt_len + args.gen + args.block_size
     max_len = -(-max_len // args.block_size) * args.block_size
+    if spec is not None:
+        engine_kw.update(spec_draft_cfg=spec[0], spec_draft_params=spec[1],
+                         spec_k=args.spec_k)
+    sampler = SamplerConfig(temperature=args.temperature, top_k=args.top_k,
+                            top_p=args.top_p, seed=args.seed)
     return Engine(cfg, qparams, n_slots=args.batch, max_len=max_len,
                   block_size=args.block_size, max_queue=args.max_queue,
+                  prefill=args.prefill, prefill_batch=args.prefill_batch,
+                  prefix_cache=args.prefix_cache, sampler=sampler,
                   kv_splits=args.kv_splits, **engine_kw)
 
 
@@ -285,12 +331,14 @@ def serve_fixed(cfg, qparams, args, decode_step=None) -> dict:
             "dispatches": ops}
 
 
-def serve_paged(cfg, qparams, args, engine: Engine | None = None) -> dict:
-    """Run the request stream through the engine; print and return the
-    run's numbers (requests, tokens, wall time, mean time of steps that
-    only decoded)."""
+def serve_paged(cfg, qparams, args, engine: Engine | None = None,
+                requests: list | None = None) -> dict:
+    """Run the request stream (``make_requests``, or ``requests``) through
+    the engine; print and return the run's numbers (requests, tokens, wall
+    time, mean time of the steps that only decoded: no prefill chunk,
+    whole prompt or drafter catch-up)."""
     engine = engine if engine is not None else make_engine(cfg, qparams, args)
-    reqs = make_requests(cfg, args)
+    reqs = requests if requests is not None else make_requests(cfg, args)
     for r in reqs:
         if not engine.submit(r):
             print(f"  [req {r.uid}] rejected (queue full)")
@@ -299,11 +347,13 @@ def serve_paged(cfg, qparams, args, engine: Engine | None = None) -> dict:
     t0 = time.perf_counter()
     decode_only = []
     while engine.queue or any(s.req is not None for s in engine.slots):
-        pc, ds = engine.prefill_chunks, engine.decode_steps
+        before = (engine.prefill_tokens_computed, engine.spec_draft_prefills,
+                  engine.decode_steps + 1)
         ts = time.perf_counter()
         engine.step()
         _sync(dev)
-        if engine.prefill_chunks == pc and engine.decode_steps == ds + 1:
+        if (engine.prefill_tokens_computed, engine.spec_draft_prefills,
+                engine.decode_steps) == before:
             decode_only.append(time.perf_counter() - ts)
     dt = time.perf_counter() - t0
     m = engine.metrics()
@@ -315,6 +365,18 @@ def serve_paged(cfg, qparams, args, engine: Engine | None = None) -> dict:
           f"{m['decode_steps']}, prefill chunks {m['prefill_chunks']}, "
           f"preemptions {m['preemptions']}, util {m['slot_utilization']:.2f}"
           + (f", decode-only step {step_ms:.3f} ms" if step_ms else ""))
+    if m["spec"] is not None:
+        sp = m["spec"]
+        print(f"  spec decode: {sp['accepted_tokens_per_step']:.2f} tokens/"
+              f"slot-step (acceptance {sp['acceptance_rate']:.2f} over "
+              f"{sp['draft_tokens']} drafts, {sp['rounds']} rounds, "
+              f"{sp['draft_evictions']} drafter evictions)")
+    if m["prefix_cache"] is not None:
+        total = m["prefill_tokens_computed"] + m["prefill_tokens_shared"]
+        print(f"  prefix cache: {m['prefill_tokens_shared']}/{total} prompt "
+              f"tokens attached from cache "
+              f"({m['prefix_cache']['cached_blocks']} blocks cached, "
+              f"{m['prefix_cache']['evictions']} evictions)")
     ops = _dispatch_counts(m["metrics"]["counters"])
     print(f"  kernel dispatches: {ops}")
     if args.metrics_out:
@@ -325,13 +387,16 @@ def serve_paged(cfg, qparams, args, engine: Engine | None = None) -> dict:
             "dispatches": ops, "engine": engine}
 
 
-def prepare(args, tp: int = 1, rank: int = 0):
+def prepare(args, tp: int = 1, rank: int = 0, layers: int | None = None):
     """Config, plan and packed parameters for ``args`` on its device; with
-    ``tp`` > 1, rank ``rank``'s slice of them."""
+    ``tp`` > 1, rank ``rank``'s slice of them; with ``layers``, the model
+    cut to its first ``layers`` layers (the widths unchanged)."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     quant, desc = make_quant(args)
     cfg = dataclasses.replace(cfg, quant=quant)
     print(f"[serve] {cfg.name} on {device}: packing weights under {desc}")
@@ -343,6 +408,22 @@ def prepare(args, tp: int = 1, rank: int = 0):
     print(f"  initialised and packed in {time.perf_counter() - t0:.2f}s"
           + (f" (rank {rank}'s slice of {tp})" if tp > 1 else ""))
     return cfg, qparams
+
+
+def prepare_drafter(args, cfg):
+    """The drafter of ``--spec-draft-plan``: ``cfg`` under that plan, and
+    the same seed-drawn weights packed under it (``init_params`` draws
+    them in the same order as ``prepare``), as the reference packs its
+    drafter with ``quantize_tree`` under ``replace(cfg, quant=...)``."""
+    dcfg = dataclasses.replace(cfg, quant=get_plan(args.spec_draft_plan))
+    device = resolve_device(args.device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    dparams = lm.init_params(dcfg, gen, device, pack=True)
+    _sync(device)
+    print(f"  drafter packed under plan '{args.spec_draft_plan}' in "
+          f"{time.perf_counter() - t0:.2f}s (spec-k {args.spec_k})")
+    return dcfg, dparams
 
 
 def serve_rank(rank: int, world: int, args, check_ops: tuple = ()) -> dict:
@@ -417,7 +498,9 @@ def main(argv=None) -> int:
         return 0 if res["ranks_agree"] else 1
     cfg, qparams = prepare(args)
     if args.paged:
-        serve_paged(cfg, qparams, args)
+        spec = prepare_drafter(args, cfg) if args.spec_draft_plan else None
+        serve_paged(cfg, qparams, args,
+                    engine=make_engine(cfg, qparams, args, spec=spec))
     else:
         serve_fixed(cfg, qparams, args)
     return 0

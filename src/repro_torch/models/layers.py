@@ -346,8 +346,14 @@ def attn_apply(p: dict, x: torch.Tensor, *, cfg, cache: Optional[dict] = None,
                 valid = torch.arange(S_view, device=x.device)[None, :] <= pos[:, None]
                 out = decode_attention(q, kd, vd, valid)
             else:
-                # the per-row causal mask also blanks the not-yet-written tail
-                out = flash_attention(q, kd, vd, causal=True, q_offset=pos)
+                # the per-row causal mask also blanks the not-yet-written
+                # tail. One sequence at a time: CUDA's batched matmul picks
+                # its algorithm by the batch count (at 16 query rows a row
+                # rounds otherwise in a batch of 2 than alone), and a row of
+                # a batched prefill chunk must get the bits it gets alone
+                out = torch.cat([flash_attention(q[b:b + 1], kd[b:b + 1], vd[b:b + 1],
+                                                 causal=True, q_offset=pos[b:b + 1])
+                                 for b in range(B)])
             scatter()
     out = out.reshape(B, S, H * hd)
     return dense(p["wo"], out, policy=pol)

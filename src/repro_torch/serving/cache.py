@@ -1,8 +1,12 @@
 """Paged KV-cache block pool for the port's serving engine.
 
 The port's counterpart of ``repro/serving/cache.py``: the host-side
-refcounting ``BlockPool`` allocator, ``table_row``, and the per-layer pool
-tensors of attention layers.
+refcounting ``BlockPool`` allocator, ``table_row``, the per-layer pool
+tensors of attention layers, and ``write_prompt_rows``, which scatters a
+whole-prompt forward's K/V into a slot's blocks. A block's refcount is its
+number of owners: the slots whose tables hold it, plus the radix tree
+(serving/radix.py) when it indexes the block. The speculative drafter's
+pool is a second tree of the same layout, addressed by the same block ids.
 
 Layout per attention layer (``n_blocks`` blocks of ``block_size`` rows):
 
@@ -28,8 +32,9 @@ from collections import deque
 from typing import Optional
 
 import numpy as np
+import torch
 
-from repro_torch.models import lm
+from repro_torch.models import layers as L, lm
 
 NULL_BLOCK = 0
 
@@ -44,9 +49,11 @@ def table_row(blocks: list, width: int) -> np.ndarray:
 
 class BlockPool:
     """Host-side refcounting allocator over physical block ids. Block 0 is
-    the null block and never handed out; ``alloc`` is all-or-nothing;
-    ``free`` drops one owner and a block rejoins the free list at refcount
-    0; a double free raises."""
+    the null block and never handed out; ``alloc`` is all-or-nothing and
+    hands out blocks at refcount 1; ``ref`` adds an owner to a live block
+    (a shared prefix); ``free`` drops one owner and a block rejoins the
+    free list at refcount 0; a double free, or a ``ref`` of a free block,
+    raises."""
 
     def __init__(self, n_blocks: int):
         if n_blocks < 2:
@@ -59,6 +66,10 @@ class BlockPool:
     def n_free(self) -> int:
         return len(self._free)
 
+    def refcount(self, block: int) -> int:
+        """Current owner count of ``block`` (0: free)."""
+        return self._refs[block]
+
     def alloc(self, n: int) -> Optional[list[int]]:
         if n > len(self._free):
             return None
@@ -66,6 +77,13 @@ class BlockPool:
         for b in ids:
             self._refs[b] = 1
         return ids
+
+    def ref(self, ids: list[int]) -> None:
+        """Add one owner to each live block."""
+        for b in ids:
+            if self._refs[b] <= 0:
+                raise RuntimeError(f"ref on unallocated block {b}")
+            self._refs[b] += 1
 
     def free(self, ids: list[int]) -> None:
         for b in ids:
@@ -78,7 +96,30 @@ class BlockPool:
 
 def init_paged_cache(cfg, n_blocks: int, block_size: int, dtype,
                      device) -> list:
-    """One pool dict per layer (attention layers only in this slice), laid
-    out by ``lm._layer_cache``."""
+    """One pool dict per layer (global attention layers only), laid out by
+    ``lm._layer_cache``."""
     return [lm._layer_cache(cfg, n_blocks, block_size, dtype, device)
             for _ in range(cfg.n_layers)]
+
+
+def write_prompt_rows(caches: list, rows: list, blocks: list,
+                      block_size: int, kv_dtype: str) -> None:
+    """In place: a whole-prompt forward's per-layer K/V (``forward(...,
+    collect_cache=True)``: (1, P, KV, hd), post-RoPE, unquantized) into the
+    slot's ``blocks``, quantized per token for an int8 or int4 pool. Rows
+    past P in the last block are zeros (their scales too); attention masks
+    them."""
+    for pool, kv in zip(caches, rows):
+        parts = {"k": kv["k"][0], "v": kv["v"][0]}
+        if kv_dtype in L.KV_QUANT:
+            qf = L.KV_QUANT[kv_dtype][0]
+            (k, k_sc), (v, v_sc) = qf(kv["k"]), qf(kv["v"])
+            parts = {"k": k[0], "v": v[0], "k_sc": k_sc[0], "v_sc": v_sc[0]}
+        P = parts["k"].shape[0]
+        nfb = -(-P // block_size)
+        ids = torch.as_tensor(blocks[:nfb], dtype=torch.int64,
+                              device=parts["k"].device)
+        for name, val in parts.items():
+            pad = [0, 0] * (val.ndim - 1) + [0, nfb * block_size - P]
+            val = torch.nn.functional.pad(val, pad).to(pool[name].dtype)
+            pool[name][ids] = val.reshape(nfb, block_size, *val.shape[1:])

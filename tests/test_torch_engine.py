@@ -3,7 +3,8 @@ numpy prompts and the same weights (carried across with the bridge) give
 the same greedy tokens, on the float32 reduced qwen1.5-0.5b (two layers)
 under w2a2 and w2a16, with an unquantized and an int8 pool. Also:
 preemption under a small pool (against the reference and an ample pool),
-the serve CLI, and the no-fallback rule.
+the serve CLI with the engine's serving features, its flag rules, and the
+no-fallback rule.
 
 Where the reference's top-2 logit margin at the first diverging step is
 below MARGIN_TOL, the two frameworks' f32 rounding may legitimately pick
@@ -153,10 +154,6 @@ def test_preemption_matches_reference_and_ample_pool(kv, n_blocks):
 
 def test_engine_rejects_what_is_not_ported():
     _, tc, _, tq, _ = _setup("w2a2", "int8")
-    for kw in (dict(prefill="whole"), dict(prefill_batch=2),
-               dict(prefix_cache=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(tc, tq, **{**ENGINE_KW, **kw})
     eng = Engine(tc, tq, **ENGINE_KW)
     assert not eng.submit(Request(uid=0, prompt=np.zeros(64, np.int32)))
 
@@ -172,15 +169,46 @@ def test_serve_cli_smoke_on_cpu_exits_zero():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--prefill", "whole"], ["--prefix-cache"], ["--prefill-batch", "2"],
-    ["--spec-draft-plan", "w2a2"], ["--ring"],
-    ["--tp", "2", "--arch", "moonshot-v1-16b-a3b"], ["--trace-out", "t.json"],
-    ["--a-scale", "static"], ["--nonuniform"], ["--temperature", "0.7"],
-    ["--plan", "legacy"]])
+    ["--prefill", "whole"], ["--prefix-cache", "--prefill-batch", "2"],
+    ["--spec-draft-plan", "w2a2", "--spec-k", "3"],
+    ["--spec-draft-plan", "w2a2", "--temperature", "0.8"],
+    ["--temperature", "0.7", "--top-k", "5", "--top-p", "0.9", "--seed", "3"]])
+def test_serve_cli_feature_smoke_on_cpu(flags):
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "qwen1.5-0.5b", "--smoke", "--paged", "--device", "cpu", *flags],
+        capture_output=True, text=True, timeout=300,
+        env={**__import__("os").environ, "PYTHONPATH": "src"})
+    assert out.returncode == 0, out.stderr
+    assert "12/12 requests" in out.stdout
+
+
+@pytest.mark.parametrize("flags", [
+    ["--ring"], ["--tp", "2", "--arch", "moonshot-v1-16b-a3b"],
+    ["--trace-out", "t.json"], ["--a-scale", "static"], ["--nonuniform"],
+    ["--plan", "legacy"], ["--tp", "2", "--spec-draft-plan", "w2a2"]])
 def test_serve_rejects_unported_flags_loudly(flags):
     args = serve.build_parser().parse_args(
         ["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu", "--paged", *flags])
     with pytest.raises(ValueError, match="not ported|ROADMAP"):
+        serve.validate_args(args)
+
+
+@pytest.mark.parametrize("flags,msg", [
+    (["--paged", "--prefix-cache", "--prefill", "whole"], "incompatible with --prefill whole"),
+    (["--paged", "--spec-draft-plan", "w2a2", "--prefill", "whole"],
+     "incompatible with --prefill whole"),
+    (["--spec-draft-plan", "w2a2"], "--spec-draft-plan requires --paged"),
+    (["--temperature", "0.7"], "requires --paged"),
+    (["--paged", "--spec-draft-plan", "w9a9"], "not a known plan"),
+    (["--paged", "--spec-k", "0"], "--spec-k must be >= 1"),
+    (["--paged", "--temperature", "-1"], "--temperature must be >= 0"),
+    (["--paged", "--top-p", "0"], "--top-p must be in"),
+    (["--paged", "--top-k", "-1"], "--top-k must be >= 0")])
+def test_serve_rejects_the_references_incompatible_combinations(flags, msg):
+    args = serve.build_parser().parse_args(
+        ["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu", *flags])
+    with pytest.raises(ValueError, match=msg):
         serve.validate_args(args)
 
 

@@ -143,10 +143,6 @@ class RadixCache:
     def n_cached_blocks(self) -> int:
         return self.n_nodes
 
-    @property
-    def n_evictable(self) -> int:
-        return sum(1 for _ in self._evictable())
-
     def metrics(self) -> dict:
         return {"cached_blocks": self.n_nodes, "hit_tokens": self.hit_tokens,
                 "miss_tokens": self.miss_tokens, "evictions": self.evictions}

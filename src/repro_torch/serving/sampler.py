@@ -63,10 +63,6 @@ class SamplerConfig:
     top_p: float = 1.0
     seed: int = 0
 
-    @property
-    def greedy(self) -> bool:
-        return self.temperature <= 0.0
-
 
 # ---------------------------------------------------------------- noise --
 

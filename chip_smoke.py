@@ -10,9 +10,12 @@ Phases, each printing its lines:
               or loads the library already built from the same sources
   4 kernels   each kernel against its plain PyTorch version at the serving
               shapes of qwen1.5-0.5b (K x N = 1024x1024, 1024x2816,
-              2816x1024; M = 1, 4, 32, and for lut_gemm and dequant_matmul
-              also the fixed loop's prefill, M 128, each of their lines
-              printing its tiling, kernels/lut_gemm.py::dense_partition: MT
+              2816x1024; M = 1, 4, 32, for lut_gemm and dequant_matmul
+              also the fixed loop's prefill, M 128, and for w2a2 lut_gemm
+              and w2a8_bs lut_gemm_bs_fused phase 14's M 8, 20 and 64: the
+              verify at spec-k 1 and 4, two-row batched prefill; each
+              lut_gemm and dequant_matmul line printing its tiling,
+              kernels/lut_gemm.py::dense_partition: MT
               rows, NT columns, C cluster ranks, the rounds, its blocks and
               cudaOccupancyMaxActiveClusters) and, for lut_gemm_bs_fused, of
               codeqwen1.5-7b (4096x4096, 4096x13440, 13440x4096; M = 1, 4),
@@ -151,16 +154,18 @@ Phases, each printing its lines:
               baseline is the chunked greedy engine. --prefix-cache and
               --prefill-batch 2 give the baseline's tokens, the cache
               sharing prompt tokens and computed prompt tokens falling by
-              exactly as many; spec mode (a w2a2 drafter of the same
-              weights, spec-k 4) leaves the baseline's greedy tokens only
-              at near ties (top-2 margin below 2 x TOL_LOGITS of
-              max|logit|), its logits on shared contexts within
-              TOL_SHARED_LOGITS (printed: every divergence with its margin, acceptance,
-              tokens a round, drafter evictions). --prefill whole attends
-              the prompt's unquantized K/V where chunked prefill attends
-              the int8 pool's, so its divergences and first-step logits
-              are printed, not gated; its plain-GEMM re-run gives
-              identical tokens.
+              exactly as many; spec mode (spec-k 4) with a w2a2 drafter of
+              the same weights, and with the target drafting for itself
+              (which must emit more than one token a slot-step), leaves
+              the baseline's greedy tokens only at near ties (top-2 margin
+              below 2 x TOL_LOGITS of max|logit|), its logits on shared
+              contexts within TOL_SHARED_LOGITS (printed: every divergence
+              with its margin, acceptance, tokens a round, drafter
+              evictions). --prefill whole leaves the baseline only at near
+              ties too, its first-step logits within TOL_SHARED_LOGITS (it
+              attends the prompt's unquantized K/V where chunked prefill
+              attends the int8 pool's, so only the first step's are
+              compared); its plain-GEMM re-run gives identical tokens.
               Seeded sampling (temperature 0.8, top-k 50, top-p 0.9, seed
               0) under w2a8_bs: a second run, a --prefill-batch 2 run and a
               plain-GEMM run give identical tokens, and top-k 1 gives the
@@ -230,6 +235,10 @@ TOL_EXPERT_GROUPED = 1e-5   # relative to max|plain|
 SHAPES = ((1024, 1024), (1024, 2816), (2816, 1024))   # (K, N) per projection
 ROWS = (1, 4, 32)                                      # decode / prefill chunk
 DENSE_EXTRA_ROWS = (128,)    # lut_gemm / dequant_matmul: the fixed loop's prefill
+# phase 14's M, off every tile: the verify's 4 slots x (spec-k + 1) at spec-k
+# 1 and 4, and --prefill-batch 2 x the 32-row chunk; checked for lut_gemm
+# under w2a2 (the drafter) and lut_gemm_bs_fused under w2a8_bs (the target)
+FEATURE_ROWS = (8, 20, 64)
 REPRESENTATIVE = (4, 1024, 2816)                       # (M, K, N) in the JSON
 CODEQWEN_SHAPES = ((4096, 4096), (4096, 13440), (13440, 4096))
 CODEQWEN_ROWS = (1, 4)
@@ -342,10 +351,12 @@ def phase_kernels(torch, dev):
                  f"version: max_abs_err={err}")
 
     for K, N in SHAPES:
-        for M in ROWS + DENSE_EXTRA_ROWS:
+        for M in ROWS + DENSE_EXTRA_ROWS + FEATURE_ROWS:
+            feature = M in FEATURE_ROWS
             x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
-            # lut_gemm: w2a2, w2a2g64, w4a8
-            for wb, ab, G in ((2, 2, None), (2, 2, 64), (4, 8, None)):
+            # lut_gemm: w2a2, w2a2g64, w4a8 (phase 14's M: w2a2)
+            for wb, ab, G in ((2, 2, None),) + (() if feature else
+                                                ((2, 2, 64), (4, 8, None))):
                 a_idx, w_idx = codes((M, K), ab), codes((N, K), wb)
                 ap, wp = packing.pack(a_idx, ab), packing.pack(w_idx, wb)
                 lut = product_lut(quant.uniform_codebook(wb, device=dev),
@@ -374,7 +385,7 @@ def phase_kernels(torch, dev):
                 record("lut_gemm", cfg, M, K, N, err, ok, k_ms, p_ms, l_ms, b, by,
                        dense_tiling("lut_gemm", M, N, K, wb, ab, G))
             # dequant_matmul: w2, w2g128, w4 (bf16 activations, as served)
-            for wb, G in ((2, None), (2, 128), (4, None)):
+            for wb, G in () if feature else ((2, None), (2, 128), (4, None)):
                 w_idx = codes((N, K), wb)
                 wp = packing.pack(w_idx, wb)
                 cb = quant.uniform_codebook(wb, device=dev).levels
@@ -398,7 +409,7 @@ def phase_kernels(torch, dev):
                 cfg = f"w{wb}a16" + (f"g{G}" if G else "")
                 record("dequant_matmul", cfg, M, K, N, err, ok, k_ms, p_ms, l_ms,
                        b, by, dense_tiling("dequant_matmul", M, N, K, wb, 16, G))
-            if M not in ROWS:
+            if M not in ROWS + FEATURE_ROWS:
                 continue
             # lut_gemm_bs_fused: raw activations with an all-zero row (the
             # scale floor) and a row whose amax sits in one element
@@ -407,9 +418,9 @@ def phase_kernels(torch, dev):
                 xe[0] = 0
                 xe[1] *= 1e-3
                 xe[1, K // 3] = 40.0
-            cases = [(2, None, "bf16", None), (2, 64, "bf16", None),
-                     (4, None, "bf16", None)]
-            if (K, N) == (1024, 2816):
+            cases = [(2, None, "bf16", None)] + ([] if feature else [
+                (2, 64, "bf16", None), (4, None, "bf16", None)])
+            if (K, N) == (1024, 2816) and not feature:
                 cases += [(2, None, "f32", None)]
                 if M == 4:
                     cases += [(2, None, "bf16", "static")]
@@ -1254,21 +1265,27 @@ def phase_features(torch, serve, wrappers: dict, gemms: dict, smi: str,
     prompts = [np.concatenate([prefix, r.prompt])
                for r in serve.make_requests(cfg, parse(FEAT_ARGS))]
     n = cfg.n_layers
-    plain = {"cfg": dataclasses.replace(cfg, quant=dataclasses.replace(
-        cfg.quant, backend="ref")), "spec": (dataclasses.replace(
-            dcfg, quant=dataclasses.replace(dcfg.quant, backend="ref")), dparams)}
+
+    def plain_gemms(c):
+        return dataclasses.replace(c, quant=dataclasses.replace(c.quant, backend="ref"))
+
+    # a w2a2 drafter of the target's weights, or the target itself
+    drafters = {"w2a2": (dcfg, dparams), "self": (cfg, qparams)}
     out: dict = {}
 
-    def run(label, run_args, spec=False, gemm_plain=False, logits=None, **kw):
+    def run(label, run_args, drafter=None, gemm_plain=False, logits=None, **kw):
         for w in wrappers.values():
             w.launches = 0
         t0 = time.perf_counter()
-        use_spec = (plain["spec"] if gemm_plain else (dcfg, dparams)) if spec else None
+        spec = None
+        if drafter:
+            dc, dp = drafters[drafter]
+            spec = (plain_gemms(dc) if gemm_plain else dc, dp)
         reqs = [Request(uid=i, prompt=p, max_new=run_args.gen)
                 for i, p in enumerate(prompts)]
-        res = run_engine(torch, serve, plain["cfg"] if gemm_plain else cfg, qparams,
+        res = run_engine(torch, serve, plain_gemms(cfg) if gemm_plain else cfg, qparams,
                          run_args, {}, requests=reqs, logits_by_step=logits,
-                         spec=use_spec, **kw)
+                         spec=spec, **kw)
         launches = {name: w.launches for name, w in wrappers.items()}
         m = res["metrics"]
         if gemm_plain:
@@ -1276,9 +1293,11 @@ def phase_features(torch, serve, wrappers: dict, gemms: dict, smi: str,
                 fail(f"features {label}: the plain-GEMM run launched a GEMM kernel")
         elif spec:
             sp, k = m["spec"], run_args.spec_k
+            drafts = 7 * n * ((k + 1) * sp["rounds"] + sp["draft_prefill_chunks"])
+            target = 7 * n * (m["prefill_chunks"] + sp["rounds"])
             expect_launches(f"features {label}", launches, {
-                "lut_gemm": 7 * n * ((k + 1) * sp["rounds"] + sp["draft_prefill_chunks"]),
-                "lut_gemm_bs_fused": 7 * n * (m["prefill_chunks"] + sp["rounds"]),
+                **({"lut_gemm": drafts, "lut_gemm_bs_fused": target}
+                   if drafter == "w2a2" else {"lut_gemm_bs_fused": drafts + target}),
                 "paged_attention": n * (k + 1) * sp["rounds"]})
         else:
             whole = len(prompts) if run_args.prefill == "whole" else 0
@@ -1318,14 +1337,13 @@ def phase_features(torch, serve, wrappers: dict, gemms: dict, smi: str,
         if ok != len(want):
             fail(f"features {label}: tokens identical for {ok}/{len(want)} requests")
 
-    def tie_gate(label, want, got, logits, other, gate=True):
+    def tie_gate(label, want, got, logits, other):
         ties, worst = near_ties(want, got, logits, other)
         print(f"[14 features] {label}: {len(ties)} of {len(want)} requests leave the "
               f"baseline's tokens, at (uid, step, top-2 margin / max|logit|) {ties}; "
-              f"logits on shared contexts within {worst:.3g} of max|logit|"
-              + ("" if gate else " (not a gate)"), flush=True)
+              f"logits on shared contexts within {worst:.3g} of max|logit|", flush=True)
         bad = [t for t in ties if t[2] >= NEAR_TIE_REL]
-        if gate and (bad or worst > TOL_SHARED_LOGITS):
+        if bad or worst > TOL_SHARED_LOGITS:
             fail(f"features {label}: divergences past a near tie ({NEAR_TIE_REL} of "
                  f"max|logit|) {bad}, or logits on shared contexts {worst} > "
                  f"{TOL_SHARED_LOGITS}")
@@ -1349,15 +1367,26 @@ def phase_features(torch, serve, wrappers: dict, gemms: dict, smi: str,
                 logits=whole_logits)
     # whole-prompt prefill attends the prompt's unquantized K/V, chunked
     # prefill the int8 pool's (the reference's engine docstring says the
-    # same), so the two differ by more than a float formulation: reported
+    # same): the first step's logits differ, so only they are compared
     tie_gate("--prefill whole against the baseline", baseline, wh, base_logits,
-             {key: v for key, v in whole_logits.items() if key[1] == 0}, gate=False)
+             {key: v for key, v in whole_logits.items() if key[1] == 0})
     wh_p, _ = run("--prefill whole, plain GEMMs",
                   parse(long_args + ["--prefill", "whole"]), gemm_plain=True)
     same("--prefill whole plain-GEMM re-run against --prefill whole", wh, wh_p)
     spec_logits: dict = {}
-    sp, _ = run("spec w2a2 drafter, k 4", args, spec=True, logits=spec_logits)
+    sp, _ = run("spec w2a2 drafter, k 4", args, drafter="w2a2", logits=spec_logits)
     tie_gate("spec against the baseline", baseline, sp, base_logits, spec_logits)
+    # the target drafting for itself: its drafts take the baseline decode's
+    # one-token paged path, so they are accepted but at near ties, and the
+    # rounds that emit several tokens, the bonus draw and the drafter's sync
+    # after a fully accepted round all run
+    spec_logits = {}
+    ss, m_ss = run("spec self-drafter, k 4", args, drafter="self", logits=spec_logits)
+    tie_gate("spec self-drafter against the baseline", baseline, ss, base_logits,
+             spec_logits)
+    if not m_ss["spec"]["accepted_tokens_per_step"] > 1:
+        fail(f"features spec self-drafter: {m_ss['spec']['accepted_tokens_per_step']} "
+             "tokens a slot-step, not above 1")
     del spec_logits, whole_logits
 
     # seeded sampling under w2a8_bs: a second run, --prefill-batch 2 and the
@@ -1384,12 +1413,14 @@ def phase_features(torch, serve, wrappers: dict, gemms: dict, smi: str,
     # plain GEMMs give the same tokens, and top-k 1 leaves the baseline's
     # tokens only at near ties, as greedy spec decoding does
     k1 = ["--spec-k", str(FEAT_SAMPLED_SPEC_K)]
-    sa, _ = run("sampled spec, k 1", parse(long_args + FEAT_SAMPLING + k1), spec=True)
+    sa, _ = run("sampled spec, k 1", parse(long_args + FEAT_SAMPLING + k1),
+                drafter="w2a2")
     sb, _ = run("sampled spec, k 1, --prefill-batch 2",
-                parse(long_args + FEAT_SAMPLING + k1 + ["--prefill-batch", "2"]), spec=True)
+                parse(long_args + FEAT_SAMPLING + k1 + ["--prefill-batch", "2"]),
+                drafter="w2a2")
     same("sampled spec: a second run, with --prefill-batch 2", sa, sb)
     sp_p, _ = run("sampled spec, k 1, plain GEMMs", parse(long_args + FEAT_SAMPLING + k1),
-                  spec=True, gemm_plain=True)
+                  drafter="w2a2", gemm_plain=True)
     same("sampled spec: plain-GEMM re-run", sa, sp_p)
     diff = sum(x != y for x, y in zip(sa, baseline))
     print(f"[14 features] sampled spec: {diff}/{len(sa)} requests differ from the "
@@ -1399,7 +1430,7 @@ def phase_features(torch, serve, wrappers: dict, gemms: dict, smi: str,
     t1_logits: dict = {}
     st1, _ = run("sampled spec, k 1, top-k 1",
                  parse(long_args + ["--temperature", "0.8", "--top-k", "1"] + k1),
-                 spec=True, logits=t1_logits)
+                 drafter="w2a2", logits=t1_logits)
     tie_gate("sampled spec, k 1, top-k 1 against the baseline", baseline, st1,
              base_logits, t1_logits)
     return out
@@ -1710,7 +1741,8 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         base_gb = torch.cuda.memory_allocated() / 1e9     # held before packing
         t0 = time.perf_counter()
-        cfg, qparams = serve.prepare(args, layers=MOE_ENGINE_LAYERS)
+        cfg = dataclasses.replace(serve.config_for(args)[0], n_layers=MOE_ENGINE_LAYERS)
+        qparams = serve.pack_params(cfg, args, f"plan '{plan}'")
         pack_s = time.perf_counter() - t0
         packed_gb = torch.cuda.memory_allocated() / 1e9 - base_gb
         pack_peak_gb = torch.cuda.max_memory_allocated() / 1e9

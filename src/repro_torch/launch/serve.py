@@ -387,43 +387,47 @@ def serve_paged(cfg, qparams, args, engine: Engine | None = None,
             "dispatches": ops, "engine": engine}
 
 
-def prepare(args, tp: int = 1, rank: int = 0, layers: int | None = None):
-    """Config, plan and packed parameters for ``args`` on its device; with
-    ``tp`` > 1, rank ``rank``'s slice of them; with ``layers``, the model
-    cut to its first ``layers`` layers (the widths unchanged)."""
-    device = resolve_device(args.device)
+def config_for(args):
+    """The config of ``--arch`` (reduced under ``--smoke``) under the
+    flags' plan, and the plan's one-line description."""
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
-    if layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
     quant, desc = make_quant(args)
-    cfg = dataclasses.replace(cfg, quant=quant)
+    return dataclasses.replace(cfg, quant=quant), desc
+
+
+def pack_params(cfg, args, desc: str, tp: int = 1, rank: int = 0):
+    """``cfg``'s weights drawn from ``args.seed`` and packed under its plan
+    on ``args.device``; with ``tp`` > 1, rank ``rank``'s slice of them.
+    The target and the drafter both come from here, so the drafter's
+    weights are the target's, drawn in the same order."""
+    device = resolve_device(args.device)
     print(f"[serve] {cfg.name} on {device}: packing weights under {desc}")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     t0 = time.perf_counter()
-    qparams = lm.init_params(cfg, gen, device, pack=True, tp=tp,
-                             rank=rank)                  # layer by layer
+    params = lm.init_params(cfg, gen, device, pack=True, tp=tp,
+                            rank=rank)                   # layer by layer
     _sync(device)
     print(f"  initialised and packed in {time.perf_counter() - t0:.2f}s"
           + (f" (rank {rank}'s slice of {tp})" if tp > 1 else ""))
-    return cfg, qparams
+    return params
+
+
+def prepare(args, tp: int = 1, rank: int = 0):
+    """Config, plan and packed parameters for ``args`` on its device; with
+    ``tp`` > 1, rank ``rank``'s slice of them."""
+    cfg, desc = config_for(args)
+    return cfg, pack_params(cfg, args, desc, tp, rank)
 
 
 def prepare_drafter(args, cfg):
-    """The drafter of ``--spec-draft-plan``: ``cfg`` under that plan, and
-    the same seed-drawn weights packed under it (``init_params`` draws
-    them in the same order as ``prepare``), as the reference packs its
-    drafter with ``quantize_tree`` under ``replace(cfg, quant=...)``."""
+    """The drafter of ``--spec-draft-plan``: ``cfg`` under that plan with
+    the same seed-drawn weights packed under it, as the reference packs
+    its drafter with ``quantize_tree`` under ``replace(cfg, quant=...)``."""
     dcfg = dataclasses.replace(cfg, quant=get_plan(args.spec_draft_plan))
-    device = resolve_device(args.device)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    t0 = time.perf_counter()
-    dparams = lm.init_params(dcfg, gen, device, pack=True)
-    _sync(device)
-    print(f"  drafter packed under plan '{args.spec_draft_plan}' in "
-          f"{time.perf_counter() - t0:.2f}s (spec-k {args.spec_k})")
-    return dcfg, dparams
+    return dcfg, pack_params(dcfg, args, f"the drafter's plan "
+                                         f"'{args.spec_draft_plan}'")
 
 
 def serve_rank(rank: int, world: int, args, check_ops: tuple = ()) -> dict:

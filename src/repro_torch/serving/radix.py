@@ -90,9 +90,12 @@ class RadixCache:
         held by ``blocks``; each new node takes one reference. Existing
         nodes are kept (a private copy of the same content stays
         unindexed). Returns ``(deepest node, blocks indexed)``, to pass
-        back as ``at`` / ``done`` on the next chunk's insert: the resume
-        node holds one of the slot's own blocks, so it outlives the slot's
-        next chunk."""
+        back as ``at`` / ``done`` on the next chunk's insert. The resume
+        node must hold the slot's own last block, whose reference keeps it
+        (and so its path) in the tree until that chunk: a node found
+        holding another request's copy may be evicted once that request
+        ends, so then the hint is ``(None, 0)`` and the next insert walks
+        from the root."""
         self._clock += 1
         node = self._root if at is None else at
         n = len(tokens) // self.block_size
@@ -106,6 +109,8 @@ class RadixCache:
                 self.n_nodes += 1
             child.last_use = self._clock
             node = child
+        if n and node.block != blocks[n - 1]:
+            return None, 0
         return node, n
 
     def _evictable(self):

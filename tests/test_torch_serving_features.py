@@ -182,6 +182,28 @@ def test_radix_reset_releases_only_tree_refs():
     assert pool.n_free == 7
 
 
+def test_radix_insert_hint_survives_eviction_of_another_requests_copy():
+    # two requests with one prompt, admitted together, both miss: B's first
+    # insert finds A's nodes. A ends and the pool evicts them; B's next
+    # insert must not hang its nodes under the evicted ones, or their
+    # blocks outlive reset() and never return to the pool.
+    pool = BlockPool(8)
+    rc = RadixCache(pool, block_size=2)
+    toks = np.arange(6, dtype=np.int32)
+    a, b = pool.alloc(2), pool.alloc(3)
+    rc.insert(toks[:4], a)
+    hint, done = rc.insert(toks[:4], b[:2])
+    pool.free(a)
+    assert rc.evict_one() and rc.evict_one() and rc.n_cached_blocks == 0
+    rc.insert(toks, b, at=hint, done=done)
+    assert rc.n_cached_blocks == 3
+    assert rc.match(toks) == b
+    pool.free(b)
+    pool.free(b)
+    rc.reset()
+    assert rc.n_cached_blocks == 0 and pool.n_free == 7
+
+
 def test_block_pool_double_free_and_ref_of_a_free_block_raise():
     pool = BlockPool(4)
     a = pool.alloc(2)

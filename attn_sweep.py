@@ -224,12 +224,12 @@ def clusters(torch, dev, graph_ms) -> None:
 
         def launch(C, rows):
             build.check(lib.paged_attention_launch(
-                *ops, B, KV, G, hd, bs, nb, bits, 1, C, rows // bs,
+                *ops, B, KV, G, hd, bs, nb, bits, 1, C, rows // bs, 0,
                 torch.cuda.current_stream().cuda_stream), "paged_attention")
 
         def active(C, rows):
             return lib.paged_attention_active_clusters(B, KV, G, hd, bs, nb, bits, 1, C,
-                                                       rows // bs)
+                                                       rows // bs, 0)
 
         print(f"paged_attention B={B} 32k, block {bs}, {nb} table entries", flush=True)
         sweep("paged_attention", nb * bs, B, bs, launch, active)

@@ -66,7 +66,23 @@ Phases, each printing its lines:
               scaled_dot_product_attention over the pre-dequantized bf16
               view. Each single-pass attention line prints its cluster
               size C (kernels/paged_attention.py::cluster_ranks), its
-              blocks and cudaOccupancyMaxActiveClusters
+              blocks and cudaOccupancyMaxActiveClusters. Then the local
+              slice's shapes: lut_gemm (w2a2) and lut_gemm_bs_fused
+              (w2a8_bs) at gemma3-12b's projections (3840x4096, 3840x2048,
+              4096x3840, 3840x15360, 15360x3840) and dequant_matmul (w2a16)
+              at h2o-danube-3-4b's (3840x3840, 3840x960, 3840x10240,
+              10240x3840), M 1, 4, 32, 128, each bit-identical to its
+              plain version; the paged pair at gemma3's head (KV 8, G 2,
+              hd 256) and danube's (KV 8, G 4, hd 120), int8, B 2 and 4,
+              lengths 48, 1100, 8k and 32k, with no window and windows
+              1024 and 4096 (the split at 8k with kv_splits 8, at 32k with
+              24), and at the window's edges (its start on a block
+              boundary and off it, a window shorter than a block and than
+              a tile, lengths within the window, split chunks wholly below
+              it, ranks past a length), each line with its kernel, plain,
+              SDPA over the window's rows and bound (the window's bytes)
+              times; kv_cache_attention at both heads over a wrapped ring
+              (W 1024, and 4096 for danube) and a filling one, bit for bit
   5 engine    qwen1.5-0.5b at full width with seeded random weights, packed
               under w2a2, w2a16 and w2a8_bs in turn, serving 12 requests
               through the paged engine via repro_torch.launch.serve; launch
@@ -114,7 +130,9 @@ Phases, each printing its lines:
               (w2a2: tokens and first-step logits identical; w2a16: logits
               within the stated tolerance); a profile; peak device memory
   11 fixed    the fixed-batch loop (serve.py without --paged: 4 prompts of
-              32 tokens, 16 generated) at full width and depth:
+              32 tokens, 16 generated) at full width, cut to the first 8
+              layers (FIXED_LAYERS, since the local models' phases came;
+              phases 15 and 16 run the loop at full depth):
               qwen1.5-0.5b (int8 slot cache) under w2a2, w2a16 and w2a8_bs,
               and codeqwen1.5-7b (int4 cache, hd 128) under w2a8_bs.
               Launch counts exact (kv_cache_attention layers x 15, the
@@ -148,7 +166,9 @@ Phases, each printing its lines:
               per rank: two ranks sharing one card through gloo measure
               correctness, not tensor-parallel speed
   14 features the paged engine's serving features, qwen1.5-0.5b at full
-              width and depth under w2a8_bs (int8 pool): phase 5's 12
+              width cut to its first 4 of 24 layers (FEAT_LAYERS, since
+              the local models' phases came; its spec runs took 300 of
+              its 417 s at 24 layers) under w2a8_bs (int8 pool): phase 5's 12
               requests, each prompt a shared 48-token prefix (3 blocks of
               16) before its own 4-32 tokens, 4 slots, 16 generated; the
               baseline is the chunked greedy engine. --prefix-cache and
@@ -174,11 +194,42 @@ Phases, each printing its lines:
               with --prefill-batch 2, and a plain-GEMM run give identical
               tokens, and top-k 1 leaves the baseline's tokens only at near
               ties. Launch
-              counts exact in every kernel run (lut_gemm 7 x 24 per drafter
-              forward, lut_gemm_bs_fused 7 x 24 per target forward,
-              verify included, paged_attention 24 per one-token forward of
+              counts exact in every kernel run (lut_gemm 7 x 4 per drafter
+              forward, lut_gemm_bs_fused 7 x 4 per target forward,
+              verify included, paged_attention 4 per one-token forward of
               either tree, the others 0); each run prints its decode-only
               step and tok/s beside the card's name and power limit
+  15 gemma3   gemma3-12b at full width and depth (48 layers: 40 local of
+              window 1024, 8 global; hd 256, GeGLU, vocab 262144, tied
+              head; int8 pool) under w2a8_bs, then w2a2: phase 5's 12
+              requests through the paged engine (launches exact: the
+              plan's GEMM 7 x 48 per forward, paged_attention 48 per decode
+              step under kv_splits auto, the others 0); a plain-GEMM
+              re-run cut to the first 4 requests and 8 tokens
+              at full depth, against a kernel run of the same cut (tokens
+              and first-step logits identical); a profile and the peak
+              device memory. Under w2a8_bs also: 4 prompts of 1040-1100
+              tokens (past the window; 384-row prefill chunks), 16
+              generated, every attention call of the first decode step
+              within TOL_ATTN of its plain version, and an attention-plain
+              re-run of it (first-step logits within TOL_SHARED_LOGITS,
+              beside what two plain formulations move them by); a planted
+              decode at 8192 rows with kv_splits 8 and 1 on byte-identical
+              state (every attention call of the first step within
+              TOL_ATTN; the split's, the single pass's and the plain
+              split's first-step logits within TOL_SHARED_LOGITS, beside
+              the plain single pass against the plain split); the fixed
+              loop with 2 prompts of 1536 tokens (every local ring wraps),
+              every kv_cache_attention call of the first decode step
+              identical to its plain version
+  16 danube   h2o-danube-3-4b at full width and depth (24 layers, all local
+              of window 4096, hd 120, untied head, int8 pool) under w2a16
+              the same way: the 12 requests with exact launches, the
+              plain-GEMM re-run, the window-crossing prompts with their
+              attention-plain re-run, a planted decode at 8192 rows (past
+              its window), and the fixed loop with one prompt of 4608 tokens
+Each phase prints when it starts, and the run prints every phase's seconds
+at its end.
 
 Any failure exits nonzero. The line before the last is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}. Without a CUDA
@@ -270,6 +321,66 @@ KV_CACHE_ROWS = (
     ("long 32k", 2, 16, 1, 64, 8, 32768, (32768, 32768), "bf16"),
     ("ragged, ranks past a length", 2, 16, 1, 64, 8, 5000, (4999, 700), "bf16"),
 )
+# the local-attention slice: row 9 at gemma3-12b's head (KV 8, G 2, hd 256)
+# and h2o-danube-3-4b's (KV 8, G 4, hd 120) over a local layer's ring of W
+# rows, its lengths min(pos + 1, W): full (wrapped) and filling
+KV_CACHE_ROWS += (
+    ("gemma3 ring W 1024", 4, 8, 2, 256, 8, 1024, (1024, 1024, 1024, 1024), "bf16"),
+    ("gemma3 ring W 1024, filling", 4, 8, 2, 256, 8, 1024, (1024, 600, 1024, 17),
+     "bf16"),
+    ("gemma3 global 8k", 2, 8, 2, 256, 8, 8208, (8193, 8193), "bf16"),
+    ("danube ring W 1024", 4, 8, 4, 120, 8, 1024, (1024, 1024, 1024, 1024), "bf16"),
+    ("danube ring W 4096", 2, 8, 4, 120, 8, 4096, (4096, 4096), "bf16"),
+)
+# rows 1-3 at the local models' projection shapes (K, N): gemma3-12b's (wq,
+# wk/wv, wo, w_gate/w_up, w_down) under w2a2 (lut_gemm) and w2a8_bs
+# (lut_gemm_bs_fused), h2o-danube-3-4b's (wq/wo, wk/wv, w_gate/w_up,
+# w_down) under w2a16 (dequant_matmul)
+GEMMA3_SHAPES = ((3840, 4096), (3840, 2048), (4096, 3840), (3840, 15360),
+                 (15360, 3840))
+DANUBE_SHAPES = ((3840, 3840), (3840, 960), (3840, 10240), (10240, 3840))
+LOCAL_ROWS = (1, 4, 32, 128)
+# rows 5 and 6 at those heads, int8: B 2 and 4 at every length, with no
+# window and windows 1024 and 4096 (the single pass; the split at 8k with
+# kv_splits 8 and at 32k with 24, what --kv-splits auto gives gemma3's
+# global layers there), then the window's edges
+LOCAL_HEADS = {"gemma3": (8, 2, 256), "danube": (8, 4, 120)}
+LOCAL_LENGTHS = (48, 1100, 8192, 32768)
+LOCAL_WINDOWS = (None, 1024, 4096)
+LOCAL_SPLITS = {8192: 8, 32768: 24}
+# (label, head, B, block size, lengths, window, kv_splits)
+LOCAL_ATTN_EDGES = (
+    ("lo on a block boundary", "gemma3", 2, 16, (1040, 2064), 1024, 1),
+    ("lo on a block boundary", "gemma3", 2, 16, (1040, 2064), 1024, 3),
+    ("lo off a block", "gemma3", 2, 16, (1100, 1037), 1024, 1),
+    ("lo off a block", "gemma3", 2, 16, (1100, 1037), 1024, 5),
+    ("window < block", "danube", 2, 512, (3000, 700), 100, 1),
+    ("window < block", "danube", 2, 512, (3000, 700), 100, 4),
+    ("window < tile", "danube", 2, 16, (500, 77), 50, 1),
+    ("window < tile", "danube", 2, 16, (500, 77), 50, 7),
+    ("len <= window", "gemma3", 2, 16, (1024, 600), 1024, 1),
+    ("len <= window", "gemma3", 2, 16, (1024, 600), 1024, 2),
+    ("chunks below lo", "gemma3", 2, 512, (32768, 20000), 1024, 24),
+    ("ranks past a length", "danube", 2, 16, (5000, 90), 4096, 1),
+)
+# phases 15 and 16: the local models at full width and depth, int8 pool;
+# (arch, plans, the fixed loop's batch and prompt: past the window, its
+# length a multiple of 512 so the cacheless prefill takes 512-row chunks)
+LOCAL_MODELS = (("gemma3-12b", ("w2a8_bs", "w2a2"), 2, 1536),
+                ("h2o-danube-3-4b", ("w2a16",), 1, 4608))
+LOCAL_PLAIN_REQUESTS, LOCAL_PLAIN_GEN = 4, 8   # the plain-GEMM re-run's cut
+# the window-crossing run: 4 prompts of 1040-1100 tokens, 16 generated, in
+# an engine of max_len 1152 (16-row blocks) with 384-row prefill chunks
+LOCAL_CROSS = (1040, 1100, 4, 16)
+LOCAL_CROSS_MAX_LEN, LOCAL_CROSS_CHUNK = 1152, 384
+LOCAL_CTX = 8192               # the planted decode, kv_splits 1 and LC_SPLITS
+# phase 14 serves qwen1.5-0.5b at this depth (full width): its spec runs
+# took 300 of its 417 s at 24 layers, which phases 15 and 16 need
+FEAT_LAYERS = 4
+# phase 11 runs the fixed loop at this depth (full width): 107.3 s of the
+# 1164.4 s of the first full run with phases 15 and 16, on a host 1.5x
+# slower than PR 23's
+FIXED_LAYERS = 8
 # the fixed-batch loop's runs: (arch, plan, the plan's dense GEMM op)
 FIXED_RUNS = (("qwen1.5-0.5b", "w2a2", "lut_gemm"),
               ("qwen1.5-0.5b", "w2a16", "dequant_matmul"),
@@ -958,13 +1069,16 @@ def phase_kv_cache_attention(torch, dev):
 
 
 def run_engine(torch, serve, cfg, qparams, args, capture: dict, requests=None,
-               logits_by_step: dict | None = None, **engine_kw):
+               logits_by_step: dict | None = None, check_first: list | None = None,
+               **engine_kw):
     """One serve run through the CLI's code path (of ``requests``, else the
     CLI's own); checks every decode and verify forward's logits are finite
     and keeps the first decode step's. With ``logits_by_step``, the logits
     each emitted token was chosen from, by (uid, step): a decode step's
     row, or the verify row at the token's position (a later round
-    overwrites a position a rejected draft had filled)."""
+    overwrites a position a rejected draft had filled). With
+    ``check_first``, every attention call of the first decode step is
+    also run through its plain version and its error appended there."""
     from repro_torch.serving.engine import _DECODE
 
     engine = serve.make_engine(cfg, qparams, args, **engine_kw)
@@ -982,7 +1096,9 @@ def run_engine(torch, serve, cfg, qparams, args, capture: dict, requests=None,
         return logits
 
     def decode(*a):
-        logits = record(inner_d(*a))
+        first = check_first is not None and "first_logits" not in capture
+        with checked_attention_calls(check_first) if first else contextlib.nullcontext():
+            logits = record(inner_d(*a))
         capture.setdefault("first_logits", logits.clone())
         return logits
 
@@ -1158,7 +1274,8 @@ def fixed_profile(torch, cfg, qparams, args, label: str, steps: int = 4) -> dict
 
 def long_context_run(torch, cfg, qparams, ctx: int, kv_splits: int, wrappers,
                      attn_backend: str = "auto", warm: int = LC_WARM,
-                     gen_steps: int = LC_GEN, profile: bool = True) -> dict:
+                     gen_steps: int = LC_GEN, profile: bool = True,
+                     label: str = "8 long") -> dict:
     """Planted decode at ``ctx``: ``warm`` warm-up steps, the first with
     every attention call checked against its plain version, ``gen_steps``
     timed steps (host clock around synchronised steps), then 2 profiled
@@ -1198,7 +1315,7 @@ def long_context_run(torch, cfg, qparams, ctx: int, kv_splits: int, wrappers,
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     prof = profile_steps(torch, engine._do_decode, n_prof,
-                         f"[8 long] ctx {ctx} kv_splits {kv_splits} profile") \
+                         f"[{label}] ctx {ctx} kv_splits {kv_splits} profile") \
         if profile else None
     launches = {name: w.launches for name, w in wrappers.items()}
     out = {"steps": engine.decode_steps, "launches": launches,
@@ -1227,6 +1344,14 @@ NEAR_TIE_REL = 2 * TOL_LOGITS
 # logits by up to 0.14 of max|logit| (two plain attention passes at 32k;
 # ROADMAP queue 3); a wrong context moves them by the order of max|logit|
 TOL_SHARED_LOGITS = 0.15
+# phases 15 and 16 hold the kernel-vs-plain first-step logits of the runs
+# whose contexts pass the window (1040-1100 rows, and the planted 8192) to
+# TOL_SHARED_LOGITS too: there every attention call meets its plain version
+# within TOL_ATTN, and 48 quantized layers carry the last-ulp differences
+# of two float formulations to the logits (gemma3-12b's read 0.0218 of
+# max|logit| at 1040-1100 rows, where each of its 48 calls was within
+# 3e-7); each such line prints how far two plain formulations (the single
+# pass and the split) move the same logits
 FEAT_SAMPLED_SPEC_K = 1        # the sampled spec runs: 2 drafter forwards a round
 
 
@@ -1258,9 +1383,13 @@ def phase_features(torch, serve, wrappers: dict, gemms: dict, smi: str,
     parse = serve.build_parser().parse_args
     long_args = FEAT_ARGS + ["--prompt-len", str(FEAT_PREFIX + 32)]
     args = parse(long_args)
-    cfg, qparams = serve.prepare(args)
+    cfg, desc = serve.config_for(args)
+    cfg = dataclasses.replace(cfg, n_layers=FEAT_LAYERS)   # the first FEAT_LAYERS layers
+    qparams = serve.pack_params(cfg, args, desc)
     dcfg, dparams = serve.prepare_drafter(parse(FEAT_ARGS + ["--spec-draft-plan", "w2a2"]),
                                           cfg)
+    print(f"[14 features] {cfg.name} at full width, cut to its first {FEAT_LAYERS} "
+          "of 24 layers (target and drafter)", flush=True)
     prefix = np.random.default_rng(args.seed + 1).integers(0, cfg.vocab_size, FEAT_PREFIX)
     prompts = [np.concatenate([prefix, r.prompt])
                for r in serve.make_requests(cfg, parse(FEAT_ARGS))]
@@ -1436,6 +1565,436 @@ def phase_features(torch, serve, wrappers: dict, gemms: dict, smi: str,
     return out
 
 
+def phase_local_gemms(torch, dev):
+    """Rows 1-3 at the local models' projection shapes (GEMMA3_SHAPES,
+    DANUBE_SHAPES) and M in LOCAL_ROWS, each bit-identical to its plain
+    version, with its tiling, library and bound times."""
+    from repro_torch.core import packing, quant
+    from repro_torch.core.lut import product_lut
+    from repro_torch.kernels.lut_dequant_matmul import (dequant_matmul_cuda,
+                                                        dequant_matmul_plain)
+    from repro_torch.kernels.lut_gemm import lut_gemm_cuda, lut_gemm_plain
+    from repro_torch.kernels.lut_gemm_bitsliced import (lut_gemm_bs_fused_cuda,
+                                                        lut_gemm_bs_fused_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = {"lut_gemm": [], "dequant_matmul": [], "lut_gemm_bs_fused": []}
+
+    def codes(shape, bits):
+        return torch.randint(0, 2 ** bits, shape, generator=gen, device=dev,
+                             dtype=torch.uint8)
+
+    def check(name, cfg, M, K, N, kern, plain, library, n_bytes, peak, tiling):
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        err = (got - want).abs().max().item()
+        k_ms = graph_ms(torch, kern)
+        p_ms = graph_ms(torch, plain, reps=2, replays=2)
+        l_ms = graph_ms(torch, library)
+        b, by = bound_ms(n_bytes + M * N * 4, 2 * M * N * K, peak)
+        rows[name].append({"kernel": name, "cfg": cfg, "M": M, "K": K, "N": N,
+                           "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                           "library_ms": l_ms, "bound_ms": b, "bound_by": by, **tiling})
+        print(f"  {name:17s} {cfg:14s} M={M:<3d} K={K:<5d} N={N:<5d} err={err:.3g} "
+              f"kernel={k_ms:.5f}ms plain={p_ms:.5f}ms library={l_ms:.5f}ms "
+              f"bound={b:.5f}ms ({by}); {bs_tiling_text(tiling)}", flush=True)
+        if not (err == 0.0 and bool(torch.isfinite(got).all())):
+            fail(f"{name} {cfg} M={M} K={K} N={N} is not bit-identical to its "
+                 f"plain version: max_abs_err={err}")
+
+    for K, N in GEMMA3_SHAPES:
+        w2 = codes((N, K), 2)
+        wp, planes = packing.pack(w2, 2), packing.pack_bitplanes_signed(w2, 2)
+        sc = torch.rand((N,), generator=gen, device=dev) * 0.02 + 0.01
+        lut = product_lut(quant.uniform_codebook(2, device=dev),
+                          quant.uniform_codebook(2, device=dev)).table
+        w_lut = quant.uniform_codebook(2, device=dev).levels[w2.long()].to(torch.bfloat16)
+        w_bs = ((w2.float() - 2) * sc[:, None]).to(torch.bfloat16)
+        for M in LOCAL_ROWS:
+            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+            ap = packing.pack(codes((M, K), 2), 2)
+            kw = dict(w_bits=2, a_bits=2, group_size=None)
+            check("lut_gemm", "w2a2 gemma3", M, K, N,
+                  lambda: lut_gemm_cuda(ap, wp, lut, None, **kw),
+                  lambda: lut_gemm_plain(ap, wp, lut, None, **kw),
+                  lambda: torch.matmul(x, w_lut.T), nbytes(ap, wp, lut), INT8_TC_OPS,
+                  dense_tiling("lut_gemm", M, N, K, 2, 2, None))
+            kb = dict(w_bits=2, a_bits=8, group_size=None)
+            check("lut_gemm_bs_fused", "w2a8_bs gemma3", M, K, N,
+                  lambda: lut_gemm_bs_fused_cuda(x, planes, sc, None, **kb),
+                  lambda: lut_gemm_bs_fused_plain(x, planes, sc, None, **kb),
+                  lambda: torch.matmul(x, w_bs.T), nbytes(x, planes, sc), INT8_TC_OPS,
+                  bs_tiling("lut_gemm_bs_fused", M, N, K, 2, None))
+        del w2, wp, planes, w_lut, w_bs
+    for K, N in DANUBE_SHAPES:
+        w2 = codes((N, K), 2)
+        wp = packing.pack(w2, 2)
+        cb = quant.uniform_codebook(2, device=dev).levels
+        sc = torch.rand((N,), generator=gen, device=dev) * 0.1 + 0.01
+        w_deq = (cb[w2.long()] * sc[:, None]).to(torch.bfloat16)
+        for M in LOCAL_ROWS:
+            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+            check("dequant_matmul", "w2a16 danube", M, K, N,
+                  lambda: dequant_matmul_cuda(x, wp, cb, sc, bits=2, group_size=None),
+                  lambda: dequant_matmul_plain(x, wp, cb, sc, bits=2, group_size=None),
+                  lambda: torch.matmul(x, w_deq.T), nbytes(x, wp, cb, sc), BF16_TC_FLOPS,
+                  dense_tiling("dequant_matmul", M, N, K, 2, 16, None))
+        del w2, wp, w_deq
+    return rows
+
+
+def window_view(torch, pool, sc, tbl, lens, window, bits):
+    """The dequantized rows [lo_b, lo_b + L) of each sequence (L the longest
+    window's rows), and the mask of those below lengths[b]: what SDPA over
+    the window reads."""
+    from repro_torch.kernels.ref import dequant_kv_tile
+
+    bs = pool.shape[1]
+    n = lens if window is None else torch.clamp(lens, max=window)
+    lo = lens - n
+    L = int(n.max())
+    idx = lo[:, None] + torch.arange(L, device=lens.device)[None, :]
+    valid = idx < lens[:, None]
+    idx = torch.where(valid, idx, lo[:, None])
+    blk = torch.gather(tbl, 1, idx // bs)
+    return dequant_kv_tile(pool[blk, idx % bs], sc[blk, idx % bs], bits), valid
+
+
+def phase_local_attention(torch, dev):
+    """Rows 5 and 6 at the local models' heads (LOCAL_HEADS, int8), every
+    length, batch and window, and at the window's edges
+    (LOCAL_ATTN_EDGES), each within TOL_ATTN of its plain version; SDPA over
+    the window's rows, and a bound on the window's bytes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_attention as PA
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = {"paged_attention": [], "paged_attention_splitkv": []}
+    grid = []
+    for head in LOCAL_HEADS:
+        for B in (2, 4):
+            for n in LOCAL_LENGTHS:
+                bs = 512 if n >= 8192 else 16
+                for w in LOCAL_WINDOWS:
+                    grid.append((f"{head} len {n}", head, B, bs, (n,) * B, w, 1))
+                    if n in LOCAL_SPLITS:
+                        grid.append((f"{head} len {n}", head, B, bs, (n,) * B, w,
+                                     LOCAL_SPLITS[n]))
+    for label, head, B, bs, lengths, window, ks in grid + list(LOCAL_ATTN_EDGES):
+        KV, G, hd = LOCAL_HEADS[head]
+        nb = -(-max(lengths) // bs)
+        ops = attention_operands(torch, dev, gen, B=B, KV=KV, G=G, hd=hd, bits=8,
+                                 bs=bs, lengths=lengths, nb=nb, q_dtype=torch.bfloat16)
+        q, kp, ksc, vp, vsc, tbl, lens = ops
+        if ks == 1:
+            name = "paged_attention"
+
+            def kern():
+                return PA.paged_attention_cuda(*ops, bits=8, window=window)
+
+            def plain():
+                return PA.paged_attention_plain(*ops, bits=8, window=window)
+        else:
+            name = "paged_attention_splitkv"
+
+            def kern():
+                return PA.paged_attention_splitkv_cuda(*ops, bits=8, kv_splits=ks,
+                                                       window=window)
+
+            def plain():
+                return PA.paged_attention_splitkv_plain(*ops, bits=8, kv_splits=ks,
+                                                        window=window)
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and err <= TOL_ATTN * scale
+        k_ms = graph_ms(torch, kern)
+        p_ms = graph_ms(torch, plain, reps=2, replays=2)
+        # library: SDPA over the window's rows, pre-dequantized bf16
+        kd, valid = window_view(torch, kp, ksc, tbl, lens, window, 8)
+        vd, _ = window_view(torch, vp, vsc, tbl, lens, window, 8)
+
+        def heads(d):
+            return d.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).to(
+                torch.bfloat16).contiguous()
+
+        kh, vh = heads(kd), heads(vd)
+        qs = q.reshape(B, KV * G, 1, hd).to(torch.bfloat16)
+        mask = valid[:, None, None, :]
+        l_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(qs, kh, vh,
+                                                                      attn_mask=mask))
+        del kd, vd, kh, vh
+        n_rows = sum(min(n, window or n) for n in lengths)
+        n_bytes = n_rows * KV * (hd + 4) * 2 + nbytes(q) + B * KV * G * hd * 4
+        b, by = bound_ms(n_bytes, 4 * n_rows * KV * G * hd, BF16_TC_FLOPS)
+        if ks == 1:
+            C, active = PA.paged_attention_active_clusters(B, KV, G, hd, bs, nb, 8,
+                                                           torch.bfloat16, window)
+            how = f"cluster {C}, {B * KV * C} blocks, {active} clusters active at once"
+            extra = dict(cluster=C, blocks=B * KV * C, active_clusters=active)
+        else:
+            K, C, active = PA.paged_attention_splitkv_active_clusters(
+                B, KV, G, hd, bs, nb, 8, torch.bfloat16, ks, window)
+            how = (f"{K} cluster(s) a head of {C} ranks, {B * KV * K * C} blocks"
+                   f"{' + merge' if K > 1 else ''}, {active} clusters active at once")
+            extra = dict(clusters_per_head=K, cluster=C, blocks=B * KV * K * C,
+                         active_clusters=active)
+        rows[name].append({"kernel": name, "label": label, "B": B, "KV": KV, "G": G,
+                           "hd": hd, "bits": 8, "bs": bs, "lengths": list(lengths),
+                           "nb": nb, "kv_splits": ks, "window": window, "q": "bf16",
+                           "max_abs_err": err, "max_abs_plain": scale, "ms": k_ms,
+                           "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b,
+                           "bound_by": by, **extra})
+        lens_txt = list(lengths) if len(set(lengths)) > 1 else lengths[0]
+        print(f"  {name:23s} {label:24s} B={B} KV={KV} G={G} hd={hd} int8 bs={bs} "
+              f"len={lens_txt} window={window} splits={ks} err={err:.3g} (max|plain| "
+              f"{scale:.3g}) kernel={k_ms:.5f}ms plain={p_ms:.5f}ms "
+              f"sdpa-window={l_ms:.5f}ms bound={b:.5f}ms ({by}, window bytes); {how}",
+              flush=True)
+        if not ok:
+            fail(f"{name} {label} window {window} disagrees with its plain version: "
+                 f"max_abs_err={err}, max|plain|={scale}")
+        del ops, q, kp, ksc, vp, vsc
+    return rows
+
+
+def local_requests(cfg, lo: int, hi: int, count: int, gen: int, seed: int) -> list:
+    """``count`` prompts of lo..hi tokens from numpy's default_rng(seed)."""
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, int(P)), max_new=gen)
+            for i, P in enumerate(rng.integers(lo, hi + 1, count))]
+
+
+def phase_local_model(torch, serve, wrappers: dict, gemms: dict, smi: str,
+                      expect_launches, tag: str, arch: str, plans: tuple,
+                      fixed_b: int, fixed_p: int) -> dict:
+    """Phases 15 and 16 (see the module docstring): ``arch`` at full width
+    and depth under each of ``plans`` (the first also runs the window-
+    crossing engine, the planted decode and the fixed loop)."""
+    plan_op = {"w2a2": "lut_gemm", "w2a16": "dequant_matmul",
+               "w2a8_bs": "lut_gemm_bs_fused"}
+    parse = serve.build_parser().parse_args
+    out: dict = {}
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def launches():
+        return {name: w.launches for name, w in wrappers.items()}
+
+    def plain_gemms(c):
+        return dataclasses.replace(c, quant=dataclasses.replace(c.quant, backend="ref"))
+
+    for i, plan in enumerate(plans):
+        t_plan = time.perf_counter()
+        op = plan_op[plan]
+        args = parse(["--arch", arch, "--paged", "--plan", plan, "--device", "cuda"])
+        torch.cuda.reset_peak_memory_stats()
+        cfg, qparams = serve.prepare(args)
+        packed_gb = torch.cuda.memory_allocated() / 1e9
+        n = cfg.n_layers
+        what = f"{arch} {plan}"
+        res: dict = {}
+
+        def engine_run(label, c, run_args, requests=None, check_first=None, **kw):
+            """One engine run with launch counts reset just before and read just
+            after (``check_first``: run_engine's)."""
+            cap: dict = {}
+            reset()
+            r = run_engine(torch, serve, c, qparams, run_args, cap, requests=requests,
+                           check_first=check_first, **kw)
+            r["launches"] = launches()
+            r["first_logits"] = cap["first_logits"]
+            m = r["metrics"]
+            print(f"[{tag}] {what} {label}: {len(r['requests'])} requests, "
+                  f"{r['tokens']} tokens, {r['tok_per_s']:.1f} tok/s, decode-only step "
+                  f"{r['decode_step_ms']:.3f} ms on {smi} | launches {r['launches']} over "
+                  f"{m['decode_steps'] + m['prefill_chunks']} forwards, "
+                  f"{m['decode_steps']} decode steps | {r['seconds']:.1f}s", flush=True)
+            return r
+
+        def forwards(r):
+            return r["metrics"]["decode_steps"] + r["metrics"]["prefill_chunks"]
+
+        # the engine: phase 5's 12 requests, exact launch counts (the
+        # attention-plain re-run takes the window-crossing prompts below)
+        res_k = engine_run("engine, 12 requests", cfg, args)
+        expect_launches(f"{what} engine", res_k["launches"],
+                        {op: 7 * n * forwards(res_k),
+                         "paged_attention": n * res_k["metrics"]["decode_steps"]})
+        # the GEMMs on their plain versions, cut to the first
+        # LOCAL_PLAIN_REQUESTS requests and LOCAL_PLAIN_GEN tokens
+        cut = parse(["--arch", arch, "--paged", "--plan", plan, "--device", "cuda",
+                     "--gen", str(LOCAL_PLAIN_GEN)])
+        reqs = serve.make_requests(cfg, args)[:LOCAL_PLAIN_REQUESTS]
+        for r in reqs:
+            r.max_new = LOCAL_PLAIN_GEN
+        cut_k = engine_run(f"cut to {LOCAL_PLAIN_REQUESTS} requests x "
+                           f"{LOCAL_PLAIN_GEN} tokens", cfg, cut, requests=reqs)
+        reqs_p = serve.make_requests(cfg, args)[:LOCAL_PLAIN_REQUESTS]
+        for r in reqs_p:
+            r.max_new = LOCAL_PLAIN_GEN
+        cut_p = engine_run("the same cut, plain GEMMs", plain_gemms(cfg), cut,
+                           requests=reqs_p)
+        if any(cut_p["launches"][g] for g in gemms):
+            fail(f"{what}: the plain-GEMM run launched a GEMM kernel")
+        same = sum(a.out == b.out for a, b in zip(cut_k["requests"], cut_p["requests"]))
+        rel = rel_diff(cut_k["first_logits"], cut_p["first_logits"])
+        print(f"[{tag}] {what}: plain-GEMM re-run (cut: the first "
+              f"{LOCAL_PLAIN_REQUESTS} requests, {LOCAL_PLAIN_GEN} tokens, all {n} "
+              f"layers): tokens identical for {same}/{len(reqs)} requests, first "
+              f"decode step logits max rel diff {rel:.3g}", flush=True)
+        if plan != "w2a16" and (same != len(reqs) or rel != 0.0):
+            fail(f"{what}: kernel and plain-GEMM paths differ (tokens identical for "
+                 f"{same}/{len(reqs)} requests, first-step logits by {rel})")
+        if plan == "w2a16" and (same != len(reqs) or rel > TOL_LOGITS):
+            fail(f"{what}: plain-GEMM re-run: tokens identical for {same}/{len(reqs)}, "
+                 f"first-step logits differ by {rel} > {TOL_LOGITS}")
+        res.update(launches=res_k["launches"], tok_per_s=res_k["tok_per_s"],
+                   decode_step_ms=res_k["decode_step_ms"],
+                   plain_gemm_tokens_identical=same, plain_gemm_logits_rel_diff=rel,
+                   plain_gemm_decode_step_ms=cut_p["decode_step_ms"],
+                   profile=phase_profile(torch, serve, cfg, qparams, args,
+                                         f"[{tag} profile] {what}"))
+        if i == 0:
+            # prompts across the window: every local layer's decode reads
+            # window rows of a longer context; the first step's attention
+            # calls checked against their plain versions
+            lo, hi, count, gen = LOCAL_CROSS
+            cross_args = parse(["--arch", arch, "--paged", "--plan", plan, "--device",
+                                "cuda", "--gen", str(gen), "--prompt-len",
+                                str(LOCAL_CROSS_MAX_LEN - gen - 16)])
+            errs: list = []
+            cr = engine_run(f"{count} prompts of {lo}-{hi} tokens", cfg, cross_args,
+                            requests=local_requests(cfg, lo, hi, count, gen, 17),
+                            check_first=errs, chunk_size=LOCAL_CROSS_CHUNK)
+            expect_launches(f"{what} window-crossing run", cr["launches"],
+                            {op: 7 * n * forwards(cr),
+                             "paged_attention": n * cr["metrics"]["decode_steps"]})
+            if len(errs) != n or max(errs) > TOL_ATTN:
+                fail(f"{what} window-crossing run: {len(errs)} checked attention "
+                     f"calls (want {n}), max rel err {max(errs, default=None)}")
+            cra = engine_run("the same prompts, attention plain", cfg, cross_args,
+                             requests=local_requests(cfg, lo, hi, count, gen, 17),
+                             attn_backend="ref", chunk_size=LOCAL_CROSS_CHUNK)
+            # the model's conditioning: two plain formulations (the single
+            # pass's oracle and the split's, kv_splits 3) on the same prompts
+            crs = engine_run("the same prompts, attention plain, kv_splits 3", cfg,
+                             parse(["--arch", arch, "--paged", "--plan", plan, "--device",
+                                    "cuda", "--gen", str(gen), "--prompt-len",
+                                    str(LOCAL_CROSS_MAX_LEN - gen - 16),
+                                    "--kv-splits", "3"]),
+                             requests=local_requests(cfg, lo, hi, count, gen, 17),
+                             attn_backend="ref", chunk_size=LOCAL_CROSS_CHUNK)
+            rel_c = rel_diff(cr["first_logits"], cra["first_logits"])
+            cond_c = rel_diff(crs["first_logits"], cra["first_logits"])
+            same_c = sum(a.out == b.out for a, b in zip(cr["requests"], cra["requests"]))
+            print(f"[{tag}] {what} window-crossing run: the first step's {len(errs)} "
+                  f"attention calls each within {max(errs):.3g} of their plain version; "
+                  f"attention-plain run: tokens identical for {same_c}/{count}, first "
+                  f"decode step logits max rel diff {rel_c:.3g}; two plain "
+                  f"formulations (single pass, split 3) differ by {cond_c:.3g}", flush=True)
+            if rel_c > TOL_SHARED_LOGITS:
+                fail(f"{what} window-crossing run: attention kernel and plain "
+                     f"first-step logits differ by {rel_c} > {TOL_SHARED_LOGITS}")
+            res["window_crossing"] = {
+                "decode_step_ms": cr["decode_step_ms"], "tok_per_s": cr["tok_per_s"],
+                "launches": cr["launches"], "first_step_attention_call_max_rel_err":
+                max(errs), "attn_plain_logits_rel_diff": rel_c,
+                "attn_plain_tokens_identical": same_c,
+                "plain_single_vs_plain_split_logits_rel_diff": cond_c}
+            # the planted decode at LOCAL_CTX: kv_splits LC_SPLITS and 1 on
+            # byte-identical state, and the split on its plain version
+            split = long_context_run(torch, cfg, qparams, LOCAL_CTX, LC_SPLITS, wrappers,
+                                     label=tag)
+            single = long_context_run(torch, cfg, qparams, LOCAL_CTX, 1, wrappers,
+                                      label=tag)
+            ref = long_context_run(torch, cfg, qparams, LOCAL_CTX, LC_SPLITS, wrappers,
+                                   attn_backend="ref", warm=1, gen_steps=0,
+                                   profile=False)
+            ref1 = long_context_run(torch, cfg, qparams, LOCAL_CTX, 1, wrappers,
+                                    attn_backend="ref", warm=1, gen_steps=0,
+                                    profile=False)
+            expect_launches(f"{what} planted split", split["launches"],
+                            {op: 7 * n * split["steps"],
+                             "paged_attention_splitkv": n * split["steps"]})
+            expect_launches(f"{what} planted single", single["launches"],
+                            {op: 7 * n * single["steps"],
+                             "paged_attention": n * single["steps"]})
+            call_errs = split["first_step_call_errs"] + single["first_step_call_errs"]
+            if len(call_errs) != 2 * n or max(call_errs) > TOL_ATTN:
+                fail(f"{what} planted {LOCAL_CTX}: {len(call_errs)} checked attention "
+                     f"calls (want {2 * n}), max rel err {max(call_errs)}")
+            rel_s = rel_diff(split["first_logits"], single["first_logits"])
+            rel_r = rel_diff(split["first_logits"], ref["first_logits"])
+            cond = rel_diff(ref1["first_logits"], ref["first_logits"])
+            print(f"[{tag}] {what} planted {LOCAL_CTX}, {LC_SLOTS} slots: decode-only "
+                  f"step {split['decode_step_ms']:.3f} ms (kv_splits {LC_SPLITS}) / "
+                  f"{single['decode_step_ms']:.3f} ms (kv_splits 1) on {smi}; attention "
+                  f"kernels {split['profile']['attention_device_ms_per_step']} / "
+                  f"{single['profile']['attention_device_ms_per_step']} ms/step; the "
+                  f"first step's {len(call_errs)} attention calls each within "
+                  f"{max(call_errs):.3g} of their plain version; first-step logits "
+                  f"split vs single {rel_s:.3g}, split kernel vs plain {rel_r:.3g}; "
+                  f"the plain single pass vs the plain split {cond:.3g}", flush=True)
+            if rel_s > TOL_SHARED_LOGITS or rel_r > TOL_SHARED_LOGITS:
+                fail(f"{what} planted {LOCAL_CTX}: first-step logits differ (split vs "
+                     f"single {rel_s}, split vs plain {rel_r}) > {TOL_SHARED_LOGITS}")
+            res["planted"] = {"split_decode_step_ms": split["decode_step_ms"],
+                              "single_decode_step_ms": single["decode_step_ms"],
+                              "split_profile": split["profile"],
+                              "single_profile": single["profile"],
+                              "first_step_attention_call_max_rel_err": max(call_errs),
+                              "logits_rel_diff_split_single": rel_s,
+                              "logits_rel_diff_split_plain": rel_r,
+                              "logits_rel_diff_plain_single_plain_split": cond}
+            del split, single, ref, ref1
+            gc.collect()
+            torch.cuda.empty_cache()
+            # the fixed loop with prompts past the window: every local
+            # layer's ring wraps; the first decode step's kv_cache_attention
+            # calls bit for bit against their plain version (the replay)
+            fargs = parse(["--arch", arch, "--plan", plan, "--device", "cuda",
+                           "--batch", str(fixed_b), "--prompt-len", str(fixed_p)])
+            call_errs = []
+            reset()
+            fx = fixed_run(torch, serve, cfg, qparams, fargs, call_errs=call_errs)
+            gen = fargs.gen
+            expect_launches(f"{what} fixed", launches(),
+                            {op: 7 * n * gen, "kv_cache_attention": n * (gen - 1)})
+            if len(call_errs) != n or max(call_errs) != 0.0:
+                fail(f"{what} fixed: {len(call_errs)} checked kv_cache_attention "
+                     f"calls (want {n}), max rel err {max(call_errs, default=None)} "
+                     "(want 0)")
+            rings = sorted({min(fixed_p + gen, cfg.window) for t in cfg.layer_types()
+                            if t == "local"})
+            print(f"[{tag}] {what} fixed loop, B {fixed_b} x P {fixed_p}, gen {gen}: "
+                  f"prefill {fx['prefill_ms']:.1f} ms, decode {fx['tok_per_s']:.1f} "
+                  f"tok/s, decode-only step {fx['decode_step_ms']:.3f} ms on {smi}; "
+                  f"local rings of {rings} rows, wrapped; the first decode step's "
+                  f"{len(call_errs)} kv_cache_attention calls identical to their "
+                  "plain version", flush=True)
+            res["fixed"] = {"prefill_ms": fx["prefill_ms"], "tok_per_s": fx["tok_per_s"],
+                            "decode_step_ms": fx["decode_step_ms"]}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        res.update(packed_gb=packed_gb, peak_gb=peak_gb,
+                   seconds=time.perf_counter() - t_plan)
+        print(f"[{tag}] {what}: packed weights {packed_gb:.2f} GB, peak device memory "
+              f"{peak_gb:.2f} GB; {res['seconds']:.1f}s", flush=True)
+        out[plan] = res
+        del qparams, res_k, cut_k, cut_p
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1458,6 +2017,15 @@ def main() -> int:
     from repro_torch.models import lm
 
     t_start = time.perf_counter()
+    starts: dict = {}
+
+    def mark(name):
+        """Phase ``name`` starts now; the run's last line of phases prints
+        each phase's seconds."""
+        starts[name] = time.perf_counter() - t_start
+        print(f"[{name}] started at {starts[name]:.1f}s", flush=True)
+
+    mark("1-3 device, settings, build")
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -1485,6 +2053,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}", flush=True)
 
+    mark("4 kernels")
     print("[4 kernels] kernel vs plain at the serving shapes "
           f"(tolerances: lut_gemm exact / grouped {TOL_LUT_GROUPED} rel, "
           f"dequant_matmul exact, lut_gemm_bs_fused and lut_gemm_bitsliced exact "
@@ -1497,6 +2066,12 @@ def main() -> int:
     rows.update(phase_attention(torch, dev))
     rows.update(phase_kv_cache_attention(torch, dev))
     rows.update(phase_experts(torch, dev))
+    print(f"[4 kernels] the local slice's shapes: rows 1-3 at gemma3-12b's and "
+          f"h2o-danube-3-4b's projections, rows 5 and 6 with a window at hd 256 and "
+          f"120 (done so far at {time.perf_counter() - t_start:.1f}s)", flush=True)
+    for name, more in {**phase_local_gemms(torch, dev),
+                       **phase_local_attention(torch, dev)}.items():
+        rows[name] += more
     print(f"[4 kernels] done at {time.perf_counter() - t_start:.1f}s", flush=True)
 
     gemms = {"lut_gemm": lut_gemm_cuda, "dequant_matmul": dequant_matmul_cuda,
@@ -1522,6 +2097,7 @@ def main() -> int:
             fail(f"{what}: launches {launches}, expected {want}")
 
     results = {}
+    mark("5-7 engine, plain, profile")
     for plan, op in plan_op.items():
         args = serve.build_parser().parse_args(
             ["--arch", "qwen1.5-0.5b", "--paged", "--plan", plan,
@@ -1602,7 +2178,7 @@ def main() -> int:
     del res_k, res_p, res_a, cap_k, cap_p, cap_a
 
     # 8: planted long-context decode, qwen1.5-0.5b under w2a8_bs
-    print(f"[8 long] started at {time.perf_counter() - t_start:.1f}s", flush=True)
+    mark("8 long")
     long_ctx = {}
     for ctx in LC_CONTEXTS:
         split = long_context_run(torch, cfg, qparams, ctx, LC_SPLITS, wrappers)
@@ -1683,7 +2259,7 @@ def main() -> int:
     del qparams
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[9 codeqwen] started at {time.perf_counter() - t_start:.1f}s", flush=True)
+    mark("9 codeqwen")
     args = serve.build_parser().parse_args(
         ["--arch", "codeqwen1.5-7b", "--paged", "--plan", "w2a8_bs", "--device",
          "cuda"])
@@ -1730,7 +2306,7 @@ def main() -> int:
     del qparams, res_k, res_a, cap_k, cap_a
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[10 moe] started at {time.perf_counter() - t_start:.1f}s", flush=True)
+    mark("10 moe")
     moe_ops = {"w2a2": ("expert_lut_gemm", "lut_gemm"),
                "w2a16": ("expert_dequant_matmul", "dequant_matmul")}
     moe = {}
@@ -1801,14 +2377,17 @@ def main() -> int:
     results["moonshot"] = moe
 
     # 11: the fixed-batch loop at full width and depth
-    print(f"[11 fixed] started at {time.perf_counter() - t_start:.1f}s", flush=True)
+    mark("11 fixed")
     fixed = {}
     for arch, plan, op in FIXED_RUNS:
         args = serve.build_parser().parse_args(
             ["--arch", arch, "--plan", plan, "--device", "cuda"])
-        cfg, qparams = serve.prepare(args)
+        cfg, desc = serve.config_for(args)
+        full = cfg.n_layers
+        cfg = dataclasses.replace(cfg, n_layers=FIXED_LAYERS)   # the first layers
+        qparams = serve.pack_params(cfg, args, desc)
         n, B, gen = cfg.n_layers, args.batch, args.gen
-        what = f"{arch} {plan} ({cfg.kv_cache_dtype} cache)"
+        what = f"{arch} {plan} ({cfg.kv_cache_dtype} cache, {n} of {full} layers)"
         call_errs: list = []
         reset_launches()
         res_k = fixed_run(torch, serve, cfg, qparams, args, call_errs=call_errs)
@@ -1868,7 +2447,7 @@ def main() -> int:
     results["fixed"] = fixed
 
     # 12: moonshot-v1-16b-a3b under the grouped w2a2g64 plan, fixed loop
-    print(f"[12 moe g64] started at {time.perf_counter() - t_start:.1f}s", flush=True)
+    mark("12 moe g64")
     args = serve.build_parser().parse_args(
         ["--arch", "moonshot-v1-16b-a3b", "--plan", "w2a2g64", "--device", "cuda"])
     cfg, qparams = serve.prepare(args)
@@ -1908,7 +2487,7 @@ def main() -> int:
     # 13: tensor-parallel serving, 2 ranks on this card through --tp's own
     # launcher: w2a8_bs against phase 5's single-rank run, then w2a8_bs_g64
     # against a single-rank run here
-    print(f"[13 tp] started at {time.perf_counter() - t_start:.1f}s", flush=True)
+    mark("13 tp")
     from repro_torch.configs import get_config
     cfg = get_config("qwen1.5-0.5b")
     tp = {}
@@ -2008,9 +2587,23 @@ def main() -> int:
     results["tp"] = tp
 
     # 14: the paged engine's serving features
-    print(f"[14 features] started at {time.perf_counter() - t_start:.1f}s", flush=True)
+    mark("14 features")
     results["features"] = phase_features(torch, serve, wrappers, gemms, smi,
                                          expect_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15 and 16: the local-attention models at full width and depth
+    for tag, (arch, plans, fixed_b, fixed_p) in zip(("15 gemma3", "16 danube"),
+                                                     LOCAL_MODELS):
+        mark(tag)
+        results[arch] = phase_local_model(torch, serve, wrappers, gemms, smi,
+                                          expect_launches, tag, arch, plans, fixed_b,
+                                          fixed_p)
+    mark("done")
+    names = list(starts)
+    print("[phases] seconds: " + ", ".join(
+        f"{a} {starts[b] - starts[a]:.1f}" for a, b in zip(names, names[1:])), flush=True)
 
     print("[results] " + json.dumps({"engine": results}), flush=True)
     lc_split = long_ctx[LC_CONTEXTS[-1]]["split_launches"]

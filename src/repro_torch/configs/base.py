@@ -1,8 +1,9 @@
 """Model config (``ModelConfig``, ``MoEConfig``) and the smoke reduction.
 
 The port's copy of ``repro/configs/base.py`` for the fields the dense and
-MoE decoder paths read. Other families (recurrent, encoder-decoder,
-vision) come with their slices of the port.
+MoE decoder paths read, global and local (sliding-window) attention
+layers included. Other families (recurrent, encoder-decoder, vision) come
+with their slices of the port.
 """
 
 from __future__ import annotations
@@ -35,11 +36,13 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None
-    pattern: tuple = ("global",)   # per-layer block pattern
+    pattern: tuple = ("global",)   # per-layer block pattern: "global" | "local"
+    window: int = 4096             # local-attention window
+    kv_repeat: int = 1             # kv heads replicated for the cacheless prefill
     qkv_bias: bool = False
     rope_theta: float = 1e4
     pos_embed: str = "rope"
-    mlp: str = "swiglu"
+    mlp: str = "swiglu"            # swiglu | geglu
     norm: str = "rmsnorm"
     tie_embeddings: bool = True
     moe: Optional[MoEConfig] = None
@@ -58,6 +61,14 @@ class ModelConfig:
     @property
     def n_remainder(self) -> int:
         return self.n_layers % len(self.pattern)
+
+    def layer_type(self, i: int) -> str:
+        """Layer i's attention type ("global" or "local"): the pattern
+        repeated over the superblocks, then its prefix for the remainder."""
+        return self.pattern[i % len(self.pattern)]
+
+    def layer_types(self) -> tuple:
+        return tuple(self.layer_type(i) for i in range(self.n_layers))
 
     def moe_flags(self) -> tuple:
         """Per-layer MoE flag, aligned with the layers."""
@@ -83,5 +94,6 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
         cfg,
         n_layers=n_layers, d_model=64, n_heads=heads, n_kv_heads=kv,
         head_dim=16, d_ff=128, vocab_size=512, moe=moe,
+        window=min(cfg.window, 16),
         kv_cache_dtype="bfloat16",
     )

@@ -23,8 +23,9 @@
 //   - C ranks give B * KV * C blocks; the single passes take C from
 //     kernels/paged_attention.py::cluster_ranks (static shapes only): as
 //     many as stay resident in one wave, three blocks an SM (two for G >
-//     1); the split takes one rank a chunk (split_clusters); up to 16,
-//     above 8 as a non-portable cluster;
+//     1; one at hd 256, whose ring of two 128-row stages takes 130 KB);
+//     the split takes one rank a chunk (split_clusters); up to 16, above 8
+//     as a non-portable cluster (up to 8 at hd 256, one block an SM);
 //   - a ring of kStages tiles: the copies of the next tile fly while a
 //     tile is consumed, and the rows of that next tile (the table entries
 //     of the pool) are read before the wait for the current one;
@@ -52,8 +53,8 @@
 //
 // Per tile of kTile rows:
 //   - staging: cp.async copies of the tile's K/V rows and scales, 16 bytes
-//     a copy where rows are 16 bytes or more (the codes must then start on
-//     a 16-byte boundary), else 8;
+//     a copy where a row is a multiple of 16 bytes (the codes must then
+//     start on a 16-byte boundary), else 8;
 //   - scores: the words of a token's row are dotted with the G query rows
 //     of the head, each word's 64 / BITS codes in one chain, and the words
 //     meet in an xor butterfly; the K scale multiplies the sum;
@@ -63,8 +64,11 @@
 //     for output dim d and each of the G rows, then folds the tile's sum
 //     into its running f32 sum (R = kThreads / hd token groups, reduced in
 //     shared memory at the end).
-// Rows at or past t_end score -1e30 and weigh exactly 0; with no row at
-// all (t_end <= t_begin) m stays -1e30 and l and the sums 0.
+// Rows below t_lo or at or past t_end score -1e30 and weigh exactly 0 (a
+// local layer's window starts at t_lo; the walk starts at t_begin, on a
+// tile boundary at or below it); such rows are not copied and the PV step
+// starts past them. With no row at all (t_end <= max(t_begin, t_lo)) m
+// stays -1e30 and l and the sums 0.
 //
 // The cluster merge (rank order 0..C-1, each product and sum rounded on
 // its own): M = max_c m_c, w_c = expf(m_c - M), out = sum_c w_c acc_c /
@@ -74,7 +78,13 @@
 // writes it without the cluster barriers). Asked for the cluster's partial
 // instead, the merge writes M, sum_c w_c l_c and sum_c w_c acc_c, unscaled.
 //
-// hd is 16, 32, 64 or 128 and G at most kMaxG; GT is the number of query
+// HD, the head dim compiled in, is 16, 32, 64, 128 or 256, and HDR <= HD
+// the real one: a head dim that is no power of two (120) runs as the next
+// one up, its HD - HDR padding dims zero in q, so each pad product is an
+// exact zero and the sums are those of the HDR real dims; the pad dims'
+// outputs are never written. q, out and the codes in device memory are
+// HDR wide (rows of HDR * BITS / 8 bytes, a multiple of 8); in shared
+// memory a row is HD wide. G is at most kMaxG; GT is the number of query
 // rows compiled in: 1, or kMaxG for any G up to it.
 
 #pragma once
@@ -210,38 +220,41 @@ __host__ __device__ inline WalkSmem walk_smem(int G, int hd, int row_bytes) {
     return s;
 }
 
-// Walk rows [t_begin, t_end) of one head as rank cluster.block_rank() of
-// its cluster, then merge the ranks' partials into out_h (G, HD), which
+// Walk rows [max(t_begin, t_lo), t_end) of one head, in tiles from
+// t_begin, as rank cluster.block_rank() of its cluster, then merge the
+// ranks' partials into out_h (G, HDR), which
 // the ranks write in shares: normalised, or with m_h and l_h (G) given,
 // the cluster's unnormalised partial (the sums in out_h, the max and the
 // sum of exponentials in m_h and l_h). Every block of the cluster must
 // call it (a rank with no row too): with C > 1 it synchronises the cluster
 // twice.
-// qh: the head's G query rows (G, HD). Rows of 16 bytes or more are copied
-// in 16-byte units (the codes must start on a 16-byte boundary), shorter
-// ones in 8. HD is compiled in, so every loop bound is a constant.
-template <int BITS, int HD, typename TQ, int GT, typename TileRows>
+// qh: the head's G query rows (G, HDR). Rows of a multiple of 16 bytes are
+// copied in 16-byte units (the codes must start on a 16-byte boundary),
+// others in 8. HD is compiled in, so every loop bound is a constant.
+template <int BITS, int HD, int HDR, typename TQ, int GT, typename TileRows>
 __device__ __forceinline__ void attend_rows_cluster(
     const TQ* __restrict__ qh, const uint8_t* __restrict__ k_codes,
     const float* __restrict__ k_sc, const uint8_t* __restrict__ v_codes,
-    const float* __restrict__ v_sc, TileRows tile_rows, int t_begin, int t_end, int G,
-    float scale, float* __restrict__ out_h, float* __restrict__ m_h = nullptr,
+    const float* __restrict__ v_sc, TileRows tile_rows, int t_begin, int t_lo, int t_end,
+    int G, float scale, float* __restrict__ out_h, float* __restrict__ m_h = nullptr,
     float* __restrict__ l_h = nullptr) {
     namespace cg = cooperative_groups;
     constexpr int CPW = 64 / BITS;            // codes per 8-byte word
-    constexpr int WPR = HD / CPW;             // words per K/V row: 1..16
+    constexpr int WPR = HD / CPW;             // words per K/V row: 1..32
     constexpr int HD_SHIFT = ilog2(HD);
-    constexpr int ROW_BYTES = WPR * 8;
+    constexpr int ROW_BYTES = WPR * 8;        // a row in shared memory
+    constexpr int GROW = HDR * BITS / 8;      // a row in device memory
+    static_assert(HDR <= HD && GROW % 8 == 0, "rows of whole 8-byte words");
     constexpr int CODE_BYTES = kTile * ROW_BYTES;   // one stage's K (or V) codes
-    constexpr int R = kThreads / HD;          // token groups of the PV step
+    constexpr int R = kThreads / HD;          // token groups of the PV step: 1..16
     // scores: a lane dots KW words of a row, words part and part + LPT,
     // and adds the two (the butterfly's first level); LPT lanes hold a row
     constexpr int KW = WPR >= 2 ? 2 : 1;
     constexpr int LPT = WPR / KW;
     constexpr int TPW = 32 / LPT;             // tokens a warp scores at once
     constexpr int QS = HD + WPR;              // floats a q row takes in shared memory
-    constexpr int UNIT = ROW_BYTES >= 16 ? 16 : 8;   // bytes a copy moves
-    constexpr int UPR = ROW_BYTES / UNIT;     // copies a row
+    constexpr int UNIT = GROW % 16 == 0 ? 16 : 8;   // bytes a copy moves
+    constexpr int UPR = GROW / UNIT;          // copies a row
     constexpr int COPIES = (kTile * UPR + kThreads - 1) / kThreads;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
@@ -256,7 +269,8 @@ __device__ __forceinline__ void attend_rows_cluster(
 
     for (int i = tid; i < G * HD; i += kThreads) {
         const int g = i >> HD_SHIFT, dim = i & (HD - 1);
-        s_q[g * QS + (dim / CPW) * (CPW + 1) + dim % CPW] = to_f32(qh[i]);
+        s_q[g * QS + (dim / CPW) * (CPW + 1) + dim % CPW] =
+            dim < HDR ? to_f32(qh[g * HDR + dim]) : 0.f;
     }
     if (tid < kMaxG) {
         s_m[tid] = kNeg;
@@ -275,25 +289,27 @@ __device__ __forceinline__ void attend_rows_cluster(
 #pragma unroll
         for (int j = 0; j < DPT; ++j) acc[g][j] = 0.f;
 
-    // the copies: unit u of a tile is bytes [u * UNIT, (u + 1) * UNIT) of
-    // its row-major codes; thread tid takes units tid + c * kThreads
+    // the copies: unit u of a tile is bytes [(u % UPR) * UNIT, ...) of row
+    // u / UPR; thread tid takes units tid + c * kThreads. Rows below t_lo
+    // (the head of the first tile) and from t_end on are not copied
     const int n_tiles = t_end > t_begin ? (t_end - t_begin + kTile - 1) / kTile : 0;
     size_t rows[COPIES];                      // this thread's rows of the planned tile
     size_t srow;                              // and the row of its scales
     auto plan = [&](int i) {
         const int s0 = t_begin + i * kTile;
         const int n_live = i < n_tiles ? min(kTile, t_end - s0) : 0;
+        const int n_dead = max(0, t_lo - s0);
 #pragma unroll
         for (int c = 0; c < COPIES; ++c) rows[c] = kNoRow;
         srow = kNoRow;
-        if (n_live > 0) {
+        if (n_live > n_dead) {
             const auto row_of = tile_rows(s0);   // row_of(tl): the row of token s0 + tl
 #pragma unroll
             for (int c = 0; c < COPIES; ++c) {
                 const int tl = (tid + c * kThreads) / UPR;
-                if (tl < n_live) rows[c] = row_of(tl);
+                if (tl >= n_dead && tl < n_live) rows[c] = row_of(tl);
             }
-            if (tid < n_live) srow = row_of(tid);
+            if (tid >= n_dead && tid < n_live) srow = row_of(tid);
         }
     };
     auto fire = [&](int i) {                  // one commit group per tile, empty or not
@@ -302,9 +318,10 @@ __device__ __forceinline__ void attend_rows_cluster(
         for (int c = 0; c < COPIES; ++c) {
             if (rows[c] == kNoRow) continue;
             const int u = tid + c * kThreads;
-            const size_t off = rows[c] * ROW_BYTES + (u % UPR) * UNIT;
-            cp_async<UNIT>(st + u * UNIT, k_codes + off);
-            cp_async<UNIT>(st + CODE_BYTES + u * UNIT, v_codes + off);
+            const int dst = (u / UPR) * ROW_BYTES + (u % UPR) * UNIT;
+            const size_t off = rows[c] * GROW + (u % UPR) * UNIT;
+            cp_async<UNIT>(st + dst, k_codes + off);
+            cp_async<UNIT>(st + CODE_BYTES + dst, v_codes + off);
         }
         if (srow != kNoRow) {
             float* ssc = reinterpret_cast<float*>(st + 2 * CODE_BYTES);
@@ -336,6 +353,7 @@ __device__ __forceinline__ void attend_rows_cluster(
         __syncthreads();                      // everyone's; tile i - 1 is consumed
         const int s0 = t_begin + i * kTile;
         const int n_live = min(kTile, t_end - s0);
+        const int n_dead = max(0, t_lo - s0);  // rows below the window's start
         const unsigned char* st = ring + (i % kStages) * lay.stage_bytes;
         const uint2* s_k = reinterpret_cast<const uint2*>(st);
         const uint8_t* vb = st + CODE_BYTES;
@@ -376,7 +394,9 @@ __device__ __forceinline__ void attend_rows_cluster(
                 for (int g = 0; g < GT; ++g)
                     if (GT == 1 || g < G)
                         s_p[g * kTile + tl] =
-                            tl < n_live ? __fmul_rn(__fmul_rn(dot[g], s_ksc[tl]), scale) : kNeg;
+                            tl >= n_dead && tl < n_live
+                                ? __fmul_rn(__fmul_rn(dot[g], s_ksc[tl]), scale)
+                                : kNeg;
             }
         }
         __syncthreads();
@@ -394,7 +414,7 @@ __device__ __forceinline__ void attend_rows_cluster(
             float sum = 0.f;
 #pragma unroll
             for (int k = lane; k < kTile; k += 32) {
-                const float p = k < n_live ? expf(sp[k] - m_new) : 0.f;
+                const float p = k >= n_dead && k < n_live ? expf(sp[k] - m_new) : 0.f;
                 sp[k] = p;
                 sum += p;
             }
@@ -433,7 +453,8 @@ __device__ __forceinline__ void attend_rows_cluster(
                         tacc[g][j] = __fadd_rn(tacc[g][j], __fmul_rn(pg, vv[j]));
                 }
             };
-            int tl = r;
+            // the chain's first live token (skipped rows weigh exactly 0)
+            int tl = r + (n_dead > r ? (n_dead - r + R - 1) / R * R : 0);
             for (; tl + 3 * R < n_live; tl += 4 * R) {
                 float vv[4][DPT];
 #pragma unroll
@@ -477,10 +498,10 @@ __device__ __forceinline__ void attend_rows_cluster(
         float sum = 0.f;
 #pragma unroll
         for (int rr = 0; rr < R; ++rr) sum += s_red[(rr * G + g) * HD + dd];
-        if (C == 1)                           // the merge's arithmetic at weight 1
-            out_h[i] = m_h ? sum : sum / fmaxf(s_l[g], 1e-30f);
-        else
+        if (C != 1)
             s_q[i] = sum;
+        else if (dd < HDR)                    // the merge's arithmetic at weight 1
+            out_h[g * HDR + dd] = m_h ? sum : sum / fmaxf(s_l[g], 1e-30f);
     }
     if (C == 1) {
         if (m_h && tid < G) {
@@ -495,7 +516,8 @@ __device__ __forceinline__ void attend_rows_cluster(
     cluster.sync();                           // every rank's sums, m and l are written
     const int rank = static_cast<int>(cluster.block_rank());
     for (int i = rank * kThreads + tid; i < G * HD; i += C * kThreads) {
-        const int g = i >> HD_SHIFT;
+        const int g = i >> HD_SHIFT, dd = i & (HD - 1);
+        if (dd >= HDR) continue;              // a pad dim
         float M = kNeg;
         for (int c = 0; c < C; ++c) M = fmaxf(M, cluster.map_shared_rank(s_m, c)[g]);
         float num = 0.f, den = 0.f;
@@ -507,11 +529,11 @@ __device__ __forceinline__ void attend_rows_cluster(
             den = c ? __fadd_rn(den, b) : b;
         }
         if (!m_h) {
-            out_h[i] = num / fmaxf(den, 1e-30f);
+            out_h[g * HDR + dd] = num / fmaxf(den, 1e-30f);
             continue;
         }
-        out_h[i] = num;
-        if ((i & (HD - 1)) == 0) {
+        out_h[g * HDR + dd] = num;
+        if (dd == 0) {
             m_h[g] = M;
             l_h[g] = den;
         }

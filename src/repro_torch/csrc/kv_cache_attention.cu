@@ -45,8 +45,13 @@
 // (the reference's oracle averages every row there); the serve loop never
 // passes 0, since its lengths are pos + 1.
 //
-// The kernel takes hd 16, 32, 64 or 128, G up to 8 (compiled for G == 1
-// and for any G up to 8), q bf16 or f32, and bits 8 or 4.
+// The kernel takes hd 16, 32, 64, 128 and 256, and 120 for int8 (run as
+// 128 with 8 zero dims, attn_common.cuh; an int4 row of 120 dims is 60
+// bytes, which the 8-byte copies cannot take), G up to 8 (compiled for G
+// == 1 and for any G up to 8), q bf16 or f32, and bits 8 or 4. A local
+// layer's cache is a ring of W = min(max_len, window) rows (the fixed
+// loop writes row pos at pos % W) whose first min(pos + 1, W) rows are
+// live, so its lengths say all the kernel needs: it takes no window.
 //
 // Build without --use_fast_math: expf stays accurate.
 
@@ -68,7 +73,7 @@ struct DenseArgs {
 
 // grid (C * KV, B), clusters of C along x: block x is rank x % C of KV
 // head x / C. GT as in attend_rows_cluster: 1 (G == 1) or kMaxG.
-template <int BITS, int HD, typename TQ, int GT>
+template <int BITS, int HD, int HDR, typename TQ, int GT>
 __global__ void __launch_bounds__(kThreads) kv_cache_attn_kernel(const DenseArgs a) {
     const int rank = blockIdx.x % a.C, e = blockIdx.x / a.C, b = blockIdx.y;
     const int64_t n = a.lengths[b] < a.S ? a.lengths[b] : a.S;
@@ -76,34 +81,39 @@ __global__ void __launch_bounds__(kThreads) kv_cache_attn_kernel(const DenseArgs
     const int t_end = static_cast<int>(n < t_begin + a.rows ? n : t_begin + a.rows);
     const size_t first = static_cast<size_t>(b) * a.S;
     const size_t head = static_cast<size_t>(b) * a.KV + e;
-    const size_t gh = static_cast<size_t>(a.G) * HD;
+    const size_t gh = static_cast<size_t>(a.G) * HDR;
     const int KV = a.KV;
     auto tile_rows = [=](int s0) {
         return [=](int tl) { return (first + s0 + tl) * KV + e; };
     };
-    attend_rows_cluster<BITS, HD, TQ, GT>(static_cast<const TQ*>(a.q) + head * gh, a.k,
-                                          a.k_sc, a.v, a.v_sc, tile_rows, t_begin, t_end, a.G,
-                                          a.scale, a.out + head * gh);
+    attend_rows_cluster<BITS, HD, HDR, TQ, GT>(static_cast<const TQ*>(a.q) + head * gh, a.k,
+                                               a.k_sc, a.v, a.v_sc, tile_rows, t_begin, t_begin,
+                                               t_end, a.G, a.scale, a.out + head * gh);
 }
 
-template <int BITS, int HD, typename TQ>
+template <int BITS, int HD, int HDR, typename TQ>
 cudaError_t run_hd(const DenseArgs& a, int B, cudaStream_t stream, int* clusters) {
     const int smem = walk_smem(a.G, HD, HD * BITS / 8).total;
     const dim3 grid(a.C * a.KV, B);
     if (a.G == 1)
-        return launch_cluster(kv_cache_attn_kernel<BITS, HD, TQ, 1>, grid, kThreads, a.C,
+        return launch_cluster(kv_cache_attn_kernel<BITS, HD, HDR, TQ, 1>, grid, kThreads, a.C,
                               smem, stream, clusters, a);
-    return launch_cluster(kv_cache_attn_kernel<BITS, HD, TQ, kMaxG>, grid, kThreads, a.C,
-                          smem, stream, clusters, a);
+    return launch_cluster(kv_cache_attn_kernel<BITS, HD, HDR, TQ, kMaxG>, grid, kThreads,
+                          a.C, smem, stream, clusters, a);
 }
 
 template <int BITS, typename TQ>
 cudaError_t run_typed(const DenseArgs& a, int hd, int B, cudaStream_t stream, int* clusters) {
     switch (hd) {
-        case 16: return run_hd<BITS, 16, TQ>(a, B, stream, clusters);
-        case 32: return run_hd<BITS, 32, TQ>(a, B, stream, clusters);
-        case 64: return run_hd<BITS, 64, TQ>(a, B, stream, clusters);
-        default: return run_hd<BITS, 128, TQ>(a, B, stream, clusters);
+        case 16: return run_hd<BITS, 16, 16, TQ>(a, B, stream, clusters);
+        case 32: return run_hd<BITS, 32, 32, TQ>(a, B, stream, clusters);
+        case 64: return run_hd<BITS, 64, 64, TQ>(a, B, stream, clusters);
+        case 128: return run_hd<BITS, 128, 128, TQ>(a, B, stream, clusters);
+        case 256: return run_hd<BITS, 256, 256, TQ>(a, B, stream, clusters);
+        case 120:
+            if constexpr (BITS == 8) return run_hd<8, 128, 120, TQ>(a, B, stream, clusters);
+            return cudaErrorInvalidValue;
+        default: return cudaErrorInvalidValue;
     }
 }
 
@@ -112,13 +122,15 @@ cudaError_t run(const void* q, const void* k, const void* k_sc, const void* v,
                 const void* v_sc, const void* lengths, void* out, int B, int S, int KV,
                 int G, int hd, int bits, int q_bf16, int C, int rows, cudaStream_t stream,
                 int* clusters) {
-    if ((hd != 16 && hd != 32 && hd != 64 && hd != 128) || G < 1 || G > kMaxG || B < 1 ||
+    const bool hd_ok = hd == 16 || hd == 32 || hd == 64 || hd == 128 || hd == 256 ||
+                       (hd == 120 && bits == 8);
+    if (!hd_ok || G < 1 || G > kMaxG || B < 1 ||
         S < 1 || KV < 1 || (bits != 8 && bits != 4) || C < 1 || C > kMaxCluster ||
         rows < 1 || static_cast<int64_t>(C) * rows < S ||
         static_cast<int64_t>(C - 1) * rows >= S)
         return cudaErrorInvalidValue;
-    const int row_bytes = hd * bits / 8;      // copied in 16-byte units from 16 bytes up
-    if (row_bytes >= 16 &&
+    const int row_bytes = hd * bits / 8;      // copied in 16-byte units where they divide it
+    if (row_bytes % 16 == 0 &&
         (reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 != 0)
         return cudaErrorInvalidValue;
     DenseArgs a{q, static_cast<const uint8_t*>(k), static_cast<const float*>(k_sc),

@@ -42,11 +42,11 @@ SIGNATURES = {
     ("dequant_matmul", "dequant_matmul_active_clusters"): [_I] * 9,
     ("lut_gemm_bs_fused", "lut_gemm_bs_fused_launch"): [_P] * 5 + [_I] * 12 + [_P],
     ("lut_gemm_bs_fused", "lut_gemm_bs_fused_active_clusters"): [_I] * 12,
-    ("paged_attention", "paged_attention_launch"): [_P] * 8 + [_I] * 10 + [_P],
-    ("paged_attention", "paged_attention_active_clusters"): [_I] * 10,
-    ("paged_attention", "paged_attention_splitkv_launch"): [_P] * 11 + [_I] * 12
+    ("paged_attention", "paged_attention_launch"): [_P] * 8 + [_I] * 11 + [_P],
+    ("paged_attention", "paged_attention_active_clusters"): [_I] * 11,
+    ("paged_attention", "paged_attention_splitkv_launch"): [_P] * 11 + [_I] * 13
                                                            + [_P],
-    ("paged_attention", "paged_attention_splitkv_active_clusters"): [_I] * 12,
+    ("paged_attention", "paged_attention_splitkv_active_clusters"): [_I] * 13,
     ("expert_gemm", "expert_dequant_matmul_launch"): [_P] * 6 + [_I] * 11 + [_P],
     ("expert_gemm", "expert_dequant_matmul_active_clusters"): [_I] * 10,
     ("expert_gemm", "expert_lut_gemm_launch"): [_P] * 6 + [_I] * 10 + [_P],

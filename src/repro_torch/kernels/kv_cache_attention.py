@@ -8,7 +8,9 @@ group: q (B, KV, G, hd) bf16/f32 against a slot-per-sequence cache of int8
 codes (B, S, KV, hd) or 4-bit codes (B, S, KV, hd/2) u8 (low nibble
 first) with (B, S, KV) f32 scales, and lengths (B,); out (B, KV, G, hd)
 f32, rows >= lengths[b] masked. The fixed-batch serve loop's decode step
-calls it in every layer with lengths pos + 1.
+calls it in every layer with lengths pos + 1, and on a local layer, whose
+cache is a ring of W = min(max_len, window) rows, with min(pos + 1, W): the
+ring's live rows, so the kernel needs no window.
 
 Two formulations live here:
   ``kv_cache_attention_walk``  the plain version (``_plain`` is the same
@@ -20,7 +22,10 @@ Two formulations live here:
                                kernel's thread-block cluster), batched as
                                one axis; each rank walks rows t <
                                min(lengths[b], S) of its chunk in tiles of
-                               ``KERNEL_TILE``: the scores of a row summed
+                               ``KERNEL_TILE``, at the head dim the kernel
+                               compiles (``kernel_head_dim``: hd 120 as 128,
+                               q and the codes zero in the 8 pad dims): the
+                               scores of a row summed
                                word by word and the words met in a
                                butterfly; an online softmax whose sums run
                                lane by lane; the PV sums in ``R``
@@ -60,7 +65,7 @@ import torch
 
 from . import build
 from .paged_attention import (KERNEL_TILE, check_codes, check_operands, check_wide_rows,
-                              cluster_ranks)
+                              cluster_ranks, kernel_head_dim)
 from .ref import WARP, _unpack4, butterfly_sum
 
 KERNEL_THREADS = 256        # threads per block (csrc/attn_common.cuh kThreads)
@@ -85,21 +90,25 @@ def kv_cache_attention_walk(q, k_packed, k_sc, v_packed, v_sc, lengths, *,
     With ``partials`` it returns the ranks' (sums (B, C, KV, G, hd), m, l
     (B, C, KV, G)) before the merge; a rank with no live row keeps m =
     -1e30, l = 0 and sums 0."""
-    B, KV, G, hd = q.shape
+    B, KV, G, hd_real = q.shape
     S = k_packed.shape[1]
     dev = q.device
     f32 = torch.float32
+    hd = kernel_head_dim(hd_real)             # the head dim the kernel compiles
     cpw = 64 // bits                          # codes per 8-byte word
     wpr = hd // cpw                           # words (lane parts) per row
     R = KERNEL_THREADS // hd                  # token groups of the PV step
     T = KERNEL_TILE
-    C, rows = cluster_ranks(S, B, KV, G)
-    scale = float(torch.tensor(1.0 / math.sqrt(hd), dtype=f32))   # the kernel's f32
+    C, rows = cluster_ranks(S, B, KV, G, hd=hd_real)
+    scale = float(torch.tensor(1.0 / math.sqrt(hd_real), dtype=f32))   # the kernel's f32
     pad = C * rows - S
     n = torch.clamp(lengths, 0, S)
     n_c = torch.clamp(n[:, None] - rows * torch.arange(C, device=dev), 0, rows)  # (B, C)
-    kc = _codes(k_packed, bits)                                  # (B, S, KV, hd)
+    kc = _codes(k_packed, bits)                                  # (B, S, KV, hd_real)
     vc = _codes(v_packed, bits)
+    if hd != hd_real:                         # the pad dims: zero codes, zero q
+        kc, vc = (torch.nn.functional.pad(x, (0, hd - hd_real)) for x in (kc, vc))
+        q = torch.nn.functional.pad(q, (0, hd - hd_real))
     ksc, vsc = k_sc.to(f32), v_sc.to(f32)
     if pad:
         kc, vc = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad)) for x in (kc, vc))
@@ -139,6 +148,7 @@ def kv_cache_attention_walk(q, k_packed, k_sc, v_packed, v_sc, lengths, *,
     sums = torch.zeros((B, C, KV, G, hd), dtype=f32, device=dev)
     for r in range(R):
         sums = sums + acc[..., r, :]
+    sums = sums[..., :hd_real]
     if partials:
         return sums, m, l
     # the merge, in rank order: M = max m_c, w_c = exp(m_c - M)
@@ -173,7 +183,7 @@ def kv_cache_attention_cuda(q, k_packed, k_sc, v_packed, v_sc, lengths, *,
     out = torch.empty((B, KV, G, hd), dtype=torch.float32, device=q.device)
     if B == 0:
         return out
-    C, rows = cluster_ranks(S, B, KV, G)
+    C, rows = cluster_ranks(S, B, KV, G, hd=hd)
     lib = build.library("kv_cache_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.kv_cache_attention_launch(
@@ -192,7 +202,7 @@ def kv_cache_attention_active_clusters(B: int, S: int, KV: int, G: int, hd: int,
                                        q_dtype: torch.dtype) -> tuple[int, int]:
     """(C, clusters the card holds at once) for the kernel at these shapes
     (``cudaOccupancyMaxActiveClusters``; builds the library)."""
-    C, rows = cluster_ranks(S, B, KV, G)
+    C, rows = cluster_ranks(S, B, KV, G, hd=hd)
     n = build.library("kv_cache_attention").kv_cache_attention_active_clusters(
         B, S, KV, G, hd, bits, int(q_dtype == torch.bfloat16), C, rows)
     if n < 0:

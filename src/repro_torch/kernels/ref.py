@@ -20,6 +20,7 @@ and ``chip_smoke.py`` holds the kernels against them on the card.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -368,26 +369,38 @@ def dequant_kv_tile(codes: torch.Tensor, sc: torch.Tensor, bits: int) -> torch.T
     return vals * sc.float()[..., None]
 
 
+def _window_mask(pos: torch.Tensor, lengths: torch.Tensor,
+                 window: Optional[int]) -> torch.Tensor:
+    """(B, S) rows t < lengths[b], and on a local layer t >= lengths[b] -
+    window: the reference's t > pos - window with pos = lengths[b] - 1."""
+    mask = pos[None, :] < lengths[:, None]
+    if window is not None:
+        mask &= pos[None, :] >= lengths[:, None] - window
+    return mask
+
+
 def ref_kv_cache_attention(q: torch.Tensor, k_packed: torch.Tensor,
                            k_sc: torch.Tensor, v_packed: torch.Tensor,
                            v_sc: torch.Tensor, lengths: torch.Tensor,
-                           bits: int) -> torch.Tensor:
+                           bits: int, window: Optional[int] = None) -> torch.Tensor:
     """Oracle: dequantize the whole cache (B, S, KV, hd/f), masked softmax
-    of the (B, KV, G, hd) queries over rows < lengths[b], f32 out."""
+    of the (B, KV, G, hd) queries over rows < lengths[b] (and, with a
+    ``window``, rows >= lengths[b] - window), f32 out."""
     kd = dequant_kv_tile(k_packed, k_sc, bits)
     vd = dequant_kv_tile(v_packed, v_sc, bits)
     hd = q.shape[-1]
     s = torch.einsum("begh,bseh->begs", q.float(), kd) * hd ** -0.5
-    mask = torch.arange(kd.shape[1], device=q.device)[None, :] < lengths[:, None]
+    mask = _window_mask(torch.arange(kd.shape[1], device=q.device), lengths, window)
     s = torch.where(mask[:, None, None, :], s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("begs,bseh->begh", p, vd)
 
 
 def ref_paged_attention(q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths,
-                        bits: int) -> torch.Tensor:
+                        bits: int, window: Optional[int] = None) -> torch.Tensor:
     """Oracle: gather each sequence's blocks into a dense view, then the
-    flat packed-cache oracle over it."""
+    flat packed-cache oracle over it (masked to the ``window`` of a local
+    layer)."""
     B, nb = block_tables.shape
     bs = k_pool.shape[1]
 
@@ -395,16 +408,18 @@ def ref_paged_attention(q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths,
         return pool[block_tables].reshape(B, nb * bs, *pool.shape[2:])
 
     return ref_kv_cache_attention(q, view(k_pool), view(k_sc), view(v_pool),
-                                  view(v_sc), lengths, bits)
+                                  view(v_sc), lengths, bits, window)
 
 
 def ref_paged_attention_splitkv(q, k_pool, k_sc, v_pool, v_sc, block_tables,
-                                lengths, bits: int,
-                                kv_splits: int = 2) -> torch.Tensor:
+                                lengths, bits: int, kv_splits: int = 2,
+                                window: Optional[int] = None) -> torch.Tensor:
     """Oracle of the flash-decoding split: ns = min(kv_splits, nb) chunks of
     nbc = ceil(nb / ns) table entries (the tail padded with block 0), plain
     per-chunk unnormalised partials (acc, m, l), and the exact merge written
-    out here, so the oracle shares no code with what it checks."""
+    out here, so the oracle shares no code with what it checks. A local
+    layer's ``window`` masks the rows below lengths[b] - window; a chunk
+    with no row left carries m = -1e30 and weighs exactly 0."""
     B, nb = block_tables.shape
     bs = k_pool.shape[1]
     ns = max(1, min(int(kv_splits), nb))
@@ -421,7 +436,7 @@ def ref_paged_attention_splitkv(q, k_pool, k_sc, v_pool, v_sc, block_tables,
         vd = vd.reshape(B, nbc * bs, *vd.shape[3:])
         s = torch.einsum("begh,bseh->begs", qf, kd) * hd ** -0.5
         pos = c * nbc * bs + torch.arange(nbc * bs, device=q.device)
-        mask = pos[None, :] < lengths[:, None]
+        mask = _window_mask(pos, lengths, window)
         s = torch.where(mask[:, None, None, :], s, -1e30)
         m_c = s.amax(-1)                                         # (B, KV, G)
         p = torch.exp(s - m_c[..., None])

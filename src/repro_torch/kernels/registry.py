@@ -18,8 +18,11 @@ Every dispatch records ``kernel_dispatch_total{op,backend,m_bucket,bits}``
 ``dequant_matmul``, ``lut_gemm_bs_fused`` and the two-step
 ``lut_gemm_bitsliced``, the per-expert GEMMs of the MoE path,
 ``expert_dequant_matmul`` and ``expert_lut_gemm``, paged decode attention,
-``paged_attention`` and ``paged_attention_splitkv``, and decode attention
-over the fixed-batch loop's dense slot cache, ``kv_cache_attention``.
+``paged_attention`` and ``paged_attention_splitkv`` (a local layer passes
+its ``window`` as a static argument, which reaches the kernel and the
+plain version alike), and decode attention over the fixed-batch loop's
+dense slot cache, ``kv_cache_attention`` (a local layer's ring needs no
+window: its lengths are the ring's live rows).
 LUT-65k has no kernel and is not registered.
 
 Tensor parallelism: the four dense GEMM ops carry the reference's TP rule
@@ -263,13 +266,14 @@ register(KernelOp(
     name="paged_attention", plain=paged_attention_plain,
     kernel=paged_attention_cuda,
     doc="Decode attention over a paged packed KV-cache pool via per-"
-        "sequence block tables. arrays: (q, k_pool, k_sc, v_pool, v_sc, "
-        "block_tables, lengths)"))
+        "sequence block tables; window=W keeps rows >= lengths - W. arrays: "
+        "(q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths)"))
 
 register(KernelOp(
     name="paged_attention_splitkv", plain=paged_attention_splitkv_plain,
     kernel=paged_attention_splitkv_cuda,
     doc="Flash-decoding paged attention: the block table is partitioned "
         "into kv_splits chunks, each folded by its own online softmax into "
-        "(acc, m, l) partials, then merged exactly. arrays: (q, k_pool, "
-        "k_sc, v_pool, v_sc, block_tables, lengths)"))
+        "(acc, m, l) partials, then merged exactly; window=W keeps rows >= "
+        "lengths - W. arrays: (q, k_pool, k_sc, v_pool, v_sc, block_tables, "
+        "lengths)"))

@@ -7,10 +7,10 @@ prefill, a dense masked softmax for one-token decode), the int8 and int4
 KV codecs, the attention layer's no-cache prefill branch, its dense slot
 cache branch (the fixed-batch loop's one-token decode) and its paged
 branches (chunked prefill, single-pass decode and split-KV decode), the
-swiglu MLP, and the GShard-style MoE layer (``moe_apply``: f32 router,
-top-k with capacity dropping, per-expert planned projections through the
-registry's ``expert_dequant_matmul`` / ``expert_lut_gemm``, and the shared
-expert).
+swiglu and geglu MLPs, and the GShard-style MoE layer (``moe_apply``: f32
+router, top-k with capacity dropping, per-expert planned projections
+through the registry's ``expert_dequant_matmul`` / ``expert_lut_gemm``,
+and the shared expert).
 
 One-token decode over an int8 or int4 cache goes through the registry:
 ``kv_cache_attention`` over a dense slot cache, ``paged_attention``
@@ -19,9 +19,17 @@ pool. Their CUDA kernels replace the reference's Pallas kernels; the
 reference itself attends through jnp on both paths (layers.py:515-607
 and :608-638), and each op's plain version is that math. An unquantized
 cache (the smoke configs) has no kernel: it attends in plain torch, as
-the reference does. ``scaled_dot_product_attention`` is not used. Local
-layers, with their ring buffer and ring-paged pool, wait for gemma3
-(ROADMAP queue 1, items 4 and 6); QAT waits for the training slice.
+the reference does. ``scaled_dot_product_attention`` is not used.
+
+Local (sliding-window) layers attend over the last ``cfg.window`` rows on
+every path, as the reference computes them: the cacheless prefill and the
+chunked prefill mask (query - key) < window; the paged decode passes the
+window to the attention op (rows >= pos + 1 - window), or masks the
+gathered view; the fixed loop's dense slot cache of a local layer is a
+ring of W = min(max_len, window) rows, row pos written at pos % window,
+attended over its min(pos + 1, W) live rows. The ring-paged pool
+(``Engine(ring=True)``) waits (ROADMAP queue 1, item 6); QAT waits for the
+training slice.
 
 Cache updates happen in place: ``attn_apply`` writes the new K/V rows into
 the slot cache or scatters them into the shared pool tensors instead of
@@ -94,10 +102,12 @@ def _attn_chunk_size(sk: int) -> int:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, q_offset=0) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset=0) -> torch.Tensor:
     """Online-softmax attention over key chunks. q (B, Sq, KV, G, hd), k/v
     (B, Sk, KV, hd) -> (B, Sq, KV, G, hd). ``q_offset`` is the absolute
-    position of query row 0: an int, or a (B,) tensor per row."""
+    position of query row 0: an int, or a (B,) tensor per row. A local
+    layer's ``window`` keeps the keys with (query - key) < window."""
     B, Sq, KV, G, hd = q.shape
     Sk = k.shape[1]
     scale = hd ** -0.5
@@ -118,6 +128,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask = torch.ones(qpos.shape + kpos.shape, dtype=torch.bool, device=dev)
         if causal:
             mask &= qpos[..., None] >= kpos
+        if window is not None:
+            mask &= (qpos[..., None] - kpos) < window
         mask = mask[:, None, None] if per_row else mask
         s = torch.where(mask, s, _NEG)
         m_new = torch.maximum(m, s.amax(-1))
@@ -193,11 +205,13 @@ def _scatter_pool_rows(pool: torch.Tensor, new: torch.Tensor, blk: torch.Tensor,
 
 
 def _splitkv_decode(q: torch.Tensor, cache: dict, block_tables: torch.Tensor,
-                    pos: torch.Tensor, kv_splits: int) -> torch.Tensor:
+                    pos: torch.Tensor, kv_splits: int,
+                    window: Optional[int] = None) -> torch.Tensor:
     """Split-KV decode over an unquantized pool (reference layers.py:
     537-564): the table in ns chunks, one blocked masked softmax giving
     per-chunk unnormalised partials, merged exactly. q (B, 1, KV, G, hd);
-    the new row is already in the pool."""
+    the new row is already in the pool; a local layer masks the rows at or
+    below pos - window."""
     B, nb = block_tables.shape
     bs_tok = cache["k"].shape[1]
     hd = q.shape[-1]
@@ -209,6 +223,8 @@ def _splitkv_decode(q: torch.Tensor, cache: dict, block_tables: torch.Tensor,
 
     idx = torch.arange(ns * nbc * bs_tok, device=q.device).reshape(ns, nbc * bs_tok)
     cvalid = idx[None] <= pos[:, None, None]
+    if window is not None:
+        cvalid &= idx[None] > pos[:, None, None] - window
     s = torch.einsum("begh,bnseh->bnegs", q[:, 0].float(),
                      cgather(cache["k"])) * hd ** -0.5
     s = torch.where(cvalid[:, :, None, None, :], s, _NEG)
@@ -219,38 +235,63 @@ def _splitkv_decode(q: torch.Tensor, cache: dict, block_tables: torch.Tensor,
 
 
 def _dense_slot_decode(q, k, v, cache: dict, pos: torch.Tensor, cfg,
-                       attn_backend: str) -> torch.Tensor:
+                       attn_backend: str, window: Optional[int] = None) -> torch.Tensor:
     """One-token decode over a dense slot cache (reference layers.py:
-    608-638 without the ring buffer): write row ``pos`` of each sequence
-    in place, then attend over rows <= pos. q (B, 1, KV, G, hd), k/v (B,
-    1, KV, hd)."""
+    608-638): write row ``pos`` of each sequence in place, then attend over
+    rows <= pos. A local layer's cache is a ring of W rows (reference
+    ``_ring_update``, layers.py:318): the row goes to pos % window, and the
+    first min(pos + 1, W) rows are live. q (B, 1, KV, G, hd), k/v (B, 1,
+    KV, hd)."""
     if q.shape[1] != 1:
         raise ValueError(f"a dense slot cache takes one-token decode steps, "
                          f"got {q.shape[1]} tokens")
+    W = cache["k"].shape[1]
+    at = pos if window is None else pos % window
+    n = pos + 1 if window is None else torch.clamp(pos + 1, max=W)
     if cfg.kv_cache_dtype in KV_QUANT and "k_sc" in cache:
         qf = KV_QUANT[cfg.kv_cache_dtype][0]
         (k, k_sc), (v, v_sc) = qf(k), qf(v)
         for name, new in (("k", k), ("v", v), ("k_sc", k_sc), ("v_sc", v_sc)):
-            _cache_update(cache[name], new, pos)
+            _cache_update(cache[name], new, at)
         o = registry.dispatch("kv_cache_attention", q[:, 0], cache["k"],
-                              cache["k_sc"], cache["v"], cache["v_sc"], pos + 1,
+                              cache["k_sc"], cache["v"], cache["v_sc"], n,
                               backend=attn_backend,
                               bits=KV_BITS[cfg.kv_cache_dtype])
         return o[:, None].to(q.dtype)
-    _cache_update(cache["k"], k, pos)
-    _cache_update(cache["v"], v, pos)
-    valid = torch.arange(cache["k"].shape[1], device=q.device)[None, :] <= pos[:, None]
+    _cache_update(cache["k"], k, at)
+    _cache_update(cache["v"], v, at)
+    valid = torch.arange(W, device=q.device)[None, :] < n[:, None]
     return decode_attention(q, cache["k"], cache["v"], valid)
 
 
-def attn_apply(p: dict, x: torch.Tensor, *, cfg, cache: Optional[dict] = None,
+def _prefill_attention(q, k, v, cfg, window: Optional[int]) -> torch.Tensor:
+    """The cacheless causal prefill (reference layers.py:642-655): where
+    ``cfg.kv_repeat`` > 1 and H % (KV * kv_repeat) == 0, the KV heads are
+    repeated kv_repeat times and the query heads regrouped over them (the
+    same attention, another grouping of its products), as the reference
+    does; otherwise plain grouped attention."""
+    B, S, KV, G, hd = q.shape
+    rep = cfg.kv_repeat
+    if rep > 1 and (KV * G) % (KV * rep) == 0:
+        ka = k.repeat_interleave(rep, dim=2)
+        va = v.repeat_interleave(rep, dim=2)
+        qa = q.reshape(B, S, KV * rep, G // rep, hd)
+        out = flash_attention(qa, ka, va, causal=True, window=window)
+        return out.reshape(B, S, KV, G, hd)
+    return flash_attention(q, k, v, causal=True, window=window)
+
+
+def attn_apply(p: dict, x: torch.Tensor, *, cfg, layer_type: str = "global",
+               cache: Optional[dict] = None,
                pos: Optional[torch.Tensor] = None,
                block_tables: Optional[torch.Tensor] = None,
                kv_splits: int = 1, attn_backend: str = "auto",
                collect: Optional[list] = None) -> torch.Tensor:
-    """Self-attention layer. x (B, S, D). Without a cache: causal prefill
-    over the whole sequence, over the raw K/V; ``collect``, where given,
-    receives {"k", "v"}: the post-RoPE, unquantized K/V (B, S, KV, hd).
+    """Self-attention layer. x (B, S, D). A "local" ``layer_type`` attends
+    over the last ``cfg.window`` rows on every path below (the module
+    docstring). Without a cache: causal prefill over the whole sequence,
+    over the raw K/V; ``collect``, where given, receives {"k", "v"}: the
+    post-RoPE, unquantized K/V (B, S, KV, hd).
 
     With a dense slot cache (B, S_cache, ...) and no block tables: a
     one-token decode step (S == 1) at positions ``pos`` (B,). The new row
@@ -277,6 +318,7 @@ def attn_apply(p: dict, x: torch.Tensor, *, cfg, cache: Optional[dict] = None,
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     G = H // KV
     pol = cfg.quant
+    window = cfg.window if layer_type == "local" else None
     q = dense(p["wq"], x, policy=pol).reshape(B, S, KV, G, hd)
     k = dense(p["wk"], x, policy=pol).reshape(B, S, KV, hd)
     v = dense(p["wv"], x, policy=pol).reshape(B, S, KV, hd)
@@ -289,9 +331,9 @@ def attn_apply(p: dict, x: torch.Tensor, *, cfg, cache: Optional[dict] = None,
     if cache is None:
         if collect is not None:
             collect.append({"k": k, "v": v})
-        out = flash_attention(q, k, v, causal=True)
+        out = _prefill_attention(q, k, v, cfg, window)
     elif block_tables is None:
-        out = _dense_slot_decode(q, k, v, cache, pos, cfg, attn_backend)
+        out = _dense_slot_decode(q, k, v, cache, pos, cfg, attn_backend, window)
     else:
         bs_tok = cache["k"].shape[1]
         quant_cache = cfg.kv_cache_dtype in KV_QUANT and "k_sc" in cache
@@ -320,14 +362,15 @@ def attn_apply(p: dict, x: torch.Tensor, *, cfg, cache: Optional[dict] = None,
             if kv_splits > 1:
                 o = registry.dispatch("paged_attention_splitkv", *ops,
                                       backend=attn_backend, bits=bits,
-                                      kv_splits=kv_splits)
+                                      kv_splits=kv_splits, window=window)
             else:
                 o = registry.dispatch("paged_attention", *ops,
-                                      backend=attn_backend, bits=bits)
+                                      backend=attn_backend, bits=bits,
+                                      window=window)
             out = o[:, None].to(q.dtype)
         elif S == 1 and kv_splits > 1:
             scatter()
-            out = _splitkv_decode(q, cache, block_tables, pos, kv_splits)
+            out = _splitkv_decode(q, cache, block_tables, pos, kv_splits, window)
         else:
             S_view = nb * bs_tok
 
@@ -343,7 +386,10 @@ def attn_apply(p: dict, x: torch.Tensor, *, cfg, cache: Optional[dict] = None,
             else:
                 kd, vd = kc, vc
             if S == 1:
-                valid = torch.arange(S_view, device=x.device)[None, :] <= pos[:, None]
+                idx = torch.arange(S_view, device=x.device)[None, :]
+                valid = idx <= pos[:, None]
+                if window is not None:     # paged by absolute position, masked
+                    valid &= idx > pos[:, None] - window
                 out = decode_attention(q, kd, vd, valid)
             else:
                 # the per-row causal mask also blanks the not-yet-written
@@ -352,7 +398,8 @@ def attn_apply(p: dict, x: torch.Tensor, *, cfg, cache: Optional[dict] = None,
                 # rounds otherwise in a batch of 2 than alone), and a row of
                 # a batched prefill chunk must get the bits it gets alone
                 out = torch.cat([flash_attention(q[b:b + 1], kd[b:b + 1], vd[b:b + 1],
-                                                 causal=True, q_offset=pos[b:b + 1])
+                                                 causal=True, window=window,
+                                                 q_offset=pos[b:b + 1])
                                  for b in range(B)])
             scatter()
     out = out.reshape(B, S, H * hd)
@@ -360,12 +407,28 @@ def attn_apply(p: dict, x: torch.Tensor, *, cfg, cache: Optional[dict] = None,
 
 
 def mlp_apply(p: dict, x: torch.Tensor, *, cfg) -> torch.Tensor:
-    if cfg.mlp != "swiglu":
+    """The gated MLP: w_down(act(w_gate x) * w_up x), act silu (swiglu) or
+    the tanh-approximated gelu (geglu)."""
+    if cfg.mlp not in ("swiglu", "geglu"):
         raise NotImplementedError(f"mlp {cfg.mlp!r} is not ported yet")
     pol = cfg.quant
     up = dense(p["w_up"], x, policy=pol)
     g = dense(p["w_gate"], x, policy=pol)
-    return dense(p["w_down"], _silu_mul(g, up), policy=pol)
+    h = _silu_mul(g, up) if cfg.mlp == "swiglu" else _gelu_tanh(g) * up
+    return dense(p["w_down"], h, policy=pol)
+
+
+def _gelu_tanh(g: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu(g) (approximate=True, its default): g * 0.5 * (1 +
+    tanh(sqrt(2/pi) * (g + 0.044715 * g^3))), with g^3 as g * (g * g) (the
+    reference's integer_pow) and every constant and op rounded in g's dtype
+    (torch's F.gelu defaults to the erf form, and its tanh form rounds
+    once)."""
+    def c(v):
+        return torch.tensor(v, dtype=g.dtype, device=g.device)
+
+    inner = c(math.sqrt(2 / math.pi)) * (g + c(0.044715) * (g * (g * g)))
+    return g * (c(0.5) * (c(1.0) + torch.tanh(inner)))
 
 
 def _silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

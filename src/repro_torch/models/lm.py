@@ -14,9 +14,15 @@ stacked superblocks is a Python loop over ``layers`` here.
 Caches are a flat list with one dict per layer, in ``layers`` order,
 updated in place: the paged engine's block pools (serving/cache.py), or
 the fixed-batch loop's dense slot caches (``init_cache``,
-``prefill_to_cache``), one (B, S) slot per sequence. Both lay a layer out
-as ``_layer_cache`` does: k/v codes with f32 scales for an int8 or int4
+``prefill_to_cache``), one (B, S) slot per sequence; a local layer's slot
+is a ring of S = min(max_len, window) rows. Both lay a layer out as
+``_layer_cache`` does: k/v codes with f32 scales for an int8 or int4
 cache, k/v in the model dtype otherwise.
+
+Each layer's attention type ("global" or "local", ``cfg.layer_types()``)
+comes from the config's pattern, as the reference's superblocks give it;
+a local layer attends over the last ``cfg.window`` rows
+(``layers.attn_apply``).
 """
 
 from __future__ import annotations
@@ -38,11 +44,12 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def _check_supported(cfg) -> None:
-    if cfg.family not in ("dense", "moe") or any(t != "global" for t in cfg.pattern):
+    if cfg.family not in ("dense", "moe") or any(t not in ("global", "local")
+                                                 for t in cfg.pattern):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and MoE families with global "
-            "attention are ported; other layer types follow ROADMAP queue 1, "
-            "items 4 and 9")
+            f"{cfg.name}: only the dense and MoE families with global and "
+            "local attention are ported; other layer types follow ROADMAP "
+            "queue 1, item 9")
     if cfg.pos_embed != "rope":
         raise NotImplementedError(f"{cfg.name}: learned positions are not "
                                   "ported yet")
@@ -129,9 +136,9 @@ def init_params(cfg, generator: torch.Generator, device="cuda", *,
 
 
 def _layer_cache(cfg, rows: int, cols: int, dtype, device) -> dict:
-    """One global attention layer's cache, zeroed: (rows, cols, KV, ...)
-    tensors (a dense slot cache is (B, S, ...), a paged pool (n_blocks,
-    block_size, ...)). int8: k/v int8 (.., KV, hd) and k_sc/v_sc f32 (..,
+    """One attention layer's cache, zeroed: (rows, cols, KV, ...) tensors (a
+    dense slot cache is (B, S, ...), a paged pool (n_blocks, block_size,
+    ...)). int8: k/v int8 (.., KV, hd) and k_sc/v_sc f32 (..,
     KV); int4: k/v uint8 (.., KV, hd/2), two codes a byte, low nibble
     first, and the same scales; bfloat16: k/v in ``dtype``."""
     KV, hd = cfg.n_kv_heads, cfg.hd
@@ -150,29 +157,52 @@ def _layer_cache(cfg, rows: int, cols: int, dtype, device) -> dict:
             "v": torch.zeros(shape + (hd,), dtype=dtype, device=device)}
 
 
+def slot_rows(cfg, layer_type: str, max_len: int) -> int:
+    """Rows of a layer's dense slot cache: ``max_len``, or on a local layer
+    its ring of min(max_len, window) rows (reference lm.py:138)."""
+    return min(max_len, cfg.window) if layer_type == "local" else max_len
+
+
 def init_cache(cfg, batch: int, max_len: int, device="cuda") -> list:
-    """The fixed-batch loop's decode cache, zeroed: one dense slot cache of
-    ``max_len`` rows per sequence for every layer (global attention only);
+    """The fixed-batch loop's decode cache, zeroed: one dense slot cache per
+    sequence for every layer, of ``slot_rows`` rows (a local layer's ring);
     an unquantized cache holds the model dtype."""
     _check_supported(cfg)
-    return [_layer_cache(cfg, batch, max_len, torch_dtype(cfg.dtype),
-                         resolve_device(device)) for _ in range(cfg.n_layers)]
+    return [_layer_cache(cfg, batch, slot_rows(cfg, t, max_len),
+                         torch_dtype(cfg.dtype), resolve_device(device))
+            for t in cfg.layer_types()]
+
+
+def _fold(kv: torch.Tensor, W: int) -> torch.Tensor:
+    """A local layer's prefill K/V (B, S, ...) folded into a ring of W rows:
+    the last min(S, W) rows, zero-padded to W, rolled so that row t sits at
+    slot t % W (reference lm.py:424-438)."""
+    S = kv.shape[1]
+    n = min(S, W)
+    last = torch.nn.functional.pad(kv[:, S - n:], (0, 0) * (kv.ndim - 2) + (0, W - n))
+    return torch.roll(last, (S - n) % W, dims=1)
 
 
 def prefill_to_cache(cfg, prefill_caches: list, prefill_len: int,
                      max_len: int) -> list:
     """``forward(..., collect_cache=True)``'s per-layer K/V (B, P, KV, hd),
-    post-RoPE and unquantized, -> decode buffers of ``max_len`` rows: each
-    layer zero-padded along the rows, then, for an int8 or int4 cache,
-    quantized through ``layers.KV_QUANT`` (a zero row gets scale 1e-8 and
-    code 0, as in the reference)."""
+    post-RoPE and unquantized, -> decode buffers: a global layer's
+    zero-padded to ``max_len`` rows, a local layer's folded into its ring of
+    W = min(max_len, window) rows (slot t % W); then, for an int8 or int4
+    cache, quantized through ``layers.KV_QUANT`` (a zero row gets scale
+    1e-8 and code 0, as in the reference)."""
     out = []
-    for kv in prefill_caches:
+    for i, kv in enumerate(prefill_caches):
+        layer_type = cfg.layer_type(i)
         if kv["k"].shape[1] != prefill_len:
             raise ValueError(f"prefill K/V hold {kv['k'].shape[1]} rows, "
                              f"expected {prefill_len}")
-        padded = {name: torch.nn.functional.pad(
-            kv[name], (0, 0, 0, 0, 0, max_len - prefill_len)) for name in ("k", "v")}
+        if layer_type == "local":
+            W = slot_rows(cfg, layer_type, max_len)
+            padded = {name: _fold(kv[name], W) for name in ("k", "v")}
+        else:
+            padded = {name: torch.nn.functional.pad(
+                kv[name], (0, 0, 0, 0, 0, max_len - prefill_len)) for name in ("k", "v")}
         if cfg.kv_cache_dtype in L.KV_QUANT:
             qf = L.KV_QUANT[cfg.kv_cache_dtype][0]
             k, k_sc = qf(padded["k"])
@@ -182,7 +212,8 @@ def prefill_to_cache(cfg, prefill_caches: list, prefill_len: int,
     return out
 
 
-def apply_layer(p: dict, x: torch.Tensor, *, cfg, cache: Optional[dict] = None,
+def apply_layer(p: dict, x: torch.Tensor, *, cfg, layer_type: str = "global",
+                cache: Optional[dict] = None,
                 pos: Optional[torch.Tensor] = None,
                 block_tables: Optional[torch.Tensor] = None,
                 kv_splits: int = 1, attn_backend: str = "auto",
@@ -191,7 +222,8 @@ def apply_layer(p: dict, x: torch.Tensor, *, cfg, cache: Optional[dict] = None,
     + moe(ln2(.)). ``collect`` receives the layer's K/V (see
     ``layers.attn_apply``)."""
     h = L.norm_apply(p["ln1"], x, cfg.norm)
-    x = x + L.attn_apply(p["attn"], h, cfg=cfg, cache=cache, pos=pos,
+    x = x + L.attn_apply(p["attn"], h, cfg=cfg, layer_type=layer_type,
+                         cache=cache, pos=pos,
                          block_tables=block_tables, kv_splits=kv_splits,
                          attn_backend=attn_backend, collect=collect)
     h2 = L.norm_apply(p["ln2"], x, cfg.norm)
@@ -202,7 +234,7 @@ def apply_layer(p: dict, x: torch.Tensor, *, cfg, cache: Optional[dict] = None,
 
 def forward(params: dict, cfg, tokens: torch.Tensor, *,
             caches: Optional[list] = None, pos: Optional[torch.Tensor] = None,
-            block_tables: Optional[torch.Tensor] = None, kv_splits: int = 1,
+            block_tables: Optional[torch.Tensor] = None, kv_splits=1,
             attn_backend: str = "auto", collect_cache: bool = False):
     """Token ids (B, S) -> (final hidden states (B, S, D), caches).
 
@@ -213,16 +245,20 @@ def forward(params: dict, cfg, tokens: torch.Tensor, *,
     batched decode step, S > 1 a chunk with per-row start positions
     ``pos`` (B,). With dense slot caches and no tables: a one-token decode
     step at positions ``pos`` (B,). Caches are updated in place and
-    returned. ``kv_splits`` (> 1: split-KV decode over the paged pool) and
+    returned. ``kv_splits`` (> 1: split-KV decode over the paged pool; an
+    int for every layer, or a sequence with one per layer) and
     ``attn_backend`` (the registry backend of the decode attention op)
-    reach every layer's attention."""
+    reach every layer's attention; each layer attends as its type in
+    ``cfg.layer_types()`` says."""
     _check_supported(cfg)
     collected = [] if collect_cache and caches is None else None
+    n = len(params["layers"])
+    splits = [kv_splits] * n if isinstance(kv_splits, int) else list(kv_splits)
     x = embed_table(params)[tokens].to(torch_dtype(cfg.dtype))
     for i, lp in enumerate(params["layers"]):
-        x = apply_layer(lp, x, cfg=cfg,
+        x = apply_layer(lp, x, cfg=cfg, layer_type=cfg.layer_type(i),
                         cache=None if caches is None else caches[i],
-                        pos=pos, block_tables=block_tables, kv_splits=kv_splits,
+                        pos=pos, block_tables=block_tables, kv_splits=splits[i],
                         attn_backend=attn_backend, collect=collected)
     h = L.norm_apply(params["final_norm"], x, cfg.norm)
     return h, caches if collected is None else collected

@@ -61,8 +61,12 @@ Decode steps attend through the registry's paged attention ops on an int8
 or int4 pool: ``paged_attention`` with ``kv_splits`` 1, the split-KV
 ``paged_attention_splitkv`` above 1 ("auto": the card's rule,
 ``kernels/paged_attention.py::auto_kv_splits``, on n_slots, KV heads and
-``max_len``: 1 below 32768 rows; the reference takes one split per 4096
-rows, at most 16, a TPU rule). So do the drafter's one-token steps.
+the rows a layer reads, ``max_len`` or on a local layer min(max_len,
+window): 1 below 32768 rows; the reference takes one split per 4096 rows,
+at most 16, a TPU rule; an explicit kv_splits applies to every layer, as
+in the reference). So do the drafter's one-token steps. Local
+(sliding-window) layers keep the full block table, masked to the window
+at attention time, as the reference's engine does without ``ring``.
 Multi-row forwards (prefill chunks, verify) attend through the plain
 gathered path, as in the reference, and the whole-prompt forward through
 plain causal attention. So greedy spec decoding attends through another
@@ -80,8 +84,8 @@ identically on every rank: the logits are replicated, so every rank makes
 the same decisions. Spec mode under tensor parallelism is refused (the
 drafter's TP rules: ROADMAP queue 1, item 11).
 
-Not ported (each raises): ring-paged local layers and the tracer (ROADMAP
-queue 1, items 6 and 6b).
+Not ported: ring-paged local layers (the reference's ``ring=True``; the
+CLI refuses ``--ring``) and the tracer (ROADMAP queue 1, items 6 and 6b).
 """
 
 from __future__ import annotations
@@ -176,8 +180,10 @@ class Engine:
     mode), ``sampler`` (``SamplerConfig``), ``spec_draft_params`` /
     ``spec_draft_cfg`` / ``spec_k`` (the drafter's packed tree, its config,
     default ``cfg``, and drafts a round), ``kv_splits`` ("auto" or an int
-    >= 1; one-token forwards only). The port's own ``attn_backend`` ("auto"
-    or "ref") is the registry backend of the decode attention op;
+    >= 1; one-token forwards only; "auto" is chosen per layer,
+    ``layer_kv_splits``, and ``kv_splits`` holds the global layers'). The
+    port's own ``attn_backend`` ("auto" or "ref") is the registry backend
+    of the decode attention op;
     ``tp_group`` (a ``torch.distributed`` process group) makes the forwards
     tensor-parallel over it.
     """
@@ -209,6 +215,13 @@ class Engine:
             self.kv_splits = int(kv_splits)
             if self.kv_splits < 1:
                 raise ValueError(f"kv_splits must be >= 1: {kv_splits!r}")
+
+        def layer_splits(c) -> tuple:
+            if kv_splits != "auto":
+                return (self.kv_splits,) * c.n_layers
+            return tuple(auto_kv_splits(n_slots, c.n_kv_heads, max_len,
+                                        c.window if t == "local" else None)
+                         for t in c.layer_types())
         if attn_backend not in ("auto", "ref"):
             raise ValueError(f"attn_backend must be 'auto' or 'ref': "
                              f"{attn_backend!r}")
@@ -248,11 +261,15 @@ class Engine:
                                          self.device)
         self.pool = C.BlockPool(self.n_blocks)
         self.draft_params = self.draft_cfg = self.draft_caches = None
+        # kv_splits of each layer's one-token forwards (target, drafter)
+        self.layer_kv_splits = layer_splits(cfg)
+        self.draft_layer_kv_splits = None
         if self.spec:
             self.draft_params = spec_draft_params
             self.draft_cfg = spec_draft_cfg if spec_draft_cfg is not None else cfg
             self.draft_caches = C.init_paged_cache(
                 self.draft_cfg, self.n_blocks, block_size, dtype, self.device)
+            self.draft_layer_kv_splits = layer_splits(self.draft_cfg)
         self.prefill_batch = 1 if prefill == "whole" \
             else max(1, min(prefill_batch, n_slots))
         self.radix = RadixCache(self.pool, block_size) \
@@ -302,12 +319,13 @@ class Engine:
     def _forward(self, draft: bool, tokens, pos, tables) -> torch.Tensor:
         """Final hidden states (B, S, D) of the target's (or the drafter's)
         forward over its paged pool."""
-        params, cfg, caches = (self.draft_params, self.draft_cfg,
-                               self.draft_caches) if draft else \
-            (self.params, self.cfg, self.caches)
+        params, cfg, caches, splits = (
+            self.draft_params, self.draft_cfg, self.draft_caches,
+            self.draft_layer_kv_splits) if draft else \
+            (self.params, self.cfg, self.caches, self.layer_kv_splits)
         with obs_metrics.scoped(registry=self.obs), self._tp():
             h, _ = lm.forward(params, cfg, tokens, caches=caches, pos=pos,
-                              block_tables=tables, kv_splits=self.kv_splits,
+                              block_tables=tables, kv_splits=splits,
                               attn_backend=self.attn_backend)
         return h
 

@@ -259,8 +259,9 @@ def test_walk_merges_each_cluster_in_rank_order_then_the_clusters():
 def test_split_clusters_sizes(ns):
     """At most MAX_CLUSTER ranks a cluster, as few clusters as that allows,
     near-equal groups that take every chunk once in order, one cluster
-    (no merge pass) up to MAX_CLUSTER chunks; the same for every G, hd and
-    bits the kernels take."""
+    (no merge pass) up to MAX_CLUSTER chunks; the same for every G, hd up
+    to WIDE_HD and bits the kernels take. Above WIDE_HD (hd 256, one block
+    an SM) the same rule with at most WIDE_MAX_CLUSTER ranks a cluster."""
     K, C = PA.split_clusters(ns, 1, 64, 8)
     assert K == -(-ns // PA.MAX_CLUSTER) and C <= PA.MAX_CLUSTER
     assert (K, C) == ((1, ns) if ns <= PA.MAX_CLUSTER else (K, -(-ns // K)))
@@ -269,7 +270,13 @@ def test_split_clusters_sizes(ns):
     sizes = [len(g) for g in groups]
     assert max(sizes) == C and max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
     assert all(PA.split_clusters(ns, G, hd, bits) == (K, C) for G in (1, 4, 8)
-               for hd in PA.KERNEL_HEAD_DIMS for bits in (8, 4))
+               for hd in PA.KERNEL_HEAD_DIMS if hd <= PA.WIDE_HD for bits in (8, 4))
+    Kw, Cw = PA.split_clusters(ns, 1, 256, 8)
+    assert Kw == -(-ns // PA.WIDE_MAX_CLUSTER) and Cw == -(-ns // Kw)
+    wide = [len(g) for g in PA.cluster_chunks(ns, Kw)]
+    assert sum(wide) == ns and max(wide) == Cw and max(wide) - min(wide) <= 1
+    assert all(PA.split_clusters(ns, G, 256, bits) == (Kw, Cw) for G in (1, 4, 8)
+               for bits in (8, 4))
 
 
 def test_split_clusters_reads_static_shapes_only():

@@ -81,8 +81,11 @@ Phases, each printing its lines:
               a tile, lengths within the window, split chunks wholly below
               it, ranks past a length), each line with its kernel, plain,
               SDPA over the window's rows and bound (the window's bytes)
-              times; kv_cache_attention at both heads over a wrapped ring
-              (W 1024, and 4096 for danube) and a filling one, bit for bit
+              times, after the clusters of C hd-256 blocks the card holds
+              at once, C 1-8, against the table `cluster_ranks` reads
+              (kernels/paged_attention.py::WIDE_RESIDENT);
+              kv_cache_attention at both heads over a wrapped ring (W
+              1024, and 4096 for danube) and a filling one, bit for bit
   5 engine    qwen1.5-0.5b at full width with seeded random weights, packed
               under w2a2, w2a16 and w2a8_bs in turn, serving 12 requests
               through the paged engine via repro_torch.launch.serve; launch
@@ -1668,7 +1671,20 @@ def phase_local_attention(torch, dev):
     the window's rows, and a bound on the window's bytes."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import build
     from repro_torch.kernels import paged_attention as PA
+
+    # the clusters of C hd-256 blocks (one an SM) the card holds at once,
+    # against the table cluster_ranks reads (WIDE_RESIDENT): fewer would put
+    # the single passes' clusters in a second wave
+    lib = build.library("paged_attention")
+    resident = {C: lib.paged_attention_active_clusters(4, 8, 2, 256, 512, 4 * C, 8, 1,
+                                                       C, 4, 0)
+                for C in range(1, PA.WIDE_MAX_CLUSTER + 1)}
+    print(f"  hd 256 clusters of C ranks resident at once: {resident} (WIDE_RESIDENT "
+          f"{PA.WIDE_RESIDENT})", flush=True)
+    if any(resident[C] < PA.WIDE_RESIDENT[C - 1] for C in resident):
+        fail(f"the card holds fewer hd-256 clusters than WIDE_RESIDENT says: {resident}")
 
     gen = torch.Generator(device=dev).manual_seed(7)
     rows = {"paged_attention": [], "paged_attention_splitkv": []}

@@ -92,12 +92,14 @@ Phases, each printing its lines:
               counts set to 0 just before each run and read just after: the
               plan's kernel launches 7 x 24 times per forward, the others 0;
               paged_attention 24 times per decode step, the split kernel 0
-  6 plain     the same runs with the registry's GEMMs forced onto the plain
-              versions on the card (attention stays on its kernel): under
-              w2a2 and w2a8_bs, whose kernels are bit-identical to their
-              plain versions, greedy tokens and first-decode-step logits
-              must be identical; w2a16 first-decode-step logits within the
-              stated tolerance. Then the same runs with the GEMM kernels on
+  6 plain     the runs with the registry's GEMMs forced onto the plain
+              versions on the card (attention stays on its kernel), cut to
+              the first 4 requests and 8 tokens since PR 25 and held
+              against a kernel run of the same cut: under w2a2 and
+              w2a8_bs, whose kernels are bit-identical to their plain
+              versions, greedy tokens and first-decode-step logits must be
+              identical; w2a16 first-decode-step logits within the stated
+              tolerance. Then the 12 requests with the GEMM kernels on
               and attention on its plain version (attn_backend "ref"):
               first-decode-step logits within the stated tolerance
   7 profile   torch.profiler over a few engine steps of each plan: wall
@@ -146,9 +148,11 @@ Phases, each printing its lines:
               w2a16: logits within the stated tolerance), an
               attention-plain re-run (logits within the stated tolerance)
               and a profile of 4 decode steps
-  12 moe g64  moonshot-v1-16b-a3b at full width and depth under the grouped
-              w2a2g64 plan through the fixed-batch loop: expert_lut_gemm
-              launches exactly 3 x 48 x 16 times; a plain-GEMM re-run gives
+  12 moe g64  moonshot-v1-16b-a3b at full width, cut to its first 12 of 48
+              layers (MOE_FIXED_LAYERS, since the local models' phases
+              came), under the grouped w2a2g64 plan through the fixed-batch
+              loop: expert_lut_gemm launches exactly 3 x 12 x 16 times; a
+              plain-GEMM re-run gives
               identical greedy tokens and first-step logits within the
               stated tolerance
   13 tp       tensor-parallel serving (serve.py --tp 2 --paged): 2 ranks
@@ -169,7 +173,7 @@ Phases, each printing its lines:
               per rank: two ranks sharing one card through gloo measure
               correctness, not tensor-parallel speed
   14 features the paged engine's serving features, qwen1.5-0.5b at full
-              width cut to its first 4 of 24 layers (FEAT_LAYERS, since
+              width cut to its first 2 of 24 layers (FEAT_LAYERS, since
               the local models' phases came; its spec runs took 300 of
               its 417 s at 24 layers) under w2a8_bs (int8 pool): phase 5's 12
               requests, each prompt a shared 48-token prefix (3 blocks of
@@ -197,9 +201,9 @@ Phases, each printing its lines:
               with --prefill-batch 2, and a plain-GEMM run give identical
               tokens, and top-k 1 leaves the baseline's tokens only at near
               ties. Launch
-              counts exact in every kernel run (lut_gemm 7 x 4 per drafter
-              forward, lut_gemm_bs_fused 7 x 4 per target forward,
-              verify included, paged_attention 4 per one-token forward of
+              counts exact in every kernel run (lut_gemm 7 x 2 per drafter
+              forward, lut_gemm_bs_fused 7 x 2 per target forward,
+              verify included, paged_attention 2 per one-token forward of
               either tree, the others 0); each run prints its decode-only
               step and tok/s beside the card's name and power limit
   15 gemma3   gemma3-12b at full width and depth (48 layers: 40 local of
@@ -208,10 +212,10 @@ Phases, each printing its lines:
               requests through the paged engine (launches exact: the
               plan's GEMM 7 x 48 per forward, paged_attention 48 per decode
               step under kv_splits auto, the others 0); a plain-GEMM
-              re-run cut to the first 4 requests and 8 tokens
-              at full depth, against a kernel run of the same cut (tokens
-              and first-step logits identical); a profile and the peak
-              device memory. Under w2a8_bs also: 4 prompts of 1040-1100
+              re-run cut to the first 4 requests and 8 tokens at full
+              depth, against a kernel run of the same cut (tokens and
+              first-step logits identical); a profile (under w2a8_bs) and
+              the peak device memory. Under w2a8_bs also: 4 prompts of 1040-1100
               tokens (past the window; 384-row prefill chunks), 16
               generated, every attention call of the first decode step
               within TOL_ATTN of its plain version, and an attention-plain
@@ -371,7 +375,9 @@ LOCAL_ATTN_EDGES = (
 # length a multiple of 512 so the cacheless prefill takes 512-row chunks)
 LOCAL_MODELS = (("gemma3-12b", ("w2a8_bs", "w2a2"), 2, 1536),
                 ("h2o-danube-3-4b", ("w2a16",), 1, 4608))
-LOCAL_PLAIN_REQUESTS, LOCAL_PLAIN_GEN = 4, 8   # the plain-GEMM re-run's cut
+# the plain-GEMM re-runs of phases 6, 15 and 16 take the first 4 requests
+# and 8 tokens, against a kernel run of the same cut
+PLAIN_CUT_REQUESTS, PLAIN_CUT_GEN = 4, 8
 # the window-crossing run: 4 prompts of 1040-1100 tokens, 16 generated, in
 # an engine of max_len 1152 (16-row blocks) with 384-row prefill chunks
 LOCAL_CROSS = (1040, 1100, 4, 16)
@@ -379,11 +385,12 @@ LOCAL_CROSS_MAX_LEN, LOCAL_CROSS_CHUNK = 1152, 384
 LOCAL_CTX = 8192               # the planted decode, kv_splits 1 and LC_SPLITS
 # phase 14 serves qwen1.5-0.5b at this depth (full width): its spec runs
 # took 300 of its 417 s at 24 layers, which phases 15 and 16 need
-FEAT_LAYERS = 4
-# phase 11 runs the fixed loop at this depth (full width): 107.3 s of the
-# 1164.4 s of the first full run with phases 15 and 16, on a host 1.5x
-# slower than PR 23's
+FEAT_LAYERS = 2
+# phases 11 and 12 run the fixed loop at these depths (full width): 107.3
+# and 51.4 s of the 1164.4 s of the first full run with phases 15 and 16,
+# on a host 1.5x slower than PR 23's
 FIXED_LAYERS = 8
+MOE_FIXED_LAYERS = 12
 # the fixed-batch loop's runs: (arch, plan, the plan's dense GEMM op)
 FIXED_RUNS = (("qwen1.5-0.5b", "w2a2", "lut_gemm"),
               ("qwen1.5-0.5b", "w2a16", "dequant_matmul"),
@@ -1778,6 +1785,15 @@ def phase_local_attention(torch, dev):
     return rows
 
 
+def plain_cut_requests(serve, cfg, args) -> list:
+    """The first PLAIN_CUT_REQUESTS of the CLI's requests, PLAIN_CUT_GEN
+    tokens each: the plain-GEMM re-runs' cut."""
+    reqs = serve.make_requests(cfg, args)[:PLAIN_CUT_REQUESTS]
+    for r in reqs:
+        r.max_new = PLAIN_CUT_GEN
+    return reqs
+
+
 def local_requests(cfg, lo: int, hi: int, count: int, gen: int, seed: int) -> list:
     """``count`` prompts of lo..hi tokens from numpy's default_rng(seed)."""
     from repro_torch.serving import Request
@@ -1846,25 +1862,20 @@ def phase_local_model(torch, serve, wrappers: dict, gemms: dict, smi: str,
                         {op: 7 * n * forwards(res_k),
                          "paged_attention": n * res_k["metrics"]["decode_steps"]})
         # the GEMMs on their plain versions, cut to the first
-        # LOCAL_PLAIN_REQUESTS requests and LOCAL_PLAIN_GEN tokens
+        # PLAIN_CUT_REQUESTS requests and PLAIN_CUT_GEN tokens
         cut = parse(["--arch", arch, "--paged", "--plan", plan, "--device", "cuda",
-                     "--gen", str(LOCAL_PLAIN_GEN)])
-        reqs = serve.make_requests(cfg, args)[:LOCAL_PLAIN_REQUESTS]
-        for r in reqs:
-            r.max_new = LOCAL_PLAIN_GEN
-        cut_k = engine_run(f"cut to {LOCAL_PLAIN_REQUESTS} requests x "
-                           f"{LOCAL_PLAIN_GEN} tokens", cfg, cut, requests=reqs)
-        reqs_p = serve.make_requests(cfg, args)[:LOCAL_PLAIN_REQUESTS]
-        for r in reqs_p:
-            r.max_new = LOCAL_PLAIN_GEN
+                     "--gen", str(PLAIN_CUT_GEN)])
+        reqs = plain_cut_requests(serve, cfg, args)
+        cut_k = engine_run(f"cut to {PLAIN_CUT_REQUESTS} requests x "
+                           f"{PLAIN_CUT_GEN} tokens", cfg, cut, requests=reqs)
         cut_p = engine_run("the same cut, plain GEMMs", plain_gemms(cfg), cut,
-                           requests=reqs_p)
+                           requests=plain_cut_requests(serve, cfg, args))
         if any(cut_p["launches"][g] for g in gemms):
             fail(f"{what}: the plain-GEMM run launched a GEMM kernel")
         same = sum(a.out == b.out for a, b in zip(cut_k["requests"], cut_p["requests"]))
         rel = rel_diff(cut_k["first_logits"], cut_p["first_logits"])
         print(f"[{tag}] {what}: plain-GEMM re-run (cut: the first "
-              f"{LOCAL_PLAIN_REQUESTS} requests, {LOCAL_PLAIN_GEN} tokens, all {n} "
+              f"{PLAIN_CUT_REQUESTS} requests, {PLAIN_CUT_GEN} tokens, all {n} "
               f"layers): tokens identical for {same}/{len(reqs)} requests, first "
               f"decode step logits max rel diff {rel:.3g}", flush=True)
         if plan != "w2a16" and (same != len(reqs) or rel != 0.0):
@@ -1878,7 +1889,7 @@ def phase_local_model(torch, serve, wrappers: dict, gemms: dict, smi: str,
                    plain_gemm_tokens_identical=same, plain_gemm_logits_rel_diff=rel,
                    plain_gemm_decode_step_ms=cut_p["decode_step_ms"],
                    profile=phase_profile(torch, serve, cfg, qparams, args,
-                                         f"[{tag} profile] {what}"))
+                                         f"[{tag} profile] {what}") if i == 0 else None)
         if i == 0:
             # prompts across the window: every local layer's decode reads
             # window rows of a longer context; the first step's attention
@@ -2141,25 +2152,34 @@ def main() -> int:
                       "weight_bytes": res_k["weight_bytes"]}
 
         # 6: the same run with the registry's GEMMs forced onto the plain
-        # versions; attention stays on its kernel
+        # versions (attention stays on its kernel), cut to the first
+        # PLAIN_CUT_REQUESTS requests and PLAIN_CUT_GEN tokens, against a
+        # kernel run of the same cut
         cfg_p = dataclasses.replace(
             cfg, quant=dataclasses.replace(cfg.quant, backend="ref"))
+        cut_args = serve.build_parser().parse_args(
+            ["--arch", "qwen1.5-0.5b", "--paged", "--plan", plan, "--device", "cuda",
+             "--gen", str(PLAIN_CUT_GEN)])
+        cap_c: dict = {}
+        res_c = run_engine(torch, serve, cfg, qparams, cut_args, cap_c,
+                           requests=plain_cut_requests(serve, cfg, args))
         cap_p: dict = {}
         reset_launches()
-        res_p = run_engine(torch, serve, cfg_p, qparams, args, cap_p)
+        res_p = run_engine(torch, serve, cfg_p, qparams, cut_args, cap_p,
+                           requests=plain_cut_requests(serve, cfg, args))
         if any(gemms[name].launches for name in gemms):
             fail("the plain-GEMM run launched a GEMM kernel")
         toks_k = [r.out for r in res_k["requests"]]
-        toks_p = [r.out for r in res_p["requests"]]
-        same = sum(a == b for a, b in zip(toks_k, toks_p))
-        rel = rel_diff(cap_k["first_logits"], cap_p["first_logits"])
-        print(f"[6 plain] {plan}: plain-GEMM run {res_p['tok_per_s']:.1f} "
-              f"tok/s; greedy tokens identical for {same}/{len(toks_k)} "
-              f"requests; first decode step logits max rel diff {rel:.3g}",
-              flush=True)
-        if plan in ("w2a2", "w2a8_bs") and (same != len(toks_k) or rel != 0.0):
+        toks_c = [r.out for r in res_c["requests"]]
+        same = sum(a == r.out for a, r in zip(toks_c, res_p["requests"]))
+        rel = rel_diff(cap_c["first_logits"], cap_p["first_logits"])
+        print(f"[6 plain] {plan}: plain-GEMM run (cut: the first {PLAIN_CUT_REQUESTS} "
+              f"requests, {PLAIN_CUT_GEN} tokens) {res_p['tok_per_s']:.1f} tok/s; "
+              f"greedy tokens identical for {same}/{len(toks_c)} requests; first "
+              f"decode step logits max rel diff {rel:.3g}", flush=True)
+        if plan in ("w2a2", "w2a8_bs") and (same != len(toks_c) or rel != 0.0):
             fail(f"{plan}: kernel and plain paths differ (tokens identical for "
-                 f"{same}/{len(toks_k)} requests, first-step logits by {rel})")
+                 f"{same}/{len(toks_c)} requests, first-step logits by {rel})")
         if plan == "w2a16" and rel > TOL_LOGITS:
             fail(f"w2a16 first-step logits differ by {rel} > {TOL_LOGITS}")
 
@@ -2191,7 +2211,7 @@ def main() -> int:
                          "attn_plain_logits_rel_diff": rel_a,
                          "profile": phase_profile(torch, serve, cfg, qparams, args,
                                                   f"[7 profile] {plan}")}
-    del res_k, res_p, res_a, cap_k, cap_p, cap_a
+    del res_k, res_c, res_p, res_a, cap_k, cap_c, cap_p, cap_a
 
     # 8: planted long-context decode, qwen1.5-0.5b under w2a8_bs
     mark("8 long")
@@ -2466,7 +2486,9 @@ def main() -> int:
     mark("12 moe g64")
     args = serve.build_parser().parse_args(
         ["--arch", "moonshot-v1-16b-a3b", "--plan", "w2a2g64", "--device", "cuda"])
-    cfg, qparams = serve.prepare(args)
+    cfg, desc = serve.config_for(args)
+    cfg = dataclasses.replace(cfg, n_layers=MOE_FIXED_LAYERS)   # the first layers
+    qparams = serve.pack_params(cfg, args, desc)
     n, B, gen = cfg.n_layers, args.batch, args.gen
     reset_launches()
     res_k = fixed_run(torch, serve, cfg, qparams, args)

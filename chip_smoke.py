@@ -167,7 +167,8 @@ Phases, each printing its lines:
               the first decode step identical to its plain version on the
               same local inputs; each rank's packed planes exactly half of
               the single-rank tree's. Then w2a8_bs_g64 the same way against a
-              single-rank g64 run: first-step calls within the grouped
+              single-rank g64 run, both cut to the first TP_G64_CUT requests
+              of TP_G64_GEN tokens: first-step calls within the grouped
               tolerance, first-step logits within the stated tolerance.
               Prints the backend, the decode-only step, tok/s and the bytes
               per rank: two ranks sharing one card through gloo measure
@@ -205,7 +206,12 @@ Phases, each printing its lines:
               forward, lut_gemm_bs_fused 7 x 2 per target forward,
               verify included, paged_attention 2 per one-token forward of
               either tree, the others 0); each run prints its decode-only
-              step and tok/s beside the card's name and power limit
+              step and tok/s beside the card's name and power limit. The
+              baseline again with the request tracer attached
+              (obs/trace.py): tokens and launch counts identical to the
+              untraced run; its Chrome trace, written to a temporary
+              directory, rendered by python -m repro_torch.analysis.report
+              trace; TTFT and TPOT at p50 and p99 printed
   15 gemma3   gemma3-12b at full width and depth (48 layers: 40 local of
               window 1024, 8 global; hd 256, GeGLU, vocab 262144, tied
               head; int8 pool) under w2a8_bs, then w2a2: phase 5's 12
@@ -228,13 +234,28 @@ Phases, each printing its lines:
               the plain single pass against the plain split); the fixed
               loop with 2 prompts of 1536 tokens (every local ring wraps),
               every kv_cache_attention call of the first decode step
-              identical to its plain version
+              identical to its plain version. Ring-paged local layers
+              (--ring): the engine built at 4 slots and max_len 8192 and
+              32768, with and without the ring, one at a time, printing
+              the local layers' pool bytes and the device's peak (the
+              ring's bytes the same at both lengths and n_ring_blocks x 16
+              x the row's bytes); the planted 8192-row decode on a ring
+              engine whose rings hold the last ring_len blocks of each
+              slot, 4 steps against the engine without a ring (logits
+              bitwise equal at every step, tokens identical, launches
+              exact, the ring's first-step calls within TOL_ATTN); the
+              window-crossing prompts through Engine(ring=True) (its chunks
+              attend over the ring in the key chunks of the path without
+              it: tokens identical and the logits of every step bitwise
+              equal to the run without a ring, the count of differing
+              tokens printed; launches exact)
   16 danube   h2o-danube-3-4b at full width and depth (24 layers, all local
               of window 4096, hd 120, untied head, int8 pool) under w2a16
               the same way: the 12 requests with exact launches, the
               plain-GEMM re-run, the window-crossing prompts with their
               attention-plain re-run, a planted decode at 8192 rows (past
-              its window), and the fixed loop with one prompt of 4608 tokens
+              its window), the ring's memory and planted decode, and the
+              fixed loop with one prompt of 4608 tokens
 Each phase prints when it starts, and the run prints every phase's seconds
 at its end.
 
@@ -249,9 +270,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import os
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -383,6 +406,14 @@ PLAIN_CUT_REQUESTS, PLAIN_CUT_GEN = 4, 8
 LOCAL_CROSS = (1040, 1100, 4, 16)
 LOCAL_CROSS_MAX_LEN, LOCAL_CROSS_CHUNK = 1152, 384
 LOCAL_CTX = 8192               # the planted decode, kv_splits 1 and LC_SPLITS
+# phases 15 and 16, ring-paged local layers (--ring): the engine's pools at
+# RING_SLOTS slots (16-row blocks, chunks of two) at each of RING_MAX_LENS,
+# with and without the ring; the planted decode at LOCAL_CTX through both,
+# RING_STEPS steps; phase 15 also serves the window-crossing prompts on it
+RING_SLOTS = 4
+RING_MAX_LENS = (8192, 32768)
+RING_STEPS = 4
+RING_CROSS_ARCH = "gemma3-12b"
 # phase 14 serves qwen1.5-0.5b at this depth (full width): its spec runs
 # took 300 of its 417 s at 24 layers, which phases 15 and 16 need
 FEAT_LAYERS = 2
@@ -391,6 +422,11 @@ FEAT_LAYERS = 2
 # on a host 1.5x slower than PR 23's
 FIXED_LAYERS = 8
 MOE_FIXED_LAYERS = 12
+# phase 13's w2a8_bs_g64 pair (single rank and --tp 2) serves the first
+# TP_G64_CUT requests of TP_G64_GEN tokens: at 12 x 16 the pair took 70 s of
+# the phase's 129.9 in a 960.4 s run (NVIDIA H100 80GB HBM3, 700 W, on a
+# slow host), against a ~900 s aim
+TP_G64_CUT, TP_G64_GEN = 4, 8
 # the fixed-batch loop's runs: (arch, plan, the plan's dense GEMM op)
 FIXED_RUNS = (("qwen1.5-0.5b", "w2a2", "lut_gemm"),
               ("qwen1.5-0.5b", "w2a16", "dequant_matmul"),
@@ -1490,6 +1526,7 @@ def phase_features(torch, serve, wrappers: dict, gemms: dict, smi: str,
 
     base_logits: dict = {}
     baseline, m0 = run("baseline (chunked, greedy)", args, logits=base_logits)
+    out["tracer"] = phase_tracer(torch, run, same, args, baseline, out, smi)
     pc, m1 = run("--prefix-cache", parse(long_args + ["--prefix-cache"]))
     same("--prefix-cache against the baseline", baseline, pc)
     drop = m0["prefill_tokens_computed"] - m1["prefill_tokens_computed"]
@@ -1573,6 +1610,42 @@ def phase_features(torch, serve, wrappers: dict, gemms: dict, smi: str,
     tie_gate("sampled spec, k 1, top-k 1 against the baseline", baseline, st1,
              base_logits, t1_logits)
     return out
+
+
+def phase_tracer(torch, run, same, args, baseline, out: dict, smi: str) -> dict:
+    """Phase 14's baseline again with a ``Tracer`` attached: its tokens and
+    launches must be the baseline's; its Chrome trace is rendered by
+    ``python -m repro_torch.analysis.report trace``, and the run's TTFT and
+    TPOT percentiles printed."""
+    from repro_torch.obs.trace import Tracer
+
+    tracer = Tracer()
+    traced, m = run("baseline, traced", args, tracer=tracer)
+    same("the traced baseline against the baseline", baseline, traced)
+    base = out["baseline (chunked, greedy)"]["launches"]
+    if out["baseline, traced"]["launches"] != base:
+        fail(f"features tracer: launches {out['baseline, traced']['launches']} "
+             f"against the untraced baseline's {base}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "trace.json")
+        tracer.export(path)
+        rendered = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis.report", "trace", path],
+            capture_output=True, text=True, env={**os.environ, "PYTHONPATH": str(SRC)},
+            timeout=120)
+    if rendered.returncode != 0 or "Latency percentiles" not in rendered.stdout:
+        fail(f"features tracer: the report did not render the trace: "
+             f"{rendered.stderr[-2000:]}")
+    lat, ph = m["latency"], m["phases"]
+    print(f"[14 features] traced baseline: tokens and launches identical to the "
+          f"untraced run; {len(m['metrics']['counters'])} counters; TTFT p50 "
+          f"{1e3 * lat['ttft_s']['p50']:.2f} / p99 {1e3 * lat['ttft_s']['p99']:.2f} ms, "
+          f"TPOT p50 {1e3 * lat['tpot_s']['p50']:.3f} / p99 "
+          f"{1e3 * lat['tpot_s']['p99']:.3f} ms on {smi}; {ph['n_steps']} steps, phase "
+          f"seconds {ph['total_s']}; the report's first lines:", flush=True)
+    for line in rendered.stdout.splitlines()[:12]:
+        print(f"    {line}", flush=True)
+    return {"latency": lat, "phases": ph}
 
 
 def phase_local_gemms(torch, dev):
@@ -1785,6 +1858,149 @@ def phase_local_attention(torch, dev):
     return rows
 
 
+def local_pool_bytes(engine) -> int:
+    """Bytes of the pool tensors of ``engine``'s local layers."""
+    return sum(t.numel() * t.element_size()
+               for typ, layer in zip(engine.cfg.layer_types(), engine.caches)
+               if typ == "local" for t in layer.values())
+
+
+def ring_memory(torch, cfg, qparams, tag: str, what: str, smi: str) -> dict:
+    """The engine's local-layer pool bytes and the device's peak while it is
+    built, at RING_SLOTS slots and each of RING_MAX_LENS, without and with
+    the ring (one engine at a time). Gate: the ring's bytes are the same at
+    both lengths and are n_ring_blocks x block_size x the row's bytes (int8
+    K and V codes and their f32 scales) x the local layers."""
+    from repro_torch.serving import Engine
+
+    if cfg.kv_cache_dtype != "int8":
+        fail(f"{what} ring memory: the row bytes below are an int8 pool's")
+    row = 2 * cfg.n_kv_heads * (cfg.hd + 4)
+    n_local = cfg.layer_types().count("local")
+    out: dict = {}
+    for ring in (False, True):
+        for max_len in RING_MAX_LENS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            engine = Engine(cfg, qparams, n_slots=RING_SLOTS, max_len=max_len, ring=ring)
+            torch.cuda.synchronize()
+            rec = {"local_pool_bytes": local_pool_bytes(engine),
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                   "n_blocks": engine.n_blocks, "ring_len": engine.ring_len,
+                   "n_ring_blocks": engine.n_ring_blocks}
+            if ring:
+                want = engine.n_ring_blocks * engine.block_size * row * n_local
+                if rec["local_pool_bytes"] != want:
+                    fail(f"{what} ring memory at {max_len}: local pools of "
+                         f"{rec['local_pool_bytes']} bytes, want {want}")
+            print(f"[{tag}] {what} {'ring' if ring else 'no ring'}, {RING_SLOTS} slots, "
+                  f"max_len {max_len}: local-layer pools {rec['local_pool_bytes'] / 1e9:.4f}"
+                  f" GB ({n_local} layers, {rec['n_ring_blocks'] if ring else rec['n_blocks']}"
+                  f" blocks of 16 x {row} B rows), max_memory_allocated "
+                  f"{rec['max_memory_allocated'] / 1e9:.3f} GB on {smi}", flush=True)
+            out[f"{'ring' if ring else 'full'} {max_len}"] = rec
+            del engine
+    a, b = (out[f"ring {n}"]["local_pool_bytes"] for n in RING_MAX_LENS)
+    if a != b:
+        fail(f"{what} ring memory: the ring's local pools grow with max_len ({a}, {b})")
+    return out
+
+
+def planted_ring_pair(torch, cfg, qparams, wrappers, expect_launches, tag: str,
+                      what: str, op: str) -> dict:
+    """The planted decode at LOCAL_CTX (plant_long_context, kv_splits 1)
+    without the ring, and on a ring engine holding the same rows: its global
+    layers' pools copied, each slot's last ring_len blocks of every local
+    layer copied into its ring. RING_STEPS decode steps on each, launch
+    counts set to 0 before each run and read after; the ring run's first
+    step checks every attention call against its plain version. Gate: the
+    logits bitwise equal at every step, the tokens identical, the launches
+    exact, the first step's calls within TOL_ATTN."""
+    from repro_torch.serving import Engine, Request
+    from repro_torch.serving import cache as C
+    from repro_torch.serving.engine import _DECODE
+
+    kw = dict(n_slots=LC_SLOTS, max_len=LOCAL_CTX + 4 * LC_BLOCK, block_size=LC_BLOCK,
+              chunk_size=LC_BLOCK, kv_splits=1)
+    full = Engine(cfg, qparams, **kw)
+    reqs = {"full": plant_long_context(torch, full, LOCAL_CTX, RING_STEPS, seed=11),
+            "ring": []}
+    ring = Engine(cfg, qparams, ring=True, **kw)
+    types = cfg.layer_types()
+    for typ, src, dst in zip(types, full.caches, ring.caches):
+        if typ != "local":
+            for name in src:
+                dst[name].copy_(src[name])
+    nb_ctx = LOCAL_CTX // LC_BLOCK
+    for i, (fs, rs) in enumerate(zip(full.slots, ring.slots)):
+        rs.req = Request(uid=i, prompt=fs.prompt.copy(), max_new=RING_STEPS)
+        reqs["ring"].append(rs.req)
+        rs.state, rs.prompt, rs.pos, rs.next_input = _DECODE, fs.prompt.copy(), fs.pos, \
+            fs.next_input
+        rs.blocks = ring.pool.alloc(len(fs.blocks))
+        rs.ring_blocks = ring.ring_pool.alloc(ring.ring_len)
+        rs.ring_abs = C.ring_abs_row(rs.ring_blocks, ring.nb_spec)
+        if rs.blocks != fs.blocks:
+            fail(f"{what} planted ring: block ids {rs.blocks} != {fs.blocks}")
+        for j in range(nb_ctx - ring.ring_len, nb_ctx):
+            for typ, src, dst in zip(types, full.caches, ring.caches):
+                if typ == "local":
+                    for name in src:
+                        dst[name][rs.ring_blocks[j % ring.ring_len]] = src[name][fs.blocks[j]]
+    runs = {}
+    for label, engine in (("full", full), ("ring", ring)):
+        logits: list = []
+        inner = engine._decode_fn
+
+        def keep(*a, inner=inner, logits=logits):
+            lg = inner(*a)
+            logits.append(lg.clone())
+            return lg
+
+        engine._decode_fn = keep
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        errs: list = []
+        with checked_attention_calls(errs) if label == "ring" else contextlib.nullcontext():
+            engine._do_decode()
+        for _ in range(RING_STEPS - 1):
+            engine._do_decode()
+        torch.cuda.synchronize()
+        launches = {name: w.launches for name, w in wrappers.items()}
+        expect_launches(f"{what} planted ring pair ({label})", launches,
+                        {op: 7 * cfg.n_layers * RING_STEPS,
+                         "paged_attention": cfg.n_layers * RING_STEPS})
+        runs[label] = {"logits": logits, "tokens": [r.out for r in reqs[label]],
+                       "errs": errs, "launches": launches}
+    bitwise = all(torch.equal(a, b) for a, b in zip(runs["full"]["logits"],
+                                                     runs["ring"]["logits"]))
+    worst = max(rel_diff(b, a) for a, b in zip(runs["full"]["logits"],
+                                               runs["ring"]["logits"]))
+    errs = runs["ring"]["errs"]
+    same_tokens = runs["full"]["tokens"] == runs["ring"]["tokens"]
+    print(f"[{tag}] {what} planted {LOCAL_CTX}, ring of {ring.ring_len} blocks of "
+          f"{LC_BLOCK} against the full table, {RING_STEPS} decode steps: logits "
+          f"bitwise equal at every step {bitwise} (max rel diff {worst:.3g}), tokens "
+          f"identical {same_tokens}; the ring's first step: {len(errs)} attention "
+          f"calls each within {max(errs, default=float('nan')):.3g} of their plain "
+          f"version; launches {runs['ring']['launches']}", flush=True)
+    if not bitwise or not same_tokens:
+        fail(f"{what} planted ring pair: logits bitwise {bitwise} (max rel diff {worst}),"
+             f" tokens identical {same_tokens}")
+    if len(errs) != cfg.n_layers or max(errs) > TOL_ATTN:
+        fail(f"{what} planted ring pair: {len(errs)} checked attention calls (want "
+             f"{cfg.n_layers}), max rel err {max(errs, default=None)}")
+    out = {"ring_len": ring.ring_len, "logits_bitwise_equal": bitwise,
+           "tokens_identical": same_tokens,
+           "first_step_attention_call_max_rel_err": max(errs)}
+    del full, ring, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def plain_cut_requests(serve, cfg, args) -> list:
     """The first PLAIN_CUT_REQUESTS of the CLI's requests, PLAIN_CUT_GEN
     tokens each: the plain-GEMM re-runs' cut."""
@@ -1899,9 +2115,12 @@ def phase_local_model(torch, serve, wrappers: dict, gemms: dict, smi: str,
                                 "cuda", "--gen", str(gen), "--prompt-len",
                                 str(LOCAL_CROSS_MAX_LEN - gen - 16)])
             errs: list = []
+            cross_logits: dict = {}
             cr = engine_run(f"{count} prompts of {lo}-{hi} tokens", cfg, cross_args,
                             requests=local_requests(cfg, lo, hi, count, gen, 17),
-                            check_first=errs, chunk_size=LOCAL_CROSS_CHUNK)
+                            check_first=errs, chunk_size=LOCAL_CROSS_CHUNK,
+                            logits_by_step=cross_logits if arch == RING_CROSS_ARCH
+                            else None)
             expect_launches(f"{what} window-crossing run", cr["launches"],
                             {op: 7 * n * forwards(cr),
                              "paged_attention": n * cr["metrics"]["decode_steps"]})
@@ -1937,6 +2156,39 @@ def phase_local_model(torch, serve, wrappers: dict, gemms: dict, smi: str,
                 max(errs), "attn_plain_logits_rel_diff": rel_c,
                 "attn_plain_tokens_identical": same_c,
                 "plain_single_vs_plain_split_logits_rel_diff": cond_c}
+            if arch == RING_CROSS_ARCH:
+                # the same prompts through Engine(ring=True): the prefill
+                # chunks attend over the ring's rows in the gathered path's
+                # key chunks, the decode through the kernels on the ring's
+                # absolute tables, so the logits are the run's bit for bit
+                ring_logits: dict = {}
+                crr = engine_run("the same prompts, --ring", cfg, cross_args,
+                                 requests=local_requests(cfg, lo, hi, count, gen, 17),
+                                 chunk_size=LOCAL_CROSS_CHUNK, ring=True,
+                                 logits_by_step=ring_logits)
+                expect_launches(f"{what} window-crossing ring run", crr["launches"],
+                                {op: 7 * n * forwards(crr),
+                                 "paged_attention": n * crr["metrics"]["decode_steps"]})
+                want = [r.out for r in cr["requests"]]
+                got = [r.out for r in crr["requests"]]
+                n_diff = sum(a != b for w, g in zip(want, got) for a, b in zip(w, g))
+                bitwise = ring_logits.keys() == cross_logits.keys() and all(
+                    torch.equal(ring_logits[key], cross_logits[key]) for key in ring_logits)
+                peak = crr["metrics"]["pool_blocks_peak"]
+                print(f"[{tag}] {what} window-crossing run on the ring: {n_diff} of "
+                      f"{sum(map(len, want))} tokens differ from the run without it; "
+                      f"the logits of all {len(ring_logits)} steps bitwise equal "
+                      f"{bitwise}; peak blocks a request {peak}; decode-only step "
+                      f"{crr['decode_step_ms']:.3f} ms against {cr['decode_step_ms']:.3f}"
+                      f" ms on {smi}", flush=True)
+                if n_diff or not bitwise:
+                    fail(f"{what} window-crossing ring run: {n_diff} tokens differ, "
+                         f"logits bitwise equal {bitwise}")
+                res["window_crossing_ring"] = {
+                    "tokens_differing": n_diff, "logits_bitwise_equal": bitwise,
+                    "pool_blocks_peak": peak, "decode_step_ms": crr["decode_step_ms"],
+                    "launches": crr["launches"]}
+                del cross_logits, ring_logits, crr
             # the planted decode at LOCAL_CTX: kv_splits LC_SPLITS and 1 on
             # byte-identical state, and the split on its plain version
             split = long_context_run(torch, cfg, qparams, LOCAL_CTX, LC_SPLITS, wrappers,
@@ -2015,6 +2267,13 @@ def phase_local_model(torch, serve, wrappers: dict, gemms: dict, smi: str,
                    seconds=time.perf_counter() - t_plan)
         print(f"[{tag}] {what}: packed weights {packed_gb:.2f} GB, peak device memory "
               f"{peak_gb:.2f} GB; {res['seconds']:.1f}s", flush=True)
+        if i == 0:
+            # ring-paged local layers, after the serve's peak was read: the
+            # pools' bytes with and without the ring (each engine resets the
+            # peak), and the planted decode on both, bit for bit
+            res["ring_memory"] = ring_memory(torch, cfg, qparams, tag, what, smi)
+            res["ring_planted"] = planted_ring_pair(torch, cfg, qparams, wrappers,
+                                                    expect_launches, tag, what, op)
         out[plan] = res
         del qparams, res_k, cut_k, cut_p
         gc.collect()
@@ -2532,6 +2791,8 @@ def main() -> int:
     for plan in ("w2a8_bs", "w2a8_bs_g64"):
         argv = ["--arch", "qwen1.5-0.5b", "--paged", "--plan", plan, "--device",
                 "cuda"]
+        if plan == "w2a8_bs_g64":     # its own single-rank run: cut both
+            argv += ["--requests", str(TP_G64_CUT), "--gen", str(TP_G64_GEN)]
         args = serve.build_parser().parse_args(argv + ["--tp", "2"])
         if plan == "w2a8_bs":
             ref = tp1_bs

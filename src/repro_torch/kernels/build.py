@@ -164,6 +164,13 @@ def library(stem: str) -> ctypes.CDLL:
         return lib
 
 
+def loaded() -> int:
+    """How many kernel libraries this process has loaded (each is built, or
+    found built, at its first use): the engine reads it around a forward
+    to see whether that forward paid for a build."""
+    return len(_LIBS)
+
+
 def check(err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` from a C entry point."""
     if err != 0:

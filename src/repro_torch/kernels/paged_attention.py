@@ -41,6 +41,14 @@ into, and ``split_clusters`` how the split groups its chunks into
 clusters; both read static shapes only, so no decode step waits on the
 device to choose them.
 
+A ring-paged local layer (``Engine(ring=True)``) passes its slot's ring
+of ring_len blocks as a table of the same width nb as without the ring,
+entry j being ring block j % ring_len (``serving/cache.py::ring_abs_row``).
+Every formulation here reads only rows [lengths[b] - window, lengths[b]),
+which the ring holds, so ``walk_extent``, ``cluster_ranks`` and
+``split_partition`` see the nb they see without the ring and the output is
+that call's, bit for bit; nothing here knows of rings.
+
 Callers go through ``kernels/registry.py``. Where lengths[b] is 0 the
 oracle averages every row of the table (softmax of all-masked scores);
 the kernels and the walk read no row and return 0 there. The engine

@@ -20,9 +20,10 @@ Every dispatch records ``kernel_dispatch_total{op,backend,m_bucket,bits}``
 ``expert_dequant_matmul`` and ``expert_lut_gemm``, paged decode attention,
 ``paged_attention`` and ``paged_attention_splitkv`` (a local layer passes
 its ``window`` as a static argument, which reaches the kernel and the
-plain version alike), and decode attention over the fixed-batch loop's
-dense slot cache, ``kv_cache_attention`` (a local layer's ring needs no
-window: its lengths are the ring's live rows).
+plain version alike; a ring-paged one its ring as an absolute block
+table, kernels/paged_attention.py), and decode attention over the
+fixed-batch loop's dense slot cache, ``kv_cache_attention`` (a local
+layer's ring needs no window: its lengths are the ring's live rows).
 LUT-65k has no kernel and is not registered.
 
 Tensor parallelism: the four dense GEMM ops carry the reference's TP rule

@@ -55,24 +55,34 @@ The paged engine's serving features follow the reference's flags:
 ``--prefix-cache`` (the radix cache), ``--prefill-batch N`` (N requests a
 prefill chunk), ``--prefill whole`` (whole-prompt admission),
 ``--temperature`` / ``--top-k`` / ``--top-p`` with ``--seed`` (seeded
-sampling) and ``--spec-draft-plan PLAN`` with ``--spec-k`` (speculative
-decoding with a drafter packed from the same weights under PLAN):
+sampling), ``--spec-draft-plan PLAN`` with ``--spec-k`` (speculative
+decoding with a drafter packed from the same weights under PLAN),
+``--ring`` (ring-paged local layers: a sliding-window arch's local layers
+keep a ring of blocks a slot, flat in the context) and ``--trace-out
+PATH`` (the request tracer: prints the TTFT / TPOT percentiles and the
+step phases, and writes a Chrome trace, or JSONL for a ``.jsonl`` path,
+which ``python -m repro_torch.analysis.report trace PATH`` renders):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --paged --plan w2a8_bs --prefix-cache --prefill-batch 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --paged --plan w2a8_bs --spec-draft-plan w2a2 --temperature 0.8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
+      --paged --plan w2a8_bs --ring --trace-out trace.json
 
 It takes the reference's rules: the engine's features (``--prefix-cache``,
 ``--prefill-batch`` > 1, ``--tp`` > 1, ``--spec-draft-plan``, an explicit
 ``--kv-splits``, ``--ring``, ``--trace-out``, ``--metrics-out``) require
 ``--paged``; ``--prefix-cache`` and ``--spec-draft-plan`` refuse
-``--prefill whole``. One rule is the port's own: the sampling flags
+``--prefill whole``; ``--ring`` needs a sliding-window arch and refuses
+``--prefix-cache``. One rule is the port's own: the sampling flags
 require ``--paged`` (the reference's fixed loop ignores them and decodes
-greedily). Flags of features not ported yet are rejected loudly: ring-paged
-local layers, the tracer, static activation scales, k-means codebooks, the
+greedily). Flags of features not ported yet are rejected loudly: static
+activation scales and k-means codebooks (ROADMAP queue 1, item 2), the
 legacy plan, MoE under ``--tp``, and speculative decoding under ``--tp``
-(the drafter's TP rules, ROADMAP queue 1, item 11). Prompts come from
+(the drafter's TP rules, ROADMAP queue 1, item 11). ``--ring`` under
+``--tp`` runs: the rings are host-side, and every rank holds the whole
+pool. Prompts come from
 numpy's ``default_rng(seed)``; the reference draws them with JAX's
 threefry, whose numbers are not reproduced. The enc-dec and vision inputs
 of the reference's fixed loop come with their families (ROADMAP queue 1,
@@ -99,6 +109,7 @@ from repro_torch.launch import mesh
 from repro_torch.launch import steps as St
 from repro_torch.models import lm
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.trace import Tracer
 from repro_torch.serving import Engine, Request, SamplerConfig
 
 
@@ -193,9 +204,16 @@ def validate_args(args) -> None:
         raise ValueError(f"--top-k must be >= 0 (0 = off), got {args.top_k}")
     if args.prefill_batch < 1:
         raise ValueError(f"--prefill-batch must be >= 1, got {args.prefill_batch}")
-    item6 = "ROADMAP queue 1, item 6"
+    if args.ring and args.arch in ARCHS:
+        cfg = get_config(args.arch)
+        if "local" not in cfg.layer_types() or not cfg.window:
+            raise ValueError(f"--ring requires a sliding-window arch: '{cfg.name}' "
+                             "has no local attention layers to ring-page")
+    if args.ring and args.prefix_cache:
+        raise ValueError("--ring is incompatible with --prefix-cache: ring blocks "
+                         "are per-slot and rewritten in place, so local-layer KV "
+                         "can never be shared across requests")
     checks = [
-        (args.ring, f"--ring (ring-paged local layers) is not ported yet: {item6}"),
         (args.tp > 1 and args.arch in ARCHS
          and get_config(args.arch).moe is not None,
          "--tp > 1 on an MoE model (the expert TP rules) is not ported yet: "
@@ -203,7 +221,6 @@ def validate_args(args) -> None:
         (args.tp > 1 and args.spec_draft_plan is not None,
          "--spec-draft-plan under --tp > 1 (the drafter's TP rules) is not "
          "ported yet: ROADMAP queue 1, item 11"),
-        (args.trace_out is not None, f"--trace-out (tracer) is not ported yet: {item6}"),
         (args.a_scale == "static", "--a-scale static (calibration) is not "
          "ported yet: ROADMAP queue 1, item 2"),
         (args.nonuniform, "--nonuniform (k-means codebooks) is not ported "
@@ -255,6 +272,7 @@ def make_engine(cfg, qparams, args, spec=None, **engine_kw) -> Engine:
                          spec_k=args.spec_k)
     sampler = SamplerConfig(temperature=args.temperature, top_k=args.top_k,
                             top_p=args.top_p, seed=args.seed)
+    engine_kw.setdefault("ring", args.ring)
     return Engine(cfg, qparams, n_slots=args.batch, max_len=max_len,
                   block_size=args.block_size, max_queue=args.max_queue,
                   prefill=args.prefill, prefill_batch=args.prefill_batch,
@@ -336,8 +354,12 @@ def serve_paged(cfg, qparams, args, engine: Engine | None = None,
     """Run the request stream (``make_requests``, or ``requests``) through
     the engine; print and return the run's numbers (requests, tokens, wall
     time, mean time of the steps that only decoded: no prefill chunk,
-    whole prompt or drafter catch-up)."""
+    whole prompt or drafter catch-up). With ``--trace-out`` a ``Tracer``
+    is attached unless the engine has one; its latency and phase summaries
+    are printed and its trace written there."""
     engine = engine if engine is not None else make_engine(cfg, qparams, args)
+    if args.trace_out and engine.tracer is None:
+        engine.attach_tracer(Tracer())
     reqs = requests if requests is not None else make_requests(cfg, args)
     for r in reqs:
         if not engine.submit(r):
@@ -379,12 +401,43 @@ def serve_paged(cfg, qparams, args, engine: Engine | None = None,
               f"{m['prefix_cache']['evictions']} evictions)")
     ops = _dispatch_counts(m["metrics"]["counters"])
     print(f"  kernel dispatches: {ops}")
+    if engine.ring_len:
+        print(f"  ring-paged local layers: rings of {engine.ring_len} blocks, "
+              f"{engine.n_ring_blocks} ring-pool blocks against "
+              f"{engine.n_blocks} in the main pool; peak blocks a request "
+              f"{m['pool_blocks_peak']}")
+    if engine.tracer is not None:
+        print_trace(engine.tracer, args.trace_out)
     if args.metrics_out:
         with open(args.metrics_out, "w") as fh:
             json.dump(m, fh, indent=1, default=float)
     return {"requests": reqs, "metrics": m, "seconds": dt, "tokens": n_tok,
             "tok_per_s": n_tok / max(dt, 1e-9), "decode_step_ms": step_ms,
             "dispatches": ops, "engine": engine}
+
+
+def print_trace(tracer, path: str | None) -> None:
+    """Print a tracer's TTFT / TPOT percentiles and phase totals, and
+    export it to ``path`` where given (JSONL for a ``.jsonl`` path, else a
+    Chrome trace), as the reference's serve.py:258-275 does."""
+    lat, ph = tracer.latency_summary(), tracer.phase_summary()
+
+    def pct(stat):
+        s = lat[stat]
+        if not s["count"]:
+            return f"{stat}: n/a"
+        return (f"{stat} p50/p95/p99 {1e3 * s['p50']:.1f}/{1e3 * s['p95']:.1f}/"
+                f"{1e3 * s['p99']:.1f} ms")
+
+    print(f"  latency: {pct('ttft_s')} | {pct('tpot_s')}")
+    tot = ph["total_s"]
+    print("  phases (s): " + ", ".join(f"{k}={tot[k]:.3f}" for k in sorted(tot)))
+    if path:
+        tracer.export(path)
+        kind = "JSONL" if path.endswith(".jsonl") else \
+            "Chrome trace; load in ui.perfetto.dev"
+        print(f"  trace written to {path} ({kind}); render it with python -m "
+              f"repro_torch.analysis.report trace {path}")
 
 
 def config_for(args):
@@ -441,6 +494,8 @@ def serve_rank(rank: int, world: int, args, check_ops: tuple = ()) -> dict:
     of any of them from the op's plain version on the same local inputs,
     relative to max|plain| (those calls also run the plain version)."""
     cfg, qparams = prepare(args, tp=world, rank=rank)
+    if rank:
+        args.trace_out = None            # rank 0 traces and writes the file
     engine = make_engine(cfg, qparams, args, tp_group=dist.group.WORLD)
     print(f"  rank {rank} of {world} on {engine.device} ({dist.get_backend()}): "
           f"{engine.per_device_weight_bytes()} parameter bytes")

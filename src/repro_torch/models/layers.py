@@ -27,9 +27,25 @@ chunked prefill mask (query - key) < window; the paged decode passes the
 window to the attention op (rows >= pos + 1 - window), or masks the
 gathered view; the fixed loop's dense slot cache of a local layer is a
 ring of W = min(max_len, window) rows, row pos written at pos % window,
-attended over its min(pos + 1, W) live rows. The ring-paged pool
-(``Engine(ring=True)``) waits (ROADMAP queue 1, item 6); QAT waits for the
-training slice.
+attended over its min(pos + 1, W) live rows. QAT waits for the training
+slice.
+
+A ring-paged local layer (``Engine(ring=True)``, ``ring_tables``): the pool
+holds a ring of ring_len blocks a slot, absolute row t at ring block
+(t // bs) % ring_len, offset t % bs, so the layer's memory is flat in the
+context (the reference's layers.py:441-506). A one-token decode attends
+through the same ops as without a ring, on the ring spelled out as an
+absolute table (entry j: ring block j % ring_len) of the table's width:
+the ops read only rows [pos + 1 - window, pos], which the ring holds, so
+they see the rows, the width and hence the walk of the call without a
+ring. A prefill chunk or a verify (S > 1) attends, one sequence at a time,
+over the rows of its window and the chunk in absolute order, in the key
+chunks of the gathered path without a ring, the rows below pos read from
+the ring, then scatters the chunk into the ring: O(window + chunk) rows
+gathered, not the table's, and that path's output bit for bit. Every
+row a query can reach is live because R >= window + span - 1 (the
+engine's sizing): a pad or rejected row written past the kept position
+aliases a row a full R below it, outside every later window.
 
 Cache updates happen in place: ``attn_apply`` writes the new K/V rows into
 the slot cache or scatters them into the shared pool tensors instead of
@@ -103,20 +119,25 @@ def _attn_chunk_size(sk: int) -> int:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    q_offset=0) -> torch.Tensor:
-    """Online-softmax attention over key chunks. q (B, Sq, KV, G, hd), k/v
-    (B, Sk, KV, hd) -> (B, Sq, KV, G, hd). ``q_offset`` is the absolute
-    position of query row 0: an int, or a (B,) tensor per row. A local
-    layer's ``window`` keeps the keys with (query - key) < window."""
+                    q_offset=0, k_offset=None,
+                    chunk: Optional[int] = None) -> torch.Tensor:
+    """Online-softmax attention over key chunks (of ``chunk`` keys, default
+    ``_attn_chunk_size(Sk)``). q (B, Sq, KV, G, hd), k/v (B, Sk, KV, hd)
+    -> (B, Sq, KV, G, hd). ``q_offset`` is the absolute position of query
+    row 0: an int, or a (B,) tensor per row. A local layer's ``window``
+    keeps the keys with (query - key) < window. ``k_offset`` (a (B,)
+    tensor, with a per-row ``q_offset``) is the absolute position of key
+    row 0; None: key row j is at position j."""
     B, Sq, KV, G, hd = q.shape
     Sk = k.shape[1]
     scale = hd ** -0.5
-    kc = _attn_chunk_size(Sk)
+    kc = chunk if chunk is not None else _attn_chunk_size(Sk)
     dev = q.device
     qf = q.float()
     per_row = torch.is_tensor(q_offset) and q_offset.ndim == 1
     qpos = (q_offset[:, None] if per_row else q_offset) \
         + torch.arange(Sq, device=dev)                   # (B, Sq) or (Sq,)
+    koff = 0 if k_offset is None else k_offset[:, None, None]
     m = torch.full((B, KV, G, Sq), _NEG, dtype=torch.float32, device=dev)
     l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, KV, G, Sq, hd), dtype=torch.float32, device=dev)
@@ -124,8 +145,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kb = k[:, k0:k0 + kc].float()
         vb = v[:, k0:k0 + kc].float()
         s = torch.einsum("bqegh,bseh->begqs", qf, kb) * scale
-        kpos = k0 + torch.arange(kb.shape[1], device=dev)
-        mask = torch.ones(qpos.shape + kpos.shape, dtype=torch.bool, device=dev)
+        kpos = k0 + torch.arange(kb.shape[1], device=dev) + koff
+        mask = torch.ones(torch.broadcast_shapes(qpos.shape + (1,), kpos.shape),
+                          dtype=torch.bool, device=dev)
         if causal:
             mask &= qpos[..., None] >= kpos
         if window is not None:
@@ -281,10 +303,55 @@ def _prefill_attention(q, k, v, cfg, window: Optional[int]) -> torch.Tensor:
     return flash_attention(q, k, v, causal=True, window=window)
 
 
+def _ring_chunk_attention(q, k, v, cache: dict, ring: torch.Tensor,
+                          pos: torch.Tensor, window: int, dqf,
+                          kc: int) -> torch.Tensor:
+    """A chunk of S > 1 rows over a ring-paged local layer, before its
+    write, one sequence at a time as the gathered path does. Keys are the
+    absolute rows [a0, a0 + L): a0 the window's first row for the chunk's
+    first query, rounded down to a multiple of the gathered path's key
+    chunk ``kc``, and L = kc * ceil((window + S + kc - 2) / kc), enough to
+    pass the chunk's last row. Rows below pos come from the ring (row a at
+    ring row a % R), rows from pos on from the chunk (q, k, v: (B, S, ...);
+    k / v as the pool stores them: (codes, scales) pairs and their decoder
+    ``dqf`` on an int8/int4 pool, else tensors); the rows no query may read
+    hold whatever the ring does there. So every key chunk a query reads is
+    the gathered path's chunk of the same rows, and the output is that
+    path's bit for bit (a chunk with no live key leaves the online softmax
+    exactly as it was)."""
+    B, S = q.shape[:2]
+    bs_tok = cache["k"].shape[1]
+    R = ring.shape[1] * bs_tok
+    L = kc * -(-(window + S + kc - 2) // kc)
+    outs = []
+    for b in range(B):
+        a0 = torch.clamp(pos[b] - window + 1, min=0) // kc * kc
+        a = a0 + torch.arange(L, device=q.device)
+        slot = torch.remainder(a, R)
+        blk, off = ring[b, slot // bs_tok], slot % bs_tok
+        fresh = (a >= pos[b])[:, None, None]
+        j = torch.clamp(a - pos[b], 0, S - 1)
+
+        def rows(name, new, b=b):
+            if dqf is None:
+                return torch.where(fresh, new[b, j].to(cache[name].dtype),
+                                   cache[name][blk, off])
+            codes, sc = new
+            return torch.where(fresh, dqf(codes[b, j], sc[b, j]),
+                               dqf(cache[name][blk, off], cache[name + "_sc"][blk, off]))
+
+        outs.append(flash_attention(q[b:b + 1], rows("k", k)[None], rows("v", v)[None],
+                                    causal=True, window=window, q_offset=pos[b:b + 1],
+                                    k_offset=a0[None], chunk=kc))
+    return torch.cat(outs)
+
+
 def attn_apply(p: dict, x: torch.Tensor, *, cfg, layer_type: str = "global",
                cache: Optional[dict] = None,
                pos: Optional[torch.Tensor] = None,
                block_tables: Optional[torch.Tensor] = None,
+               ring_tables: Optional[torch.Tensor] = None,
+               ring_abs: Optional[torch.Tensor] = None,
                kv_splits: int = 1, attn_backend: str = "auto",
                collect: Optional[list] = None) -> torch.Tensor:
     """Self-attention layer. x (B, S, D). A "local" ``layer_type`` attends
@@ -313,7 +380,13 @@ def attn_apply(p: dict, x: torch.Tensor, *, cfg, layer_type: str = "global",
       then the split einsum;
     - otherwise: gather each row's blocks into a dense view, update it,
       attend (decode, or a chunked prefill with a per-row causal mask),
-      then scatter."""
+      then scatter.
+
+    A local layer given ``ring_tables`` (B, ring_len) is ring-paged (the
+    module docstring): its rows scatter into the ring; a one-token decode
+    takes the paths above on ``ring_abs`` (B, nb), the ring as an absolute
+    table of the block tables' width; a chunk attends over the ring's
+    rows, then scatters."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     G = H // KV
@@ -343,8 +416,16 @@ def attn_apply(p: dict, x: torch.Tensor, *, cfg, layer_type: str = "global",
             v, v_sc = qf(v)
         nb = block_tables.shape[1]
         rows = pos[:, None] + ar[None, :]                        # (B, S)
-        blk = torch.gather(block_tables, 1,
-                           torch.clamp(rows // bs_tok, max=nb - 1))
+        ring = ring_tables if layer_type == "local" else None
+        if ring is None:
+            tables = block_tables
+            blk = torch.gather(block_tables, 1,
+                               torch.clamp(rows // bs_tok, max=nb - 1))
+        else:
+            tables = ring_abs
+            # from the ring itself: the table's clamp would send a row past
+            # its width onto the last entry, a live block of the ring
+            blk = torch.gather(ring, 1, (rows // bs_tok) % ring.shape[1])
         offs = rows % bs_tok
 
         def scatter():
@@ -357,7 +438,7 @@ def attn_apply(p: dict, x: torch.Tensor, *, cfg, layer_type: str = "global",
         if S == 1 and quant_cache:
             scatter()
             ops = (q[:, 0], cache["k"], cache["k_sc"], cache["v"], cache["v_sc"],
-                   block_tables, pos + 1)
+                   tables, pos + 1)
             bits = KV_BITS[cfg.kv_cache_dtype]
             if kv_splits > 1:
                 o = registry.dispatch("paged_attention_splitkv", *ops,
@@ -370,12 +451,18 @@ def attn_apply(p: dict, x: torch.Tensor, *, cfg, layer_type: str = "global",
             out = o[:, None].to(q.dtype)
         elif S == 1 and kv_splits > 1:
             scatter()
-            out = _splitkv_decode(q, cache, block_tables, pos, kv_splits, window)
+            out = _splitkv_decode(q, cache, tables, pos, kv_splits, window)
+        elif ring is not None:
+            out = _ring_chunk_attention(q, (k, k_sc) if quant_cache else k,
+                                        (v, v_sc) if quant_cache else v, cache, ring,
+                                        pos, window, dqf if quant_cache else None,
+                                        _attn_chunk_size(nb * bs_tok))
+            scatter()
         else:
             S_view = nb * bs_tok
 
             def gather(pool):
-                return pool[block_tables].reshape(B, S_view, *pool.shape[2:])
+                return pool[tables].reshape(B, S_view, *pool.shape[2:])
 
             kc = _cache_update(gather(cache["k"]), k, pos)
             vc = _cache_update(gather(cache["v"]), v, pos)

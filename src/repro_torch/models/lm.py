@@ -216,6 +216,8 @@ def apply_layer(p: dict, x: torch.Tensor, *, cfg, layer_type: str = "global",
                 cache: Optional[dict] = None,
                 pos: Optional[torch.Tensor] = None,
                 block_tables: Optional[torch.Tensor] = None,
+                ring_tables: Optional[torch.Tensor] = None,
+                ring_abs: Optional[torch.Tensor] = None,
                 kv_splits: int = 1, attn_backend: str = "auto",
                 collect: Optional[list] = None) -> torch.Tensor:
     """One pre-norm decoder layer: x + attn(ln1(x)), then + mlp(ln2(.)) or
@@ -224,7 +226,8 @@ def apply_layer(p: dict, x: torch.Tensor, *, cfg, layer_type: str = "global",
     h = L.norm_apply(p["ln1"], x, cfg.norm)
     x = x + L.attn_apply(p["attn"], h, cfg=cfg, layer_type=layer_type,
                          cache=cache, pos=pos,
-                         block_tables=block_tables, kv_splits=kv_splits,
+                         block_tables=block_tables, ring_tables=ring_tables,
+                         ring_abs=ring_abs, kv_splits=kv_splits,
                          attn_backend=attn_backend, collect=collect)
     h2 = L.norm_apply(p["ln2"], x, cfg.norm)
     if "moe" in p:
@@ -234,7 +237,9 @@ def apply_layer(p: dict, x: torch.Tensor, *, cfg, layer_type: str = "global",
 
 def forward(params: dict, cfg, tokens: torch.Tensor, *,
             caches: Optional[list] = None, pos: Optional[torch.Tensor] = None,
-            block_tables: Optional[torch.Tensor] = None, kv_splits=1,
+            block_tables: Optional[torch.Tensor] = None,
+            ring_tables: Optional[torch.Tensor] = None,
+            ring_abs: Optional[torch.Tensor] = None, kv_splits=1,
             attn_backend: str = "auto", collect_cache: bool = False):
     """Token ids (B, S) -> (final hidden states (B, S, D), caches).
 
@@ -249,7 +254,10 @@ def forward(params: dict, cfg, tokens: torch.Tensor, *,
     int for every layer, or a sequence with one per layer) and
     ``attn_backend`` (the registry backend of the decode attention op)
     reach every layer's attention; each layer attends as its type in
-    ``cfg.layer_types()`` says."""
+    ``cfg.layer_types()`` says. ``ring_tables`` (B, ring_len) ring-page
+    the local layers (their pools are the engine's ring pool, the
+    reference's lm.py:185-239); a one-token step also takes ``ring_abs``
+    (B, nb), the same rings as absolute tables (``layers.attn_apply``)."""
     _check_supported(cfg)
     collected = [] if collect_cache and caches is None else None
     n = len(params["layers"])
@@ -258,8 +266,10 @@ def forward(params: dict, cfg, tokens: torch.Tensor, *,
     for i, lp in enumerate(params["layers"]):
         x = apply_layer(lp, x, cfg=cfg, layer_type=cfg.layer_type(i),
                         cache=None if caches is None else caches[i],
-                        pos=pos, block_tables=block_tables, kv_splits=splits[i],
-                        attn_backend=attn_backend, collect=collected)
+                        pos=pos, block_tables=block_tables,
+                        ring_tables=ring_tables, ring_abs=ring_abs,
+                        kv_splits=splits[i], attn_backend=attn_backend,
+                        collect=collected)
     h = L.norm_apply(params["final_norm"], x, cfg.norm)
     return h, caches if collected is None else collected
 

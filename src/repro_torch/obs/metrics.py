@@ -1,9 +1,13 @@
-"""Metrics registry: labeled counters and gauges, with a scoped stack.
+"""Metrics registry: labeled counters, gauges and histograms, with a
+scoped stack.
 
 The port's own small copy of ``repro/obs/metrics.py`` (pure Python; never
-touches a device). What it keeps: ``MetricsRegistry``, the ``scoped()``
-registry stack (records land in every scope down to the first
-``isolate=True`` one, else the process-global base), and the
+touches a device). What it keeps: ``MetricsRegistry`` (counters, last-value
+gauges, and histograms of raw observations summarised at snapshot time),
+the ``scoped()`` registry stack (records land in every scope down to the
+first ``isolate=True`` one, else the process-global base), the
+module-level ``inc`` / ``set_gauge`` / ``observe``, the percentile math the
+tracer's summaries use (``percentile``, ``summarize``), and the
 ``kernel_dispatch_total{op,backend,m_bucket,bits}`` counter schema.
 
 One difference from the reference: there the counter is recorded at jit
@@ -13,8 +17,45 @@ trace time; the port runs eagerly, so every call of a kernel op counts.
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from typing import Any, Iterator, Optional
+
+
+def percentile(values, q: float) -> Optional[float]:
+    """q-th percentile (0..100) by linear interpolation between closest
+    ranks, numpy's default 'linear' method; None for an empty input."""
+    xs = sorted(float(v) for v in values)
+    if not xs:
+        return None
+    if len(xs) == 1:
+        return xs[0]
+    rank = (q / 100.0) * (len(xs) - 1)
+    lo = math.floor(rank)
+    hi = math.ceil(rank)
+    if lo == hi:
+        return xs[int(rank)]
+    frac = rank - lo
+    return xs[lo] * (1.0 - frac) + xs[hi] * frac
+
+
+def summarize(values) -> dict:
+    """count/mean/min/max/p50/p95/p99 of raw observations (every field but
+    count None for an empty series)."""
+    xs = [float(v) for v in values]
+    if not xs:
+        return {"count": 0, "mean": None, "min": None, "max": None,
+                "p50": None, "p95": None, "p99": None}
+    return {
+        "count": len(xs),
+        "mean": sum(xs) / len(xs),
+        "min": min(xs),
+        "max": max(xs),
+        "p50": percentile(xs, 50),
+        "p95": percentile(xs, 95),
+        "p99": percentile(xs, 99),
+    }
+
 
 _Key = tuple  # (name, ((label, value), ...))
 
@@ -31,12 +72,13 @@ def _fmt_key(key: _Key) -> str:
 
 
 class MetricsRegistry:
-    """Labeled counters and last-value gauges."""
+    """Labeled counters, last-value gauges and histograms."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._counters: dict[_Key, float] = {}
         self._gauges: dict[_Key, Any] = {}
+        self._hists: dict[_Key, list] = {}
 
     def inc(self, name: str, value: float = 1, **labels) -> None:
         k = _key(name, labels)
@@ -51,8 +93,14 @@ class MetricsRegistry:
         with self._lock:
             self._gauges[_key(name, labels)] = value
 
+    def observe(self, name: str, value: float, **labels) -> None:
+        k = _key(name, labels)
+        with self._lock:
+            self._hists.setdefault(k, []).append(float(value))
+
     def get(self, name: str, default: float = 0, **labels) -> float:
         return self._counters.get(_key(name, labels), default)
+
 
     def counter_total(self, name: str, **labels) -> float:
         """Sum of a counter over all label sets matching ``labels``."""
@@ -61,13 +109,16 @@ class MetricsRegistry:
                    if n == name and want <= set(ls))
 
     def snapshot(self) -> dict:
-        """JSON-ready view with flat ``name{k=v,...}`` keys."""
+        """JSON-ready view with flat ``name{k=v,...}`` keys; histograms
+        become ``summarize`` summaries."""
         with self._lock:
             return {
                 "counters": {_fmt_key(k): v
                              for k, v in sorted(self._counters.items())},
                 "gauges": {_fmt_key(k): v
                            for k, v in sorted(self._gauges.items())},
+                "histograms": {_fmt_key(k): summarize(v)
+                               for k, v in sorted(self._hists.items())},
             }
 
 
@@ -100,6 +151,16 @@ def scoped(isolate: bool = False, registry: Optional[MetricsRegistry] = None):
 def inc(name: str, value: float = 1, **labels) -> None:
     for reg in active_registries():
         reg.inc(name, value, **labels)
+
+
+def set_gauge(name: str, value, **labels) -> None:
+    for reg in active_registries():
+        reg.set_gauge(name, value, **labels)
+
+
+def observe(name: str, value: float, **labels) -> None:
+    for reg in active_registries():
+        reg.observe(name, value, **labels)
 
 
 KERNEL_DISPATCH = "kernel_dispatch_total"

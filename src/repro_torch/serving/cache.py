@@ -20,6 +20,16 @@ Physical block 0 is the NULL block: free table entries point at it, writes
 from inactive decode rows and pad rows land there, and its contents are
 always masked out in attention.
 
+Ring-paged local layers (``Engine(ring=True)``; the reference's
+cache.py:146-196 and :359-401): ``init_paged_cache(..., ring_blocks=N)``
+gives every local layer's tensors N blocks instead of ``n_blocks``. They
+form a second id space with its own null block, which the engine's second
+``BlockPool`` allocates: a slot owns a ring of ``ring_len`` blocks, and
+absolute row t lives in its ring block (t // block_size) % ring_len at
+offset t % block_size (``ring_abs_row`` spells the ring out as a table of
+absolute block entries). ``write_prompt_rows`` scatters a whole prompt's
+last min(P, ring rows) rows of a local layer into its ring.
+
 Differences from the reference: the forward scatters into these tensors in
 place (the reference donates and returns new pools); and an unquantized
 pool takes the model's dtype, where the reference always allocates bf16
@@ -94,27 +104,60 @@ class BlockPool:
                 self._free.append(b)
 
 
-def init_paged_cache(cfg, n_blocks: int, block_size: int, dtype,
-                     device) -> list:
-    """One pool dict per layer (global attention layers only), laid out by
-    ``lm._layer_cache``."""
-    return [lm._layer_cache(cfg, n_blocks, block_size, dtype, device)
-            for _ in range(cfg.n_layers)]
+def ring_abs_row(ring: list, width: int) -> np.ndarray:
+    """A ring as a table row of ``width`` absolute entries: entry j is the
+    ring block (j % len(ring)) that holds rows [j*block_size,
+    (j+1)*block_size) while they are live; all NULL for no ring. The
+    decode attention ops read it as a plain block table."""
+    if not ring:
+        return np.full((width,), NULL_BLOCK, np.int64)
+    return np.asarray(ring, np.int64)[np.arange(width) % len(ring)]
+
+
+def init_paged_cache(cfg, n_blocks: int, block_size: int, dtype, device,
+                     ring_blocks: Optional[int] = None) -> list:
+    """One pool dict per layer, laid out by ``lm._layer_cache``: a global
+    layer's of ``n_blocks`` blocks, a local layer's of ``ring_blocks``
+    where given (ring-paged), else ``n_blocks``."""
+    return [lm._layer_cache(cfg, ring_blocks if ring_blocks and t == "local"
+                            else n_blocks, block_size, dtype, device)
+            for t in cfg.layer_types()]
+
+
+def _quantized_parts(k: torch.Tensor, v: torch.Tensor, kv_dtype: str) -> dict:
+    """K/V rows (R, KV, hd) as the pool stores them: quantized per token
+    for an int8 or int4 pool (with their f32 scales), else as they are."""
+    if kv_dtype not in L.KV_QUANT:
+        return {"k": k, "v": v}
+    qf = L.KV_QUANT[kv_dtype][0]
+    (kq, k_sc), (vq, v_sc) = qf(k[None]), qf(v[None])
+    return {"k": kq[0], "v": vq[0], "k_sc": k_sc[0], "v_sc": v_sc[0]}
 
 
 def write_prompt_rows(caches: list, rows: list, blocks: list,
-                      block_size: int, kv_dtype: str) -> None:
+                      block_size: int, kv_dtype: str, layer_types=None,
+                      ring: Optional[list] = None) -> None:
     """In place: a whole-prompt forward's per-layer K/V (``forward(...,
     collect_cache=True)``: (1, P, KV, hd), post-RoPE, unquantized) into the
     slot's ``blocks``, quantized per token for an int8 or int4 pool. Rows
     past P in the last block are zeros (their scales too); attention masks
-    them."""
-    for pool, kv in zip(caches, rows):
-        parts = {"k": kv["k"][0], "v": kv["v"][0]}
-        if kv_dtype in L.KV_QUANT:
-            qf = L.KV_QUANT[kv_dtype][0]
-            (k, k_sc), (v, v_sc) = qf(kv["k"]), qf(kv["v"])
-            parts = {"k": k[0], "v": v[0], "k_sc": k_sc[0], "v_sc": v_sc[0]}
+    them. With a ``ring`` (the slot's ring blocks), the local layers of
+    ``layer_types`` take only the last min(P, R) rows, R = len(ring) *
+    block_size, each at its ring row t % R (the reference's
+    ``_scatter_ring_rows``): older rows lie outside every later query's
+    window, and only real rows are written."""
+    for i, (pool, kv) in enumerate(zip(caches, rows)):
+        if ring is not None and layer_types[i] == "local":
+            P = kv["k"].shape[1]
+            n = min(P, len(ring) * block_size)
+            parts = _quantized_parts(kv["k"][0, P - n:], kv["v"][0, P - n:], kv_dtype)
+            t = torch.arange(P - n, P, device=parts["k"].device)
+            ring_t = torch.as_tensor(ring, dtype=torch.int64, device=t.device)
+            blk, offs = ring_t[(t // block_size) % len(ring)], t % block_size
+            for name, val in parts.items():
+                pool[name][blk, offs] = val.to(pool[name].dtype)
+            continue
+        parts = _quantized_parts(kv["k"][0], kv["v"][0], kv_dtype)
         P = parts["k"].shape[0]
         nfb = -(-P // block_size)
         ids = torch.as_tensor(blocks[:nfb], dtype=torch.int64,

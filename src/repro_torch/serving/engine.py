@@ -84,14 +84,41 @@ identically on every rank: the logits are replicated, so every rank makes
 the same decisions. Spec mode under tensor parallelism is refused (the
 drafter's TP rules: ROADMAP queue 1, item 11).
 
-Not ported: ring-paged local layers (the reference's ``ring=True``; the
-CLI refuses ``--ring``) and the tracer (ROADMAP queue 1, items 6 and 6b).
+Ring-paged local layers (``ring=True``, the reference's engine.py:354-418):
+every local layer keeps a slot's K/V in a ring of ``ring_len`` = ceil((window
++ span - 1) / block_size) blocks from a second pool with its own id space
+and null block (span: ``chunk_size`` under chunked prefill, at least
+spec_k + 1 in spec mode, 1 under whole prefill), so that local-layer memory
+is flat in the context. A slot gets its ring, and a drafter ring in spec
+mode, whole at admission and frees them at finish and at preemption; the
+ring pool holds every slot's, so ring allocation never fails and never
+preempts. Every forward takes the rings; an inert row's is all null. The
+one-token forwards also take each ring as an absolute table (entry j: ring
+block j % ring_len) of their table's width, built once at admission, which
+the paged attention ops read as they read a block table
+(models/layers.py). A whole prompt's last min(P, ring rows) rows are
+scattered into the ring from the host side. ``ring`` needs local layers and
+a window, and refuses ``prefix_cache`` (a radix hit would skip writing the
+matched rows into the ring), in the reference's words.
+
+Tracing (``tracer``, obs/trace.py; ``attach_tracer``): the host loop calls
+the tracer's hooks where the reference's engine does: submit and reject,
+admit, each prefill chunk, each emitted token, preempt and finish, and the
+step's phases (admit, prefill, draft_prefill, decode, with evict, preempt
+and compile nested inside them) with the pool and queue gauges at the
+step's end. A hook reads no tensor and launches nothing; with no tracer
+each is one ``is None`` check. A forward during which a kernel library was
+built or loaded on first use (kernels/build.py) counts
+``kernel_builds_total{fn}``, observes ``kernel_build_s{fn}`` and, traced,
+records a ``compile:<fn>`` slice. ``metrics()`` adds the tracer's
+``latency`` and ``phases`` summaries.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 import zlib
 from collections import deque
 from typing import Callable, Optional
@@ -100,6 +127,7 @@ import numpy as np
 import torch
 
 from repro_torch.dist import sharding
+from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention import auto_kv_splits
 from repro_torch.models import lm
 from repro_torch.obs import metrics as obs_metrics
@@ -163,6 +191,13 @@ class _Slot:
     # radix insert resume hint: deepest indexed node and blocks indexed
     radix_node: object = None
     radix_done: int = 0
+    # ring-paged local layers: the slot's ring and its drafter ring (ring
+    # pool ids, held for the whole occupancy) and each as an absolute table
+    # of nb_spec entries (C.ring_abs_row)
+    ring_blocks: list = dataclasses.field(default_factory=list)
+    draft_ring_blocks: list = dataclasses.field(default_factory=list)
+    ring_abs: Optional[np.ndarray] = None
+    draft_ring_abs: Optional[np.ndarray] = None
 
 
 class Engine:
@@ -181,11 +216,12 @@ class Engine:
     ``spec_draft_cfg`` / ``spec_k`` (the drafter's packed tree, its config,
     default ``cfg``, and drafts a round), ``kv_splits`` ("auto" or an int
     >= 1; one-token forwards only; "auto" is chosen per layer,
-    ``layer_kv_splits``, and ``kv_splits`` holds the global layers'). The
-    port's own ``attn_backend`` ("auto" or "ref") is the registry backend
-    of the decode attention op;
+    ``layer_kv_splits``, and ``kv_splits`` holds the global layers'),
+    ``ring`` (ring-paged local layers) and ``tracer`` (an
+    ``obs.trace.Tracer``). The port's own ``attn_backend`` ("auto" or
+    "ref") is the registry backend of the decode attention op;
     ``tp_group`` (a ``torch.distributed`` process group) makes the forwards
-    tensor-parallel over it.
+    tensor-parallel over it; the pools and rings are whole on every rank.
     """
 
     def __init__(self, cfg, params, *, n_slots: int, max_len: int,
@@ -196,7 +232,7 @@ class Engine:
                  sampler: Optional[S.SamplerConfig] = None,
                  spec_draft_params=None, spec_draft_cfg=None, spec_k: int = 4,
                  kv_splits="auto", attn_backend: str = "auto",
-                 tp_group=None):
+                 tp_group=None, ring: bool = False, tracer=None):
         if prefill not in ("chunked", "whole"):
             raise ValueError(f"prefill must be 'chunked' or 'whole': {prefill!r}")
         if max_len % block_size:
@@ -238,6 +274,26 @@ class Engine:
                     "rules) is not ported yet: ROADMAP queue 1, item 11")
         self.attn_backend = attn_backend
         self.tp_group = tp_group
+        # ring-paged local layers: the ring carries span - 1 rows past the
+        # window, because a multi-row forward attends before it scatters and
+        # may write up to span - 1 pad or rejected rows past the kept
+        # position; those alias rows a full R below, outside every window
+        self.ring_len = self.n_ring_blocks = 0
+        if ring:
+            if "local" not in cfg.layer_types() or not cfg.window:
+                raise ValueError(
+                    "ring=True requires local attention layers with a "
+                    "sliding window (cfg.pattern / cfg.window)")
+            if prefix_cache:
+                raise ValueError(
+                    "ring=True is incompatible with prefix_cache: a radix "
+                    "hit skips prefill for the matched rows, which would "
+                    "leave their ring slots unwritten")
+            span = chunk_size if prefill == "chunked" else 1
+            if self.spec:
+                span = max(span, self.spec_k + 1)
+            self.ring_len = -(-(cfg.window + span - 1) // block_size)
+            self.n_ring_blocks = (2 if self.spec else 1) * n_slots * self.ring_len + 1
 
         self.cfg = cfg
         self.params = params
@@ -258,8 +314,11 @@ class Engine:
         self.sampler = sampler if sampler is not None else S.SamplerConfig()
         dtype = lm.torch_dtype(cfg.dtype)
         self.caches = C.init_paged_cache(cfg, self.n_blocks, block_size, dtype,
-                                         self.device)
+                                         self.device, self.n_ring_blocks)
         self.pool = C.BlockPool(self.n_blocks)
+        # the ring pool: its own ids and null block, one ring a slot (and a
+        # drafter ring), so allocating a ring never fails or preempts
+        self.ring_pool = C.BlockPool(self.n_ring_blocks) if self.ring_len else None
         self.draft_params = self.draft_cfg = self.draft_caches = None
         # kv_splits of each layer's one-token forwards (target, drafter)
         self.layer_kv_splits = layer_splits(cfg)
@@ -268,7 +327,8 @@ class Engine:
             self.draft_params = spec_draft_params
             self.draft_cfg = spec_draft_cfg if spec_draft_cfg is not None else cfg
             self.draft_caches = C.init_paged_cache(
-                self.draft_cfg, self.n_blocks, block_size, dtype, self.device)
+                self.draft_cfg, self.n_blocks, block_size, dtype, self.device,
+                self.n_ring_blocks)
             self.draft_layer_kv_splits = layer_splits(self.draft_cfg)
         self.prefill_batch = 1 if prefill == "whole" \
             else max(1, min(prefill_batch, n_slots))
@@ -277,6 +337,8 @@ class Engine:
         self.slots = [_Slot() for _ in range(n_slots)]
         self.queue: deque[Request] = deque()
         self.obs = MetricsRegistry()
+        self.tracer = tracer
+        self._peaks: dict[str, int] = {}
         self._admit_counter = 0
         self._pf_rr = 0
         self._dpf_rr = 0
@@ -316,17 +378,48 @@ class Engine:
         return sharding.use_tp(self.tp_group) if self.tp_group is not None \
             else contextlib.nullcontext()
 
-    def _forward(self, draft: bool, tokens, pos, tables) -> torch.Tensor:
+    def attach_tracer(self, tracer) -> None:
+        """Attach (or swap, or with None drop) the lifecycle tracer, e.g.
+        after an untraced warm-up."""
+        self.tracer = tracer
+
+    _NULL_CTX = contextlib.nullcontext()
+
+    def _phase(self, name: str):
+        """The tracer's phase context (a shared no-op without a tracer)."""
+        tr = self.tracer
+        return tr.phase(name) if tr is not None else Engine._NULL_CTX
+
+    @contextlib.contextmanager
+    def _run(self, name: str):
+        """Around one step function: its kernel dispatches land in ``obs``;
+        where a kernel library was built or loaded on first use during it,
+        its wall time is a build event (``kernel_builds_total{fn}``,
+        ``kernel_build_s{fn}``, and a ``compile:<fn>`` slice when
+        traced)."""
+        tr = self.tracer
+        before = build.loaded()
+        t0 = tr.now() if tr is not None else time.perf_counter()
+        with obs_metrics.scoped(registry=self.obs), self._tp():
+            yield
+        if build.loaded() > before:
+            t1 = tr.now() if tr is not None else time.perf_counter()
+            self.obs.inc("kernel_builds_total", fn=name)
+            self.obs.observe("kernel_build_s", t1 - t0, fn=name)
+            if tr is not None:
+                tr.add_slice(f"compile:{name}", t0, t1)
+
+    def _forward(self, draft: bool, tokens, pos, tables, rings=None) -> torch.Tensor:
         """Final hidden states (B, S, D) of the target's (or the drafter's)
-        forward over its paged pool."""
+        forward over its paged pool; ``rings`` is ``_ring_tables``'s pair."""
         params, cfg, caches, splits = (
             self.draft_params, self.draft_cfg, self.draft_caches,
             self.draft_layer_kv_splits) if draft else \
             (self.params, self.cfg, self.caches, self.layer_kv_splits)
-        with obs_metrics.scoped(registry=self.obs), self._tp():
-            h, _ = lm.forward(params, cfg, tokens, caches=caches, pos=pos,
-                              block_tables=tables, kv_splits=splits,
-                              attn_backend=self.attn_backend)
+        ring, ring_abs = rings if rings is not None else (None, None)
+        h, _ = lm.forward(params, cfg, tokens, caches=caches, pos=pos,
+                          block_tables=tables, ring_tables=ring, ring_abs=ring_abs,
+                          kv_splits=splits, attn_backend=self.attn_backend)
         return h
 
     def _logits(self, draft: bool, h) -> torch.Tensor:
@@ -335,41 +428,48 @@ class Engine:
         return lm.logits_fn(params, cfg, h)
 
     @torch.inference_mode()
-    def _decode_fn(self, tables, tokens, pos) -> torch.Tensor:
+    def _decode_fn(self, tables, tokens, pos, rings=None) -> torch.Tensor:
         """One token for every slot: tokens (n_slots, 1), pos (n_slots,),
-        tables (n_slots, nb_max). Returns (n_slots, V) f32 logits."""
-        h = self._forward(False, tokens, pos, tables)
+        tables (n_slots, nb_max), ``rings`` the ring tables of a ring
+        engine. Returns (n_slots, V) f32 logits."""
+        with self._run("decode"):
+            h = self._forward(False, tokens, pos, tables, rings)
         return self._logits(False, h[:, -1:])[:, -1]
 
     @torch.inference_mode()
-    def _prefill_fn(self, tables, tokens, starts, draft: bool = False) -> None:
+    def _prefill_fn(self, tables, tokens, starts, draft: bool = False,
+                    rings=None) -> None:
         """One chunk for up to prefill_batch requests: tokens (Bp,
         chunk_size) (pad rows zero), starts (Bp,) first row indices, tables
-        (Bp, width) (a pad row all null); the drafter's tree with
-        ``draft``."""
-        self._forward(draft, tokens, starts, tables)
+        (Bp, width) (a pad row all null, its ring too); the drafter's tree
+        with ``draft``."""
+        with self._run("draft_prefill" if draft else "prefill"):
+            self._forward(draft, tokens, starts, tables, rings)
 
     @torch.inference_mode()
-    def _prefill_whole_fn(self, blocks: list, prompt) -> None:
+    def _prefill_whole_fn(self, blocks: list, prompt, ring=None) -> None:
         """One whole-prompt forward (1, P) without a cache, its per-layer
-        K/V scattered into ``blocks``."""
-        with obs_metrics.scoped(registry=self.obs), self._tp():
+        K/V scattered into ``blocks`` (a local layer's into ``ring`` on a
+        ring engine)."""
+        with self._run("prefill_whole"):
             _, rows = lm.forward(self.params, self.cfg, prompt,
                                  collect_cache=True)
         C.write_prompt_rows(self.caches, rows, blocks, self.block_size,
-                            self.cfg.kv_cache_dtype)
+                            self.cfg.kv_cache_dtype, self.cfg.layer_types(), ring)
 
     @torch.inference_mode()
-    def _verify_fn(self, tables, tokens, pos) -> torch.Tensor:
+    def _verify_fn(self, tables, tokens, pos, rings=None) -> torch.Tensor:
         """The target over [F[pos], d_1..d_k] of every slot: tokens
         (n_slots, k+1), pos (n_slots,), tables (n_slots, nb_spec). Returns
         (n_slots, k+1, V) f32 logits. Rows past the accepted prefix leave
         stale K/V that the next round's forward rewrites before any emitted
         query attends them."""
-        return self._logits(False, self._forward(False, tokens, pos, tables))
+        with self._run("verify"):
+            h = self._forward(False, tokens, pos, tables, rings)
+        return self._logits(False, h)
 
     @torch.inference_mode()
-    def _draft_fn(self, tables, first, pos, rows):
+    def _draft_fn(self, tables, first, pos, rows, rings=None):
         """spec_k + 1 drafter one-token steps over [F[pos], d_1..d_k],
         writing drafter rows pos..pos+k (the (k+1)-th step only writes its
         row, so a fully accepted round leaves every drafter row below the
@@ -380,7 +480,8 @@ class Engine:
         k = self.spec_k
         tok, drafts, ps = first[:, None], [], []
         for i in range(k + 1):
-            h = self._forward(True, tok, pos + i, tables)
+            with self._run("draft"):
+                h = self._forward(True, tok, pos + i, tables, rings)
             if i == k:
                 break
             p = S.probs(self._logits(True, h)[:, -1], temp, self.sampler.top_k, topp)
@@ -424,12 +525,48 @@ class Engine:
                 or self._max_blocks_needed(P, req.max_new) > self.n_blocks - 1:
             req.rejected = True
             self.rejections += 1
+            if self.tracer is not None:
+                self.tracer.on_reject(req.uid, P)
             return False
         self.queue.append(req)
+        if self.tracer is not None:
+            self.tracer.on_submit(req.uid, P)
         return True
 
     def _table_row(self, slot: _Slot) -> np.ndarray:
         return C.table_row(slot.blocks, self.nb_max)
+
+    def _note_blocks(self, kind: str, n: int) -> None:
+        """The high-water blocks one request holds, by kind (target, draft,
+        ring), as the gauge ``pool_blocks_peak{kind}``: the target's grows
+        with the context, a ring engine's ring peak stays ring_len."""
+        if n > self._peaks.get(kind, 0):
+            self._peaks[kind] = n
+            self.obs.set_gauge("pool_blocks_peak", n, kind=kind)
+
+    def _ring_tables(self, pairs, n_rows: int, draft: bool = False,
+                     width: Optional[int] = None):
+        """The ring tables of a batched step, or None without a ring:
+        ``pairs`` (batch row j, slot i) place slot i's ring (its drafter's
+        with ``draft``) at row j, every other row all null, so an inert row
+        writes only the ring pool's null block. Returns (rings (n_rows,
+        ring_len), their absolute tables (n_rows, ``width``), or None
+        without a width)."""
+        if not self.ring_len:
+            return None
+        rings = np.full((n_rows, self.ring_len), C.NULL_BLOCK, np.int64)
+        absolute = None if width is None else \
+            np.full((n_rows, width), C.NULL_BLOCK, np.int64)
+        for j, i in pairs:
+            s = self.slots[i]
+            blocks, row = (s.draft_ring_blocks, s.draft_ring_abs) if draft else \
+                (s.ring_blocks, s.ring_abs)
+            if blocks:
+                rings[j] = blocks
+                if absolute is not None:
+                    absolute[j] = row[:width]
+        return self._tensor(rings), \
+            None if absolute is None else self._tensor(absolute)
 
     def _pick_victim(self) -> Optional[int]:
         occupied = [i for i, s in enumerate(self.slots) if s.state != _FREE]
@@ -443,6 +580,10 @@ class Engine:
             self.pool.free(s.blocks)
         if s.draft_blocks:
             self.pool.free(s.draft_blocks)
+        if s.ring_blocks:
+            self.ring_pool.free(s.ring_blocks)
+        if s.draft_ring_blocks:
+            self.ring_pool.free(s.draft_ring_blocks)
 
     def _preempt(self, ix: int):
         """Evict slot ix: free its blocks (those the radix tree indexes stay
@@ -454,20 +595,26 @@ class Engine:
         self._release(s)
         self.slots[ix] = _Slot()
         self.queue.appendleft(s.req)
+        if self.tracer is not None:
+            self.tracer.on_preempt(s.req.uid)
 
     def _make_room(self, n: int, requester_ix: int) -> bool:
         """Free blocks until n are: evict unreferenced radix blocks, then
         drafter blocks, then preempt victims. False if the requester itself
         was evicted."""
         while self.pool.n_free < n:
-            if self.radix is not None and self.radix.evict_one():
-                continue
+            if self.radix is not None:
+                with self._phase("evict"):
+                    evicted = self.radix.evict_one()
+                if evicted:
+                    continue
             if self._evict_one_draft():
                 continue
             victim = self._pick_victim()
             if victim is None:
                 return False
-            self._preempt(victim)
+            with self._phase("preempt"):
+                self._preempt(victim)
             if victim == requester_ix:
                 return False
         return True
@@ -492,6 +639,7 @@ class Engine:
             if self.radix is None or not self.radix.evict_one():
                 return False
         self.slots[ix].draft_blocks += self.pool.alloc(n)
+        self._note_blocks("draft", len(self.slots[ix].draft_blocks))
         return True
 
     def _free_ix(self) -> Optional[int]:
@@ -519,7 +667,9 @@ class Engine:
             m = len(shared) * self.block_size
             first_blocks = self._first_alloc_size(P, m)
             while self.radix is not None and first_blocks > self.pool.n_free:
-                if not self.radix.evict_one():
+                with self._phase("evict"):
+                    evicted = self.radix.evict_one()
+                if not evicted:
                     break
             if first_blocks > self.pool.n_free:
                 if shared:
@@ -533,7 +683,20 @@ class Engine:
                 self.radix.miss_tokens += P - m
             slot = _Slot(req=req, prompt=eff_prompt, prefill_done=m,
                          blocks=list(shared), admit_seq=self._admit_counter)
+            if self.ring_len:
+                # the ring pool holds every slot's rings: alloc cannot fail
+                slot.ring_blocks = self.ring_pool.alloc(self.ring_len)
+                slot.ring_abs = C.ring_abs_row(slot.ring_blocks, self.nb_spec)
+                if self.spec:
+                    slot.draft_ring_blocks = self.ring_pool.alloc(self.ring_len)
+                    slot.draft_ring_abs = C.ring_abs_row(slot.draft_ring_blocks,
+                                                         self.nb_spec)
+                self._note_blocks("ring", self.ring_len)
+            if slot.blocks:
+                self._note_blocks("target", len(slot.blocks))
             self.slots[ix] = slot
+            if self.tracer is not None:
+                self.tracer.on_admit(req.uid, shared_tokens=m)
             if P == 0:
                 slot.state = _DECODE         # zero-block request
             elif m >= P:
@@ -570,7 +733,13 @@ class Engine:
             if not self._make_room(need, ix):
                 return
             s.blocks += self.pool.alloc(need)
-        self._prefill_whole_fn(s.blocks, self._tensor(s.prompt)[None])
+            self._note_blocks("target", len(s.blocks))
+        tr = self.tracer
+        t0 = tr.now() if tr is not None else 0.0
+        self._prefill_whole_fn(s.blocks, self._tensor(s.prompt)[None],
+                               s.ring_blocks if self.ring_len else None)
+        if tr is not None:
+            tr.on_prefill_chunk(s.req.uid, start=0, rows=P, t0=t0, t1=tr.now())
         self.prefill_tokens_computed += P
         s.state = _DECODE
         s.prefill_done = P
@@ -591,6 +760,7 @@ class Engine:
             if not self._make_room(need, ix):
                 return None
             s.blocks += self.pool.alloc(need)
+            self._note_blocks("target", len(s.blocks))
         chunk = np.zeros((self.chunk_size,), np.int64)
         chunk[:real] = s.prompt[start:start + real]
         return chunk, start, real
@@ -636,8 +806,17 @@ class Engine:
             tokens[j] = chunk
             starts[j] = start
             tables[j] = self._table_row(self.slots[ix])
+        tr = self.tracer
+        t0 = tr.now() if tr is not None else 0.0
         self._prefill_fn(self._tensor(tables), self._tensor(tokens),
-                         self._tensor(starts))
+                         self._tensor(starts),
+                         rings=self._ring_tables([(j, ix) for j, (ix, _) in
+                                                  enumerate(live)], Bp))
+        if tr is not None:
+            t1 = tr.now()
+            for ix, (_, start, real) in live:
+                tr.on_prefill_chunk(self.slots[ix].req.uid, start=start, rows=real,
+                                    t0=t0, t1=t1)
         self.prefill_chunks += 1
         for ix, (_, _, real) in live:
             self._finish_chunk(ix, real)
@@ -656,12 +835,15 @@ class Engine:
                 if not self._make_room(need, i):
                     continue
                 s.blocks += self.pool.alloc(need)
+                self._note_blocks("target", len(s.blocks))
 
     def _finish(self, ix: int):
         s = self.slots[ix]
         s.req.done = True
         self._release(s)
         self.slots[ix] = _Slot()
+        if self.tracer is not None:
+            self.tracer.on_finish(s.req.uid)
 
     def _emit(self, i: int, tok: int) -> bool:
         """Append one token to slot i's request; True when it is done."""
@@ -673,6 +855,8 @@ class Engine:
         done = ((req.eos_id is not None and tok == req.eos_id)
                 or len(req.out) >= req.max_new
                 or s.pos >= self.max_len - 1)
+        if self.tracer is not None:
+            self.tracer.on_token(req.uid, tok, done)
         if req.on_token is not None:
             req.on_token(tok, done)
         return done
@@ -688,7 +872,9 @@ class Engine:
         for i in active:
             tables[i] = self._table_row(self.slots[i])
         logits = self._decode_fn(self._tensor(tables), self._tensor(tokens),
-                                 self._tensor(pos))
+                                 self._tensor(pos),
+                                 self._ring_tables([(i, i) for i in active],
+                                                   self.n_slots, width=self.nb_max))
         uids, sidx, temp, topp = self._sampler_rows()
         nxt = S.sample(logits, self.sampler, uids, sidx, temp, topp).tolist()
         self.decode_steps += 1
@@ -768,13 +954,15 @@ class Engine:
             tokens[j, :real] = self._fed_stream(s, start + real)[start:]
             starts[j] = start
             tables[j] = C.table_row(s.draft_blocks, self.nb_spec)
-            live.append((i, real))
+            live.append((j, i, real))
         if not live:
             return
         self._prefill_fn(self._tensor(tables), self._tensor(tokens),
-                         self._tensor(starts), draft=True)
+                         self._tensor(starts), draft=True,
+                         rings=self._ring_tables([(j, i) for j, i, _ in live], Bp,
+                                                 draft=True))
         self.spec_draft_prefills += 1
-        for i, real in live:
+        for _, i, real in live:
             self.slots[i].draft_done += real
 
     def _do_spec_decode(self):
@@ -797,6 +985,7 @@ class Engine:
                 if not self._make_room(need, i):
                     continue                  # slot i itself was evicted
                 s.blocks += self.pool.alloc(need)
+                self._note_blocks("target", len(s.blocks))
             dneed = blocks - len(s.draft_blocks)
             if dneed > 0 and not self._alloc_draft(i, dneed):
                 continue
@@ -820,10 +1009,16 @@ class Engine:
                 dtables[i] = C.table_row(s.draft_blocks, self.nb_spec)
         rows = self._sampler_rows()
         first_t, pos_t = self._tensor(first), self._tensor(pos)
-        drafts, p_draft = self._draft_fn(self._tensor(dtables), first_t, pos_t,
-                                         rows)
+        # a row that does not draft keeps an all-null drafter ring: its
+        # inert writes must not land in a ring a catch-up is still filling
+        drafts, p_draft = self._draft_fn(
+            self._tensor(dtables), first_t, pos_t, rows,
+            self._ring_tables([(i, i) for i in active if drafting[i]], self.n_slots,
+                              draft=True, width=self.nb_spec))
         logits = self._verify_fn(self._tensor(vtables),
-                                 torch.cat([first_t[:, None], drafts], 1), pos_t)
+                                 torch.cat([first_t[:, None], drafts], 1), pos_t,
+                                 self._ring_tables([(i, i) for i in active],
+                                                   self.n_slots))
         n_acc, toks = self._spec_accept_fn(
             logits, drafts, p_draft,
             torch.as_tensor(drafting, device=self.device), rows)
@@ -859,19 +1054,30 @@ class Engine:
     def step(self) -> int:
         """Admit, run one prefill chunk step, then (spec mode) one drafter
         catch-up chunk, then one batched decode step or speculative round.
-        Returns the number of occupied slots."""
-        self._admit()
+        Returns the number of occupied slots. Traced, the step is cut into
+        its phases and the pool and queue gauges are sampled at its end."""
+        tr = self.tracer
+        if tr is not None:
+            tr.step_begin(self.steps)
+        with self._phase("admit"):
+            self._admit()
         prefilling = [i for i, s in enumerate(self.slots) if s.state == _PREFILL]
         if prefilling:
             k = self._pf_rr % len(prefilling)
             self._pf_rr += 1
-            self._do_prefill((prefilling[k:] + prefilling[:k])[:self.prefill_batch])
+            with self._phase("prefill"):
+                self._do_prefill((prefilling[k:] + prefilling[:k])[:self.prefill_batch])
         if self.spec:
-            self._do_draft_prefill()
-            self._do_spec_decode()
-        else:
-            self._do_decode()
+            with self._phase("draft_prefill"):
+                self._do_draft_prefill()
+        with self._phase("decode"):
+            if self.spec:
+                self._do_spec_decode()
+            else:
+                self._do_decode()
         self.steps += 1
+        if tr is not None:
+            tr.step_end(self._sample_gauges())
         return sum(s.state != _FREE for s in self.slots)
 
     def run(self, max_steps: int = 10_000) -> dict:
@@ -907,17 +1113,31 @@ class Engine:
             return 0
         return walk(self.params)
 
-    def metrics(self) -> dict:
-        util = self.busy_slot_steps / max(self.decode_steps * self.n_slots, 1)
+    def _sample_gauges(self, mirror: bool = False) -> dict:
+        """The step's gauges: pool occupancy, tree-held blocks, active
+        slots, queue depth and the radix hit ratio; ``mirror`` also writes
+        them into ``obs`` (done at ``metrics()`` time, not every step)."""
         free = self.pool.n_free
-        self.obs.set_gauge("free_blocks", free)
-        self.obs.set_gauge("used_blocks", self.n_blocks - 1 - free)
+        g = {"free_blocks": free,
+             "used_blocks": self.n_blocks - 1 - free,
+             "tree_blocks": self.radix.n_nodes if self.radix is not None else 0,
+             "active_slots": sum(s.state != _FREE for s in self.slots),
+             "queue_depth": len(self.queue),
+             "radix_hit_ratio": None}
         if self.radix is not None:
-            self.obs.set_gauge("tree_blocks", self.radix.n_nodes)
             seen = self.radix.hit_tokens + self.radix.miss_tokens
             if seen:
-                self.obs.set_gauge("radix_hit_ratio", self.radix.hit_tokens / seen)
-        return {
+                g["radix_hit_ratio"] = self.radix.hit_tokens / seen
+        if mirror:
+            for k, v in g.items():
+                if v is not None:
+                    self.obs.set_gauge(k, v)
+        return g
+
+    def metrics(self) -> dict:
+        util = self.busy_slot_steps / max(self.decode_steps * self.n_slots, 1)
+        self._sample_gauges(mirror=True)
+        out = {
             "steps": self.decode_steps,
             "engine_steps": self.steps,
             "decode_steps": self.decode_steps,
@@ -928,6 +1148,9 @@ class Engine:
             "rejections": self.rejections,
             "slot_utilization": util,
             "prefix_cache": self.radix.metrics() if self.radix is not None else None,
+            # the high-water blocks of one request by kind (also the gauge
+            # pool_blocks_peak{kind}): a ring engine's ring peak is flat
+            "pool_blocks_peak": dict(self._peaks),
             "spec": None if not self.spec else {
                 "rounds": self.spec_rounds,
                 "draft_tokens": self.spec_draft_tokens,
@@ -942,3 +1165,7 @@ class Engine:
             },
             "metrics": self.obs.snapshot(),
         }
+        if self.tracer is not None:
+            out["latency"] = self.tracer.latency_summary()
+            out["phases"] = self.tracer.phase_summary()
+        return out

@@ -7,7 +7,9 @@ The port's counterpart of ``repro/serving/scheduler.py``:
 implies ``prefill_batch`` 1 and no prefix sharing. The pool backs every
 slot at full ``max_len``, so nothing is ever preempted, and the queue is
 unbounded. The reference's ``sample`` hook is not ported: the engine
-decodes greedily unless given a ``SamplerConfig``.
+decodes greedily unless given a ``SamplerConfig``. ``run`` returns the
+engine's ``metrics()``, so the shim reports the engine's counters, and with
+a ``tracer`` (an engine keyword) its ``latency`` and ``phases``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ class ContinuousBatcher:
 
     ``cfg, params`` (model config and packed parameters), ``n_slots`` (the
     decode batch), ``max_len`` (context rows a slot); ``engine_kw`` reaches
-    ``Engine`` (a ``sampler``, an ``attn_backend``)."""
+    ``Engine`` (a ``sampler``, an ``attn_backend``, ``ring``, a
+    ``tracer``)."""
 
     def __init__(self, cfg, params, *, n_slots: int, max_len: int, **engine_kw):
         block_size = 16

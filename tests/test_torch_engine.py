@@ -184,8 +184,8 @@ def test_serve_cli_feature_smoke_on_cpu(flags):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--ring"], ["--tp", "2", "--arch", "moonshot-v1-16b-a3b"],
-    ["--trace-out", "t.json"], ["--a-scale", "static"], ["--nonuniform"],
+    ["--tp", "2", "--arch", "moonshot-v1-16b-a3b"],
+    ["--a-scale", "static"], ["--nonuniform"],
     ["--plan", "legacy"], ["--tp", "2", "--spec-draft-plan", "w2a2"]])
 def test_serve_rejects_unported_flags_loudly(flags):
     args = serve.build_parser().parse_args(
@@ -204,7 +204,14 @@ def test_serve_rejects_unported_flags_loudly(flags):
     (["--paged", "--spec-k", "0"], "--spec-k must be >= 1"),
     (["--paged", "--temperature", "-1"], "--temperature must be >= 0"),
     (["--paged", "--top-p", "0"], "--top-p must be in"),
-    (["--paged", "--top-k", "-1"], "--top-k must be >= 0")])
+    (["--paged", "--top-k", "-1"], "--top-k must be >= 0"),
+    (["--paged", "--ring"], "--ring requires a sliding-window arch"),
+    (["--paged", "--ring", "--arch", "moonshot-v1-16b-a3b"],
+     "--ring requires a sliding-window arch"),
+    (["--paged", "--ring", "--prefix-cache", "--arch", "gemma3-12b"],
+     "--ring is incompatible with --prefix-cache"),
+    (["--ring", "--arch", "gemma3-12b"], "--ring requires --paged"),
+    (["--trace-out", "t.json"], "--trace-out requires --paged")])
 def test_serve_rejects_the_references_incompatible_combinations(flags, msg):
     args = serve.build_parser().parse_args(
         ["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu", *flags])

@@ -256,8 +256,32 @@ Phases, each printing its lines:
               attention-plain re-run, a planted decode at 8192 rows (past
               its window), the ring's memory and planted decode, and the
               fixed loop with one prompt of 4608 tokens
+  17 cnn      the paper's deepgemm-cnn at full width (the stem and 8 stage
+              convs, 3x3, widths 64-512; batch 8 of 32x32x3, M 8192 a
+              conv) under w2a2, w4a4 and k-means w2a2 through
+              models/cnn.py: each conv's lut_gemm call on the forward's
+              own operands against its plain version (exact: the plain
+              version replays the walk's order, so a k-means float table
+              agrees bit for bit too) with its tiling, its time beside the plain
+              version's, torch.matmul of the bf16 patches against the
+              bf16 dequantized filters, F.conv2d (f32, no TF32) and the
+              bound; then one forward with exactly 9 launches, its time,
+              the plain-backend stack bit for bit (uniform), and the
+              feature cosine to the fp32 stack above 0.3
+  18 quant    the quantization front end on qwen1.5-0.5b at full width, cut
+              to its first QF_LAYERS of 24 layers, through the paged
+              engine's 12 requests (exact launches): --nonuniform under
+              w2a2 (row 1 on a float table) and w2a16 (row 2 on a float
+              codebook), each with its tied plain-GEMM re-run of the first
+              4 requests bit for bit, and with rows 1-2
+              at M 4 and 128 on the served w_up leaf; --plan w2a2
+              --a-scale static (the calibration's seconds, a_sc on every
+              lut_gemm leaf, the plain re-run bit for bit); --plan w2a8_bs
+              --a-scale static (no a_sc, the dynamic run's bits); --plan
+              legacy (no launch of rows 1-4)
 Each phase prints when it starts, and the run prints every phase's seconds
-at its end.
+at its end. ``python3 chip_smoke.py --phases 17,18`` runs the build and
+phases 17 and 18 alone (no kernels' record, no result line).
 
 Any failure exits nonzero. The line before the last is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}. Without a CUDA
@@ -434,6 +458,31 @@ FIXED_RUNS = (("qwen1.5-0.5b", "w2a2", "lut_gemm"),
               ("codeqwen1.5-7b", "w2a8_bs", "lut_gemm_bs_fused"))
 
 
+# phase 17: the paper's CNN (configs/deepgemm_cnn.py) at full width, the
+# batch of benchmarks/end2end.py: 9 convs as im2col lut_gemm calls of M
+# 8192; (label, w_bits, a_bits, k-means codebook)
+CNN_BATCH = 8
+CNN_PLANS = (("w2a2", 2, 2, False), ("w4a4", 4, 4, False), ("kmeans w2a2", 2, 2, True))
+CNN_MIN_COSINE = 0.3          # examples/cnn_paper_repro.py's assertion
+# phase 18: qwen1.5-0.5b at full width, cut to this depth, through the
+# paged engine under the quantization front end's flags: (label, flags,
+# the dense GEMM op); the k-means and static runs are held bit for bit
+# against a plain-GEMM re-run of the first PLAIN_CUT_REQUESTS requests (a
+# float product table sums in the walk's order in lut_gemm's plain
+# version too: an untied one moved the first-step logits by 0.509 of
+# max|logit| through the 2-bit activation codes, ROADMAP queue 3)
+QF_LAYERS = 8
+QF_RUNS = (("kmeans w2a2", ["--plan", "w2a2", "--nonuniform"], "lut_gemm"),
+           ("kmeans w2a16", ["--nonuniform"], "dequant_matmul"),
+           ("static w2a2", ["--plan", "w2a2", "--a-scale", "static",
+                            "--calib-batches", "4"], "lut_gemm"),
+           ("static w2a8_bs", ["--plan", "w2a8_bs", "--a-scale", "static"],
+            "lut_gemm_bs_fused"),
+           ("dynamic w2a8_bs", ["--plan", "w2a8_bs"], "lut_gemm_bs_fused"),
+           ("legacy", ["--plan", "legacy"], None))
+QF_KERNEL_ROWS = (4, 128)     # rows 1-2 on a k-means leaf of qwen's w_up
+
+
 def fail(msg: str) -> None:
     print(f"[chip_smoke] FAILED: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
@@ -464,6 +513,21 @@ def graph_ms(torch, fn, reps: int = 20, replays: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (reps * replays)
+
+
+def loop_ms(torch, fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls between CUDA events
+    after three warm-up calls (for library calls kept out of a graph)."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bound_ms(n_bytes: int, n_ops: int, peak: float) -> tuple[float, str]:
@@ -1116,15 +1180,16 @@ def phase_kv_cache_attention(torch, dev):
 
 def run_engine(torch, serve, cfg, qparams, args, capture: dict, requests=None,
                logits_by_step: dict | None = None, check_first: list | None = None,
-               **engine_kw):
+               check_ops: tuple = None, **engine_kw):
     """One serve run through the CLI's code path (of ``requests``, else the
     CLI's own); checks every decode and verify forward's logits are finite
     and keeps the first decode step's. With ``logits_by_step``, the logits
     each emitted token was chosen from, by (uid, step): a decode step's
     row, or the verify row at the token's position (a later round
     overwrites a position a rejected draft had filled). With
-    ``check_first``, every attention call of the first decode step is
-    also run through its plain version and its error appended there."""
+    ``check_first``, every attention call (every call of ``check_ops``) of
+    the first decode step is also run through its plain version and its
+    error appended there."""
     from repro_torch.serving.engine import _DECODE
 
     engine = serve.make_engine(cfg, qparams, args, **engine_kw)
@@ -1143,7 +1208,8 @@ def run_engine(torch, serve, cfg, qparams, args, capture: dict, requests=None,
 
     def decode(*a):
         first = check_first is not None and "first_logits" not in capture
-        with checked_attention_calls(check_first) if first else contextlib.nullcontext():
+        with checked_attention_calls(check_first, check_ops or ATTN_OPS) if first \
+                else contextlib.nullcontext():
             logits = record(inner_d(*a))
         capture.setdefault("first_logits", logits.clone())
         return logits
@@ -1264,12 +1330,13 @@ def plant_long_context(torch, engine, ctx: int, steps: int, seed: int) -> list:
 ATTN_OPS = ("paged_attention", "paged_attention_splitkv", "kv_cache_attention")
 
 
-def checked_attention_calls(errs: list):
-    """While active, every attention op the registry sends to its kernel is
-    also run through its plain version on the same inputs (no launch), and
-    max|kernel - plain| / max|plain| of each call is appended to ``errs``."""
+def checked_attention_calls(errs: list, ops: tuple = ATTN_OPS):
+    """While active, every call of ``ops`` (the attention ops) the registry
+    sends to its kernel is also run through its plain version on the same
+    inputs (no launch), and max|kernel - plain| / max|plain| of each call
+    is appended to ``errs``."""
     from repro_torch.kernels import registry
-    return registry.checked_against_plain(ATTN_OPS, errs)
+    return registry.checked_against_plain(ops, errs)
 
 
 def fixed_run(torch, serve, cfg, qparams, args, attn_backend: str = "auto",
@@ -2281,7 +2348,326 @@ def phase_local_model(torch, serve, wrappers: dict, gemms: dict, smi: str,
     return out
 
 
-def main() -> int:
+def phase_cnn(torch, dev, smi: str, rows: dict) -> dict:
+    """Phase 17 (see the module docstring): deepgemm-cnn at full width,
+    batch CNN_BATCH of 32x32x3 inputs, under each of CNN_PLANS. Per layer:
+    the lut_gemm call on the forward's own operands against its plain
+    version (exact: the plain version replays the walk), its tiling, and its time beside the plain version's, torch.matmul of
+    the bf16 patches against the bf16 dequantized filters, F.conv2d (f32,
+    no TF32) on the layer's input, and the byte / operation bound. Per
+    plan: one forward through the kernels with exactly 9 launches, its
+    time, the plain-backend stack bit for bit (uniform tables), and the
+    feature cosine against the fp32 stack above CNN_MIN_COSINE."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import conv, packing, quant
+    from repro_torch.core.lut import product_lut
+    from repro_torch.core.qlinear import QuantPolicy, dequant_weight
+    from repro_torch.kernels.lut_gemm import lut_gemm_cuda, lut_gemm_plain
+    from repro_torch.models import cnn
+
+    cfg = get_config("deepgemm-cnn")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = cnn.init_params(cfg, gen, dev)
+    x = torch.randn((CNN_BATCH, cfg.img_hw, cfg.img_hw, cfg.in_ch), generator=gen,
+                    device=dev)
+    n_conv = len(params)
+
+    def forward_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = fn()
+        torch.cuda.synchronize()
+        return y, 1e3 * (time.perf_counter() - t0)
+
+    def event_ms(fn):
+        """One call between CUDA events (the plain versions: too large for
+        a graph of many calls)."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    out = {}
+    with torch.inference_mode():
+        y_fp, fp_ms = forward_ms(lambda: cnn.forward_plain(params, x))
+        print(f"[17 cnn] {cfg.name}: {n_conv} convs 3x3 (widths "
+              f"{cnn.channels(cfg)}), batch {CNN_BATCH} x {cfg.img_hw}x{cfg.img_hw}x"
+              f"{cfg.in_ch}; fp32 forward {fp_ms:.3f} ms on {smi}", flush=True)
+        for label, wb, ab, kmeans in CNN_PLANS:
+            qws = cnn.quantize(params, QuantPolicy(w_bits=wb, a_bits=ab, nonuniform=kmeans))
+            layers = []
+            h = x
+            for i, (p, qw) in enumerate(zip(params, qws)):
+                patches, _ = conv.im2col(h, 3, 3)
+                M, K, N = patches.shape[0], qw.k_padded, qw.out_features
+                xm = F.pad(patches, (0, K - patches.shape[1]))
+                a_scale, _ = quant.compute_scale_zero_point(xm, ab, signed=True, axis=0)
+                a_idx = quant.to_index(quant.quantize(xm, a_scale, bits=ab), ab)
+                ap = packing.pack(a_idx, ab)
+                table = product_lut(qw.codebook, quant.uniform_codebook(
+                    ab, device=dev).levels).table
+                kw = dict(w_bits=wb, a_bits=ab)
+                got = lut_gemm_cuda(ap, qw.packed, table, None, **kw)
+                want, p_ms = event_ms(lambda: lut_gemm_plain(ap, qw.packed, table, None,
+                                                             **kw))
+                err = (got - want).abs().max().item()
+                rel = err / max(want.abs().max().item(), 1e-30)
+                if err != 0.0:
+                    fail(f"cnn {label} layer {i}: lut_gemm differs from its plain "
+                         f"version by {err} ({rel} of max|plain|)")
+                k_ms = graph_ms(torch, lambda: lut_gemm_cuda(ap, qw.packed, table, None,
+                                                             **kw))
+                w_deq = dequant_weight(qw)                          # (fan_in, cout)
+                pb, wbf = patches.to(torch.bfloat16), w_deq.to(torch.bfloat16)
+                l_ms = graph_ms(torch, lambda: torch.matmul(pb, wbf))
+                h_nchw = h.permute(0, 3, 1, 2).contiguous()
+                w4 = w_deq.reshape(p["cin"], 3, 3, N).permute(3, 0, 1, 2).contiguous()
+                c_ms = loop_ms(torch, lambda: F.conv2d(h_nchw, w4, padding=1))
+                b, by = bound_ms(nbytes(ap, qw.packed, table) + M * N * 4,
+                                 2 * M * N * K, INT8_TC_OPS)
+                tiling = dense_tiling("lut_gemm", M, N, K, wb, ab, None)
+                row = {"kernel": "lut_gemm", "cfg": f"cnn {label} conv{i}", "M": M,
+                       "K": K, "N": N, "max_abs_err": err, "rel_err": rel, "ms": k_ms,
+                       "plain_ms": p_ms, "library_ms": l_ms, "conv2d_ms": c_ms,
+                       "bound_ms": b, "bound_by": by, **tiling}
+                rows["lut_gemm"].append(row)
+                layers.append(row)
+                print(f"[17 cnn] {label} conv{i} M={M} K={K} N={N}: err {err:.3g} "
+                      f"({rel:.3g} rel) | lut_gemm {1e3 * k_ms:.2f} us, plain "
+                      f"{1e3 * p_ms:.1f} us, torch.matmul bf16 {1e3 * l_ms:.2f} us, "
+                      f"F.conv2d f32 {1e3 * c_ms:.2f} us, bound {1e3 * b:.2f} us ({by})"
+                      f"; {bs_tiling_text(tiling)}", flush=True)
+                h = torch.relu(conv.conv2d_serve(qw, h, 3, 3, a_bits=ab))
+            lut_gemm_cuda.launches = 0
+            y, q_ms = forward_ms(lambda: cnn.forward_lut(qws, x, a_bits=ab))
+            if lut_gemm_cuda.launches != 2 * n_conv:        # the warm-up and the timed one
+                fail(f"cnn {label}: {lut_gemm_cuda.launches} lut_gemm launches over two "
+                     f"forwards, expected {2 * n_conv}")
+            if not torch.equal(y, h.mean((1, 2))):
+                fail(f"cnn {label}: the forward differs from its layer-by-layer run")
+            same = None
+            if not kmeans:
+                y_p = cnn.forward_lut(qws, x, a_bits=ab, backend="ref")
+                if lut_gemm_cuda.launches != 2 * n_conv:
+                    fail(f"cnn {label}: the plain-backend stack launched lut_gemm")
+                same = torch.equal(y, y_p)
+                if not same:
+                    fail(f"cnn {label}: the kernel stack differs from the plain-backend "
+                         f"stack by {(y - y_p).abs().max().item()}")
+            cos = float((y_fp * y).sum() / (y_fp.norm() * y.norm() + 1e-9))
+            print(f"[17 cnn] {label}: forward {q_ms:.3f} ms ({n_conv} lut_gemm launches, "
+                  f"layers {sum(r['ms'] for r in layers):.4f} ms of lut_gemm) against "
+                  f"fp32 {fp_ms:.3f} ms; plain-backend stack bit for bit: {same}; "
+                  f"feature cosine {cos:.4f} on {smi}", flush=True)
+            if not cos > CNN_MIN_COSINE:
+                fail(f"cnn {label}: feature cosine {cos} <= {CNN_MIN_COSINE}")
+            out[label] = {"forward_ms": q_ms, "fp32_forward_ms": fp_ms, "cosine": cos,
+                          "launches": n_conv, "plain_stack_identical": same,
+                          "layers": layers}
+            del qws
+    return out
+
+
+def phase_quant_front(torch, dev, serve, wrappers: dict, gemms: dict, smi: str,
+                      expect_launches, rows: dict) -> dict:
+    """Phase 18 (see the module docstring): qwen1.5-0.5b at full width,
+    QF_LAYERS deep, through the paged engine under each of QF_RUNS."""
+    from repro_torch.models import lm
+
+    parse = serve.build_parser().parse_args
+    base = ["--arch", "qwen1.5-0.5b", "--paged", "--device", dev.type]
+    n = QF_LAYERS
+    print(f"[18 quant] qwen1.5-0.5b at full width, cut to its first {n} of 24 layers",
+          flush=True)
+    out: dict = {}
+
+    def plain_gemms(c):
+        return dataclasses.replace(c, quant=dataclasses.replace(c.quant, backend="ref"))
+
+    def run(label, cfg, qparams, args, op, *, requests=None, logits=None, check=None):
+        for w in wrappers.values():
+            w.launches = 0
+        cap: dict = {}
+        res = run_engine(torch, serve, cfg, qparams, args, cap, requests=requests,
+                         logits_by_step=logits, check_first=check,
+                         check_ops=(op,) if check is not None else None)
+        launches = {name: w.launches for name, w in wrappers.items()}
+        m = res["metrics"]
+        if cfg.quant is not None and getattr(cfg.quant, "backend", "auto") == "ref":
+            if any(gemms[g].launches for g in gemms):
+                fail(f"quant {label}: the plain-GEMM run launched a GEMM kernel")
+        else:
+            forwards = m["decode_steps"] + m["prefill_chunks"]
+            expect_launches(f"quant {label}", launches,
+                            {**({op: 7 * n * forwards} if op else {}),
+                             "paged_attention": n * m["decode_steps"]})
+        return res, cap, launches
+
+    for label, flags, op in QF_RUNS:
+        t0 = time.perf_counter()
+        args = parse(base + flags)
+        cfg, desc = serve.config_for(args)
+        cfg = dataclasses.replace(cfg, n_layers=n)             # the first n layers
+        info: dict = {}
+        qparams = serve.pack_params(cfg, args, desc, calibrate=args.a_scale == "static",
+                                    info=info)
+        leaves = lm.qweights(qparams)
+        stamped = sum(qw.a_sc is not None for qw in leaves.values())
+        res, cap, launches = run(label, cfg, qparams, args, op)
+        m = res["metrics"]
+        rec = {"tok_per_s": res["tok_per_s"], "decode_step_ms": res["decode_step_ms"],
+               "launches": launches, "a_sc_leaves": stamped,
+               "tokens": [r.out for r in res["requests"]],
+               "first_logits": cap["first_logits"].cpu()}
+        line = (f"[18 quant] {label}: {len(res['requests'])} requests, {res['tokens']} "
+                f"tokens, {res['tok_per_s']:.1f} tok/s, decode-only step "
+                f"{res['decode_step_ms']:.3f} ms on {smi} | launches "
+                f"{ {k: v for k, v in launches.items() if v} } | a_sc on {stamped} of "
+                f"{len(leaves)} leaves")
+        if "calib_s" in info:
+            rec["calib_s"] = info["calib_s"]
+            line += (f" | calibration {info['calib_s']:.3f} s over "
+                     f"{len(info['act_scales'])} layer classes")
+        print(line, flush=True)
+        if label == "static w2a2":
+            want = [p for p, qw in leaves.items() if qw.kernel == "lut_gemm"]
+            if stamped != 7 * n or stamped != len(want) or any(
+                    leaves[p].a_sc is None for p in want):
+                fail(f"quant {label}: a_sc on {stamped} leaves, want every one of the "
+                     f"{len(want)} lut_gemm leaves ({7 * n})")
+        elif stamped:
+            fail(f"quant {label}: {stamped} leaves carry a static scale, want none")
+        if label.startswith("kmeans"):
+            w_up = leaves["layers.0.mlp.w_up.qw"]
+            lv = w_up.codebook
+            print(f"[18 quant] {label}: layers.0.mlp.w_up's k-means levels "
+                  f"{[round(v, 6) for v in lv.tolist()]}; plut "
+                  f"{'float' if w_up.plut is not None else 'none'}", flush=True)
+            if bool((lv == lv.round()).all()):
+                fail(f"quant {label}: the k-means codebook is integer-valued")
+            rec.update(kernel_rows(torch, dev, w_up, op, rows, label))
+        if label in ("kmeans w2a2", "kmeans w2a16", "static w2a2"):
+            # the same cut of the stream through the kernels and the plain GEMMs
+            cut = parse(base + flags + ["--gen", str(PLAIN_CUT_GEN)])
+            reqs = plain_cut_requests(serve, cfg, args)
+            lk, lp, errs = {}, {}, []
+            res_k, cap_k, _ = run(label + " cut", cfg, qparams, cut, op, requests=reqs,
+                                  logits=lk, check=errs)
+            res_p, cap_p, _ = run(label + " plain", plain_gemms(cfg), qparams, cut, op,
+                                  requests=plain_cut_requests(serve, cfg, args),
+                                  logits=lp)
+            tk = [r.out for r in res_k["requests"]]
+            tp_ = [r.out for r in res_p["requests"]]
+            rel = rel_diff(cap_k["first_logits"], cap_p["first_logits"])
+            ties, worst = near_ties(tp_, tk, lp, lk)
+            same = sum(a == b for a, b in zip(tk, tp_))
+            print(f"[18 quant] {label}: against its plain-GEMM re-run (the first "
+                  f"{PLAIN_CUT_REQUESTS} requests, {PLAIN_CUT_GEN} tokens, "
+                  f"{res_p['tok_per_s']:.1f} tok/s): tokens identical for {same}/"
+                  f"{len(tk)}, divergences at (uid, step, margin) {ties}; first-step "
+                  f"logits {rel:.3g} of max|logit|; the first step's {len(errs)} {op} "
+                  f"calls within {max(errs):.3g} of plain", flush=True)
+            if len(errs) != 7 * n:
+                fail(f"quant {label}: {len(errs)} checked first-step {op} calls, "
+                     f"want {7 * n}")
+            if same != len(tk) or rel != 0.0 or max(errs) != 0.0:
+                fail(f"quant {label}: kernel and plain runs differ (tokens {same}/"
+                     f"{len(tk)}, first-step logits {rel}, calls {max(errs)})")
+            rec.update({"plain_tokens_identical": same, "plain_logits_rel_diff": rel,
+                        "near_ties": ties, "shared_context_logits_rel": worst,
+                        "first_step_call_max_rel_err": max(errs),
+                        "plain_tok_per_s": res_p["tok_per_s"]})
+        rec["seconds"] = time.perf_counter() - t0
+        out[label] = rec
+        del qparams, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+    st, dy = out["static w2a8_bs"], out["dynamic w2a8_bs"]
+    same = st["tokens"] == dy["tokens"] and torch.equal(st["first_logits"],
+                                                        dy["first_logits"])
+    print(f"[18 quant] static w2a8_bs against dynamic w2a8_bs: tokens and first-step "
+          f"logits bit for bit: {same}", flush=True)
+    if not same:
+        fail("quant: --plan w2a8_bs --a-scale static serves other tokens or logits "
+             "than the dynamic plan")
+    for rec in out.values():
+        del rec["tokens"], rec["first_logits"]
+    return out
+
+
+def kernel_rows(torch, dev, qw, op: str, rows: dict, label: str) -> dict:
+    """Rows 1-2 on a k-means leaf of the served model at QF_KERNEL_ROWS:
+    lut_gemm with its float product table, or dequant_matmul with its float codebook (the separately rounded branch
+    of csrc/dense_dequant.cuh), each exact against its tied replay; each with
+    its plain, library (bf16 torch.matmul) and bound times."""
+    from repro_torch.core import packing
+    from repro_torch.core.qlinear import dequant_weight
+    from repro_torch.kernels.lut_dequant_matmul import (dequant_matmul_cuda,
+                                                        dequant_matmul_plain)
+    from repro_torch.kernels.lut_gemm import lut_gemm_cuda, lut_gemm_plain
+
+    gen = torch.Generator(device=dev).manual_seed(27)
+    K, N = qw.k_padded, qw.out_features
+    w_deq = dequant_weight(qw).to(torch.bfloat16)
+    rec = {}
+    for M in QF_KERNEL_ROWS:
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        if op == "lut_gemm":
+            a_idx = torch.randint(0, 2 ** qw.a_bits, (M, K), generator=gen, device=dev,
+                                  dtype=torch.uint8)
+            ap = packing.pack(a_idx, qw.a_bits)
+            kw = dict(w_bits=qw.bits, a_bits=qw.a_bits)
+            call = (lambda: lut_gemm_cuda(ap, qw.packed, qw.plut, None, **kw))
+            plain = (lambda: lut_gemm_plain(ap, qw.packed, qw.plut, None, **kw))
+            b, by = bound_ms(nbytes(ap, qw.packed, qw.plut) + M * N * 4, 2 * M * N * K,
+                             INT8_TC_OPS)
+            tiling = dense_tiling("lut_gemm", M, N, K, qw.bits, qw.a_bits, None)
+        else:
+            kw = dict(bits=qw.bits)
+            call = (lambda: dequant_matmul_cuda(x, qw.packed, qw.codebook, qw.scales, **kw))
+            plain = (lambda: dequant_matmul_plain(x, qw.packed, qw.codebook, qw.scales,
+                                                  **kw))
+            b, by = bound_ms(nbytes(x, qw.packed, qw.codebook, qw.scales) + M * N * 4,
+                             2 * M * N * K, BF16_TC_FLOPS)
+            tiling = dense_tiling("dequant_matmul", M, N, K, qw.bits, 16, None)
+        got = call()
+        torch.cuda.synchronize()
+        want = plain()
+        err = (got - want).abs().max().item()
+        rel = err / max(want.abs().max().item(), 1e-30)
+        k_ms = graph_ms(torch, call)
+        p_ms = graph_ms(torch, plain, reps=3, replays=3)
+        l_ms = graph_ms(torch, lambda: torch.matmul(x, w_deq))
+        row = {"kernel": op, "cfg": f"{label} (qwen w_up)", "M": M, "K": K, "N": N,
+               "max_abs_err": err, "rel_err": rel, "ms": k_ms, "plain_ms": p_ms,
+               "library_ms": l_ms, "bound_ms": b, "bound_by": by, **tiling}
+        rows[op].append(row)
+        rec[f"kernel_M{M}"] = row
+        print(f"[18 quant] {op} {label} M={M} K={K} N={N}: err {err:.3g} ({rel:.3g} "
+              f"rel) | kernel {1e3 * k_ms:.2f} us, plain {1e3 * p_ms:.1f} us, "
+              f"library {1e3 * l_ms:.2f} us, bound {1e3 * b:.2f} us ({by}); "
+              f"{bs_tiling_text(tiling)}", flush=True)
+        if err != 0.0:
+            fail(f"{op} {label} M={M}: kernel against plain {err} ({rel} of max|plain|)")
+    return rec
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated subset of the phases 17,18 to run alone "
+                         "after the build (no kernels' record, no result line)")
+    only = ap.parse_args(argv).phases
+    only = tuple(only.split(",")) if only else ()
+    if any(p not in ("17", "18") for p in only):
+        fail(f"--phases takes 17 and 18, got {only}")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a card")
@@ -2339,6 +2725,45 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}", flush=True)
 
+    gemms = {"lut_gemm": lut_gemm_cuda, "dequant_matmul": dequant_matmul_cuda,
+             "lut_gemm_bs_fused": lut_gemm_bs_fused_cuda,
+             "lut_gemm_bitsliced": lut_gemm_bitsliced_cuda,
+             "expert_dequant_matmul": expert_dequant_matmul_cuda,
+             "expert_lut_gemm": expert_lut_gemm_cuda}
+    attns = {"paged_attention": paged_attention_cuda,
+             "paged_attention_splitkv": paged_attention_splitkv_cuda,
+             "kv_cache_attention": kv_cache_attention_cuda}
+    wrappers = {**gemms, **attns}
+    def reset_launches():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def expect_launches(what, launches, counts: dict):
+        """The named wrappers launched exactly ``counts``, the others 0."""
+        want = {name: counts.get(name, 0) for name in wrappers}
+        if launches != want:
+            fail(f"{what}: launches {launches}, expected {want}")
+
+    if only:              # --phases: the named new phases alone, no result line
+        rows = {"lut_gemm": [], "dequant_matmul": []}
+        got = {}
+        if "17" in only:
+            mark("17 cnn")
+            got["cnn"] = phase_cnn(torch, dev, smi, rows)
+        if "18" in only:
+            mark("18 quant")
+            got["quant"] = phase_quant_front(torch, dev, serve, wrappers, gemms, smi,
+                                             expect_launches, rows)
+        mark("done")
+        names = list(starts)
+        print("[phases] seconds: " + ", ".join(
+            f"{a} {starts[b] - starts[a]:.1f}" for a, b in zip(names, names[1:])),
+            flush=True)
+        print("[results] " + json.dumps(got, default=str), flush=True)
+        print(f"[done] --phases {','.join(only)} passed; the full run prints the "
+              "kernels' record and the result line", flush=True)
+        return 0
+
     mark("4 kernels")
     print("[4 kernels] kernel vs plain at the serving shapes "
           f"(tolerances: lut_gemm exact / grouped {TOL_LUT_GROUPED} rel, "
@@ -2360,27 +2785,8 @@ def main() -> int:
         rows[name] += more
     print(f"[4 kernels] done at {time.perf_counter() - t_start:.1f}s", flush=True)
 
-    gemms = {"lut_gemm": lut_gemm_cuda, "dequant_matmul": dequant_matmul_cuda,
-             "lut_gemm_bs_fused": lut_gemm_bs_fused_cuda,
-             "lut_gemm_bitsliced": lut_gemm_bitsliced_cuda,
-             "expert_dequant_matmul": expert_dequant_matmul_cuda,
-             "expert_lut_gemm": expert_lut_gemm_cuda}
-    attns = {"paged_attention": paged_attention_cuda,
-             "paged_attention_splitkv": paged_attention_splitkv_cuda,
-             "kv_cache_attention": kv_cache_attention_cuda}
-    wrappers = {**gemms, **attns}
     plan_op = {"w2a2": "lut_gemm", "w2a16": "dequant_matmul",
                "w2a8_bs": "lut_gemm_bs_fused"}
-
-    def reset_launches():
-        for w in wrappers.values():
-            w.launches = 0
-
-    def expect_launches(what, launches, counts: dict):
-        """The named wrappers launched exactly ``counts``, the others 0."""
-        want = {name: counts.get(name, 0) for name in wrappers}
-        if launches != want:
-            fail(f"{what}: launches {launches}, expected {want}")
 
     results = {}
     mark("5-7 engine, plain, profile")
@@ -2899,6 +3305,15 @@ def main() -> int:
         results[arch] = phase_local_model(torch, serve, wrappers, gemms, smi,
                                           expect_launches, tag, arch, plans, fixed_b,
                                           fixed_p)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 17: the paper's CNN through lut_gemm; 18: the quantization front end
+    mark("17 cnn")
+    results["cnn"] = phase_cnn(torch, dev, smi, rows)
+    mark("18 quant")
+    results["quant"] = phase_quant_front(torch, dev, serve, wrappers, gemms, smi,
+                                         expect_launches, rows)
     mark("done")
     names = list(starts)
     print("[phases] seconds: " + ", ".join(

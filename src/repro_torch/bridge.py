@@ -24,6 +24,13 @@ neither ``jax`` nor ``repro``:
                     (n_superblocks, E, N, K/f) and leave as (E, N, K/f), its
                     f32 router and shared expert like any other array / dense
                     leaf
+                    k-means leaves keep their float ``codebook`` and
+                    ``plut``, and legacy leaves their ``kernel`` None
+  qweight_from_jax  one ``QuantizedWeight`` of ``repro.core.qlinear.
+                    quantize_weight`` (a conv layer's, say)
+  conv_params_from_jax  a conv layer's params from ``repro.core.conv.
+                    conv2d_init`` ({"w": (fan_in, cout), "kh", "kw", "cin",
+                    "cout"}; the ints arrive as 0-d arrays and leave as ints)
   cache_from_jax    the fixed-batch loop's dense decode cache from
                     ``repro.models.lm.init_cache`` or ``prefill_to_cache``
                     ({"blocks": {"l<j>": {"attn": {k, v[, k_sc, v_sc]}}},
@@ -141,6 +148,21 @@ def qparams_from_jax(np_tree: dict, cfg, *, device, tp_rank: int = 0,
     ``device``; with ``tp_size`` > 1, rank ``tp_rank``'s slice of it."""
     return params_from_jax(np_tree, cfg, device=device, tp_rank=tp_rank,
                            tp_size=tp_size)
+
+
+def qweight_from_jax(leaf, *, device) -> QuantizedWeight:
+    """One reference ``QuantizedWeight`` (numpy arrays) -> the port's."""
+    return _qw_from(leaf, None, device)
+
+
+_CONV_INTS = ("kh", "kw", "cin", "cout")
+
+
+def conv_params_from_jax(np_tree: dict, *, device) -> dict:
+    """A reference conv layer's params (numpy leaves) -> the port's: the
+    filter matrix (and bias) bit for bit, the shape fields as ints."""
+    return {k: int(v) if k in _CONV_INTS else to_torch(v, device)
+            for k, v in np_tree.items()}
 
 
 def cache_from_jax(np_tree: dict, cfg, *, device) -> list:

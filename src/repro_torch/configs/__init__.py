@@ -3,8 +3,10 @@ embeddings, int8 pool) and codeqwen1.5-7b (untied embeddings, int4 pool),
 its local-attention members gemma3-12b (5 local layers of window 1024 to 1
 global, GeGLU, hd 256) and h2o-danube-3-4b (every layer local, window
 4096, hd 120), both int8 pools, and the MoE family's moonshot-v1-16b-a3b
-(64 experts, top-6, two shared experts, int8 pool). The reference's other
-architectures come with their families (ROADMAP queue 1, item 9)."""
+(64 experts, top-6, two shared experts, int8 pool). ``deepgemm-cnn`` is
+the paper's CNN (``CNNConfig``; not one of the decoder LMs in ``ARCHS``).
+The reference's other architectures come with their families (ROADMAP
+queue 1, item 9)."""
 
 from __future__ import annotations
 
@@ -19,13 +21,16 @@ _MODULES = {
     "h2o-danube-3-4b": "h2o_danube3_4b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
 }
-ARCHS = tuple(_MODULES)
+ARCHS = tuple(_MODULES)          # the decoder LMs
+_MODULES["deepgemm-cnn"] = "deepgemm_cnn"
 
 
-def get_config(name: str) -> ModelConfig:
+def get_config(name: str):
+    """The config of ``name``: a ``ModelConfig``, or the CNN's
+    ``CNNConfig``."""
     if name not in _MODULES:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ported: {', '.join(ARCHS)}); "
+            f"arch {name!r} is not ported yet (ported: {', '.join(_MODULES)}); "
             "other families follow ROADMAP queue 1, item 9")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG

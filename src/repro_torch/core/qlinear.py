@@ -31,8 +31,17 @@ runs the w{b}a{b} route as a dequant dot (the GSPMD-shardable form); the
 port always dispatches ``lut_gemm`` and its 'ref' backend is the plain LUT
 sum. Both sum the same exact integer products per channel.
 
-Not ported yet, and raising: k-means codebooks, QAT, autotuned tiles, and
-the expert leaves' TP roles (ROADMAP queue 1, item 11).
+Non-uniform leaves (``QuantPolicy.nonuniform``): one k-means codebook fit
+over the whole padded (out, in_pad) weight, unit scales, and for w{b}a{b}
+a float product table, which ``lut_gemm`` and ``dequant_matmul`` take as
+they take uniform ones. Legacy leaves (``kernel`` None, a single
+``QuantPolicy`` used as the whole config with its ``skip`` list) keep the
+reference's dequant-einsum forward (models/layers.py::dense). Plain
+layers (``dense_init`` / ``dense_apply``) serve the conv stack
+(core/conv.py).
+
+Not ported yet, and raising: QAT, autotuned tiles, and the expert leaves'
+TP roles (ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -76,16 +85,29 @@ class QuantPolicy:
     """Per-layer-class quantization policy, the rule of a ``QuantPlan``
     (see the reference's docstring). ``kernel`` 'auto' resolves to
     'lut_gemm' when ``a_bits`` is set, else 'dequant_matmul'; 'bf16' pins
-    the layer to full precision. The reference's legacy use of a single
-    policy as the whole config (with its ``skip`` list) is not ported."""
+    the layer to full precision; None (a legacy policy) keeps the
+    dequant-einsum forward. A single policy may stand as the whole config
+    (``--plan legacy``): it covers every tag but those its ``skip`` list
+    matches."""
     w_bits: Optional[int] = 2
     a_bits: Optional[int] = None
     signed: bool = True
     scheme: str = "d"
     nonuniform: bool = False
+    skip: tuple = ("router", "embed", "norm")
     group_size: Optional[int] = None
     kernel: Optional[str] = None
     a_scale: str = "dynamic"
+
+    def applies(self, tag: str) -> bool:
+        """Skip entries match on components (``tag_matches``; the
+        reference's ``skip_matches`` is that rule), never substrings."""
+        return self.w_bits is not None and self.kernel != "bf16" and not any(
+            tag_matches(s, tag) for s in self.skip)
+
+    def policy_for(self, tag: str) -> Optional["QuantPolicy"]:
+        """The interface of ``QuantPlan``: this policy where it applies."""
+        return self if self.applies(tag) else None
 
     def resolved_kernel(self) -> Optional[str]:
         if self.kernel != "auto":
@@ -196,19 +218,27 @@ def quantize_weight(w: torch.Tensor, policy: QuantPolicy, *,
     bits = policy.w_bits
     if bits is None:
         raise ValueError("quantize_weight needs a policy with w_bits set")
-    if policy.nonuniform:
-        raise NotImplementedError("k-means (non-uniform) codebooks are not "
-                                  "ported yet: ROADMAP queue 1, item 2")
+    G = policy.group_size
+    if policy.nonuniform and G is not None:
+        raise NotImplementedError("group-wise scales with a k-means codebook")
     kern = policy.resolved_kernel() if policy.kernel else None
-    if kern == "lut_gemm_bitsliced" and not (policy.signed
+    if kern == "lut_gemm_bitsliced" and not (policy.signed and not policy.nonuniform
                                              and policy.a_bits is not None):
         raise ValueError("bit-sliced route needs signed uniform w{b}a{b} "
                          "quantization")
-    G = policy.group_size
     mult = _k_multiple(policy, tp_shards if tp_role == "row" else 1)
     wt = _pad_k(w.T.to(torch.float32).contiguous(), mult)        # (out, in_pad)
-    scales, idx = _codes(wt, bits, policy.signed, G)
-    levels = quant.uniform_codebook(bits, policy.signed, device=w.device).levels
+    if policy.nonuniform:
+        # one codebook over the whole padded tensor and unit scales, as the
+        # reference's code does (its comment there speaks of an amax
+        # normalisation that the code does not do)
+        cb = quant.kmeans_codebook(wt, bits)
+        scales = torch.ones((wt.shape[0],), dtype=torch.float32, device=w.device)
+        idx = quant.codebook_quantize(wt, cb)
+        levels = cb.levels
+    else:
+        scales, idx = _codes(wt, bits, policy.signed, G)
+        levels = quant.uniform_codebook(bits, policy.signed, device=w.device).levels
     a_levels, plut = _act_tables(policy, levels)
     a_sc = None
     if a_static is not None and a_levels is not None:
@@ -278,14 +308,12 @@ def quantize_expert_weight(w: torch.Tensor, policy: QuantPolicy) -> QuantizedWei
     the LUT route (``a_bits``, the activation codebook and the product LUT
     on the leaf); every other plan, the bit-sliced ones included, leaves
     ``a_bits`` unset, and the MoE forward runs it through
-    ``expert_dequant_matmul``."""
+    ``expert_dequant_matmul``. As in the reference, ``nonuniform`` is
+    ignored here: expert leaves carry uniform levels."""
     bits = policy.w_bits
     if bits is None or w.ndim != 3:
         raise ValueError("quantize_expert_weight needs w_bits and an (E, in, "
                          f"out) weight, got {tuple(w.shape)}")
-    if policy.nonuniform:
-        raise NotImplementedError("k-means (non-uniform) codebooks are not "
-                                  "ported yet: ROADMAP queue 1, item 2")
     G = policy.group_size
     wt = _pad_k(w.transpose(1, 2).to(torch.float32).contiguous(),
                 _k_multiple(policy))                       # (E, out, in_pad)
@@ -310,6 +338,29 @@ def dequant_weight(qw: QuantizedWeight) -> torch.Tensor:
     else:
         w = w * qw.scales[..., None]
     return w[..., : qw.in_features].transpose(-1, -2)
+
+
+def dense_init(generator: torch.Generator, in_features: int, out_features: int,
+               *, bias: bool = False, dtype=torch.float32, device=None) -> dict:
+    """A plain dense layer {"w": (in, out)[, "b": (out,)]}: normal *
+    in^-0.5 weights from ``generator`` (the reference's distribution, not
+    its bits), zero bias."""
+    w = torch.randn((in_features, out_features), generator=generator,
+                    dtype=torch.float32, device=device) * (in_features ** -0.5)
+    p = {"w": w.to(dtype)}
+    if bias:
+        p["b"] = torch.zeros((out_features,), dtype=dtype, device=device)
+    return p
+
+
+def dense_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """x: (..., in) -> (..., out) in x's dtype: the plain mode of the
+    reference's ``dense_apply`` (its QAT mode waits for the training slice,
+    ROADMAP queue 1, item 10)."""
+    y = x @ params["w"].to(x.dtype)
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return y
 
 
 def dense_serve(qw: QuantizedWeight, x: torch.Tensor, *,

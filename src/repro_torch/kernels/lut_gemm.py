@@ -8,7 +8,10 @@ Weights may be packed under scheme 'a', 'c' or 'd' (the same bytes).
 
 Callers go through ``kernels/registry.py``, which takes the plain version
 for CPU tensors and the kernel (``lut_gemm_cuda``, which launches or
-raises) for CUDA tensors.
+raises) for CUDA tensors. Per channel the plain version replays the
+kernel's walk (``ref.py::tile_order_lut_gemm``): with a float table
+(k-means levels) the two agree bit for bit, as an integer table's sums
+do in any order.
 
 ``dense_partition`` is the one place that chooses how this kernel and
 ``dequant_matmul``'s (``csrc/dense_common.cuh``) cut a call: MT rows x NT
@@ -36,7 +39,7 @@ from repro_torch.core import packing
 from repro_torch.core.lut import ProductLUT
 from repro_torch.device import CARD_SMS
 from . import build
-from .ref import DENSE_LANES, ref_lut_gemm
+from .ref import DENSE_LANES, ref_lut_gemm, tile_order_lut_gemm
 
 # (w_bits, a_bits) pairs the CUDA source instantiates
 KERNEL_BITS = ((2, 2), (2, 8), (4, 4), (4, 8))
@@ -170,10 +173,26 @@ def dense_active_clusters(op: str, M: int, N: int, K: int, w_bits: int, a_bits: 
 
 
 def lut_gemm_plain(a_packed, w_packed, lut_table, w_scales=None, *,
-                   w_bits: int, a_bits: int, group_size=None) -> torch.Tensor:
-    """The plain PyTorch version (any device)."""
-    return ref_lut_gemm(a_packed, w_packed, ProductLUT(lut_table, w_bits, a_bits),
-                        w_scales=w_scales, group_size=group_size)
+                   w_bits: int, a_bits: int, group_size=None, ranks=None,
+                   cols=None) -> torch.Tensor:
+    """The plain PyTorch version (any device). Per channel it sums in the
+    kernel's walk order on the kernel's tiling (``ranks`` and ``cols`` as
+    the kernel takes them; ``ref.py::tile_order_lut_gemm``), so the two
+    agree bit for bit for any f32 table: a float one (k-means levels) too,
+    whose sums round in that order. An integer table (every uniform
+    codebook's) sums exactly in any order, so on the CPU, where the check
+    costs no device sync, it takes ``ref_lut_gemm``'s fewer, larger ops
+    for the same bits. Grouped, the kernel scales each partial in a fused
+    multiply-add; that path is ``ref_lut_gemm``, held to a tolerance."""
+    if w_scales is not None or (lut_table.device.type == "cpu"
+                                and bool((lut_table == lut_table.round()).all())):
+        return ref_lut_gemm(a_packed, w_packed, ProductLUT(lut_table, w_bits, a_bits),
+                            w_scales=w_scales, group_size=group_size)
+    M, N = a_packed.shape[-2], w_packed.shape[-2]
+    K = w_packed.shape[-1] * packing.PACK_FACTOR[w_bits]
+    _, _, C, kpr = dense_partition(M, N, K, w_bits, a_bits, None, ranks=ranks, cols=cols)
+    return tile_order_lut_gemm(a_packed, w_packed, lut_table, w_bits=w_bits,
+                               a_bits=a_bits, ranks=C, k_per_rank=kpr)
 
 
 def _check(a_packed, w_packed, lut_table, w_scales, w_bits, a_bits,

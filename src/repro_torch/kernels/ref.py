@@ -109,26 +109,42 @@ def tile_order_matmul(a: torch.Tensor, w: torch.Tensor, *, ranks: int,
                       k_per_rank: int, word: int,
                       group_scales: torch.Tensor | None = None,
                       group_size: int | None = None) -> torch.Tensor:
-    """a (..., M, K) f32 @ w (..., N, K).T f32 -> (..., M, N), over any
+    """a (..., M, K) f32 @ w (..., N, K).T f32 -> (..., M, N) in the CUDA
+    dequant walk's order (``tile_order_sum`` with each term the product
+    a[m, k] * w[n, k])."""
+    return tile_order_sum(a, w, lambda x, y: x.unsqueeze(-1) * y.unsqueeze(-2),
+                          ranks=ranks, k_per_rank=k_per_rank, word=word,
+                          group_scales=group_scales, group_size=group_size)
+
+
+def tile_order_sum(a: torch.Tensor, w: torch.Tensor, term, *, ranks: int,
+                   k_per_rank: int, word: int, pads: tuple = (0, 0),
+                   group_scales: torch.Tensor | None = None,
+                   group_size: int | None = None) -> torch.Tensor:
+    """sum_k term(a[..., m, k], w[..., n, k]) -> (..., M, N) f32, over any
     leading axes the operands share (the expert axis of the expert GEMM),
-    summed in the order of the CUDA dequant walk (csrc/dense_dequant.cuh on
-    csrc/dense_common.cuh's tiling): K is cut into windows of
-    ``k_per_rank`` codes, rank c of the cluster taking windows c, c +
-    ranks, ... (rounds); in each window k-lane j takes the words of
-    ``word`` codes j, j + DENSE_LANES, ...; each block of 8 codes is summed
-    product by product into a block sum (times its group's scale with
-    ``group_scales`` (..., N, K / group_size), group_size a multiple of 8),
-    and the block sums are added one by one into the lane's sum (each
-    product, scaling and sum rounded to f32; where the kernel fuses
-    multiply and add the products are exact, which gives the same bits);
-    the lanes' sums then meet in a pairwise tree
+    summed in the order of the CUDA walks on csrc/dense_common.cuh's tiling:
+    the dequant walk (csrc/dense_dequant.cuh), whose terms are products,
+    and the LUT walk (csrc/dense_lut.cuh), whose terms are table entries of
+    code units. ``term`` maps one unit's (chunk, C x lanes, L, M) and
+    (chunk, C x lanes, L, N) slices to (chunk, C x lanes, L, M, N) f32 terms,
+    and gives +0 where an operand holds its pad value (``pads``: a's, w's).
+    K (in units) is cut into windows of ``k_per_rank`` units, rank c of the
+    cluster taking windows c, c + ranks, ... (rounds); in each window
+    k-lane j takes the words of ``word`` units j, j + DENSE_LANES, ...; each
+    block of 8 units is summed term by term into a block sum (times its
+    group's scale with ``group_scales`` (..., N, K / group_size),
+    group_size a multiple of 8), and the block sums are added one by one
+    into the lane's sum (each term, scaling and sum rounded to f32; where
+    the dequant kernel fuses multiply and add the products are exact, which
+    gives the same bits); the lanes' sums then meet in a pairwise tree
     ((0 + 1) + (2 + 3)) + ((4 + 5) + (6 + 7)), and the ranks' partials are
-    added in rank order. K is padded with zeros to whole rounds, which adds
-    exact zeros where the kernel skips. Every leading index runs at once
-    (no loop over experts) and nothing syncs with the host, so CUDA graphs
-    can capture it. This replays the kernel's present schedule: a kernel
-    that changes its walk, its merge or its rounding must change this
-    function with it."""
+    added in rank order. K is padded to whole rounds with the pad values,
+    whose +0 terms leave every sum as it is where the kernel skips. Every
+    leading index runs at once (no loop over experts) and nothing syncs
+    with the host, so CUDA graphs can capture it. This replays the
+    kernels' present schedule: a kernel that changes its walk, its merge or
+    its rounding must change this function with it."""
     *lead, M, K = a.shape
     N = w.shape[-2]
     L = math.prod(lead)
@@ -138,8 +154,8 @@ def tile_order_matmul(a: torch.Tensor, w: torch.Tensor, *, ranks: int,
     rounds = -(-K // span)
     pad = rounds * span - K
     if pad:
-        a = torch.nn.functional.pad(a, (0, pad))
-        w = torch.nn.functional.pad(w, (0, pad))
+        a = torch.nn.functional.pad(a, (0, pad), value=pads[0])
+        w = torch.nn.functional.pad(w, (0, pad), value=pads[1])
     steps = k_per_rank // step
     # lane steps of the last round's longest window (its rank 0's): the
     # steps past it hold only zeros, which leave every sum as it is
@@ -171,12 +187,12 @@ def tile_order_matmul(a: torch.Tensor, w: torch.Tensor, *, ranks: int,
     chunk = max(1, _BLOCK_BUDGET // acc.numel())
     for b0 in range(0, n_blocks, chunk):          # the blocks in order, a chunk at a time
         b1 = min(n_blocks, b0 + chunk)
-        # the chunk's block sums at once, product by product; the first
-        # product stands for 0 + itself, which differs only where it is
-        # -0, and a -0 block sum leaves every lane's sum as it is
-        part = xa[b0:b1, 0].unsqueeze(-1) * xw[b0:b1, 0].unsqueeze(-2)
+        # the chunk's block sums at once, term by term; the first term
+        # stands for 0 + itself, which differs only where it is -0, and a
+        # -0 block sum leaves every lane's sum as it is
+        part = term(xa[b0:b1, 0], xw[b0:b1, 0])
         for q in range(1, 8):
-            part += xa[b0:b1, q].unsqueeze(-1) * xw[b0:b1, q].unsqueeze(-2)
+            part += term(xa[b0:b1, q], xw[b0:b1, q])
         if group_scales is not None:
             part *= scale[b0:b1]
         for b in range(b1 - b0):                  # block sums into the lanes' sums
@@ -188,6 +204,39 @@ def tile_order_matmul(a: torch.Tensor, w: torch.Tensor, *, ranks: int,
     for c in range(1, ranks):
         out = out + acc[c, 0]
     return out.reshape(*lead, M, N).contiguous()
+
+
+def tile_order_lut_gemm(a_packed: torch.Tensor, w_packed: torch.Tensor,
+                        table: torch.Tensor, *, w_bits: int, a_bits: int, ranks: int,
+                        k_per_rank: int) -> torch.Tensor:
+    """``ref_lut_gemm`` per channel with its sums in the CUDA LUT walk's
+    order (``tile_order_sum`` on the kernel's tiling: ``ranks`` windows of
+    ``k_per_rank`` codes), so kernel and replay agree bit for bit for any
+    f32 table, a float one (k-means levels) included. A unit is one code,
+    or at w2a2 a pair of neighbouring codes whose term is the pair table's
+    entry LUT[w0, a0] + LUT[w1, a1] (rounded once, as the kernel builds
+    it); a word holds 32 / unit-bits units. Pad units read an extra table
+    row of zeros."""
+    a_idx = packing.unpack(a_packed, a_bits).long()              # (..., M, K)
+    w_idx = packing.unpack(w_packed, w_bits).long()              # (..., N, K)
+    lut = table.float().view(2 ** w_bits, 2 ** a_bits)           # [w, a]
+    if (w_bits, a_bits) == (2, 2):              # code pairs on the w4a4 walk
+        a_idx = a_idx[..., 0::2] | (a_idx[..., 1::2] << 2)
+        w_idx = w_idx[..., 0::2] | (w_idx[..., 1::2] << 2)
+        ap = torch.arange(16, device=table.device)[:, None]
+        wp = torch.arange(16, device=table.device)[None, :]
+        tab = lut[wp & 3, ap & 3] + lut[wp >> 2, ap >> 2]         # [a pair, w pair]
+        ub, per = 4, 2
+    else:
+        tab, ub, per = lut.t(), w_bits, 1                        # [a, w]
+    tab = torch.cat([tab, tab.new_zeros((1, tab.shape[1]))]).reshape(-1)
+    n_w = 2 ** ub
+
+    def term(x, y):
+        return torch.take(tab, x.unsqueeze(-1) * n_w + y.unsqueeze(-2))
+
+    return tile_order_sum(a_idx, w_idx, term, ranks=ranks, k_per_rank=k_per_rank // per,
+                          word=32 // ub, pads=(tab.numel() // n_w - 1, 0))
 
 
 def tile_order_dequant_matmul(a: torch.Tensor, w_packed: torch.Tensor,

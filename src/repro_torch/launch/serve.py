@@ -75,12 +75,37 @@ It takes the reference's rules: the engine's features (``--prefix-cache``,
 ``--kv-splits``, ``--ring``, ``--trace-out``, ``--metrics-out``) require
 ``--paged``; ``--prefix-cache`` and ``--spec-draft-plan`` refuse
 ``--prefill whole``; ``--ring`` needs a sliding-window arch and refuses
-``--prefix-cache``. One rule is the port's own: the sampling flags
-require ``--paged`` (the reference's fixed loop ignores them and decodes
-greedily). Flags of features not ported yet are rejected loudly: static
-activation scales and k-means codebooks (ROADMAP queue 1, item 2), the
-legacy plan, MoE under ``--tp``, and speculative decoding under ``--tp``
-(the drafter's TP rules, ROADMAP queue 1, item 11). ``--ring`` under
+``--prefix-cache``; ``--a-scale static`` needs an activation-quantized
+plan and refuses ``--plan legacy``. Two rules are the port's own: the
+sampling flags require ``--paged`` (the reference's fixed loop ignores them
+and decodes greedily), and ``--nonuniform`` reaches a preset's policies
+too (the reference drops it there, while its banner names a k-means
+codebook), so it refuses the presets it cannot serve: bit-sliced planes
+are the uniform codebook, and group-wise scales with a k-means codebook
+raise in the reference's packer as well. Flags of features not ported yet
+are rejected loudly: MoE under ``--tp``, and speculative decoding under
+``--tp`` (the drafter's TP rules, ROADMAP queue 1, item 11).
+
+The quantization front end follows the reference's flags: ``--nonuniform``
+fits a k-means codebook per projection (a float product table under
+w{b}a{b}, float levels under w{b}a16; expert leaves keep uniform levels,
+as the reference's do); ``--a-scale static`` runs the calibration pass
+(``--calib-batches`` batches of ``--batch`` x ``--prompt-len`` tokens from
+a ``torch.Generator`` seeded from ``--seed``, so its tokens are not the
+reference's) over the plain weights and stamps each ``lut_gemm`` leaf
+with its layer class's static scale (other leaves stay dynamic); ``--plan
+legacy`` packs under one ``QuantPolicy`` without a kernel and serves the
+reference's dequant-einsum form in plain torch:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+      --paged --plan w2a2 --nonuniform
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+      --paged --plan w2a2 --a-scale static --calib-batches 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+      --smoke --paged --device cpu --plan legacy
+
+The paper's CNN (``deepgemm-cnn``) is not a decoder LM and is refused
+here: ``examples/cnn_paper_repro_torch.py`` runs it. ``--ring`` under
 ``--tp`` runs: the rings are host-side, and every rank holds the whole
 pool. Prompts come from
 numpy's ``default_rng(seed)``; the reference draws them with JAX's
@@ -102,6 +127,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import ARCHS, get_config, reduce_for_smoke
+from repro_torch.core.qlinear import QuantPolicy
 from repro_torch.core.qplan import PLANS, get_plan, make_plan
 from repro_torch.device import resolve_device
 from repro_torch.kernels import registry
@@ -125,9 +151,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--a-bits", type=int, default=None)
     ap.add_argument("--group-size", type=int, default=None)
     ap.add_argument("--plan", default=None,
-                    help=f"named plan preset ({', '.join(sorted(PLANS))}); "
-                         "overrides --w-bits/--a-bits/--group-size")
-    ap.add_argument("--nonuniform", action="store_true")
+                    help=f"named plan preset ({', '.join(sorted(PLANS))}) or "
+                         "'legacy' for the dequant-einsum form; overrides "
+                         "--w-bits/--a-bits/--group-size")
+    ap.add_argument("--nonuniform", action="store_true",
+                    help="k-means codebooks (paper §5.3 non-uniform support)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--paged", action="store_true")
     ap.add_argument("--block-size", type=int, default=16)
@@ -147,7 +175,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--trace-out", default=None)
     ap.add_argument("--metrics-out", default=None)
-    ap.add_argument("--a-scale", default="dynamic", choices=("dynamic", "static"))
+    ap.add_argument("--a-scale", default="dynamic", choices=("dynamic", "static"),
+                    help="w{b}a{b} activation scales: dynamic per row, or "
+                         "static, calibrated over --calib-batches batches")
     ap.add_argument("--calib-batches", type=int, default=4)
     return ap
 
@@ -213,20 +243,28 @@ def validate_args(args) -> None:
         raise ValueError("--ring is incompatible with --prefix-cache: ring blocks "
                          "are per-slot and rewritten in place, so local-layer KV "
                          "can never be shared across requests")
+    if args.a_scale == "static" and args.plan is None and args.a_bits is None:
+        raise ValueError("--a-scale static requires an activation-quantized plan: "
+                         "pass --a-bits N (or a --plan with a_bits set) so there "
+                         "is an activation scale to calibrate")
+    if args.a_scale == "static" and args.plan == "legacy":
+        raise ValueError("--a-scale static is incompatible with --plan legacy: the "
+                         "legacy dequant-einsum forward has no activation "
+                         "quantization to calibrate a scale for")
+    if args.calib_batches < 1:
+        raise ValueError(f"--calib-batches must be >= 1, got {args.calib_batches}")
+    if args.arch not in ARCHS:
+        get_config(args.arch)          # an unknown arch raises here
+        raise ValueError(f"--arch {args.arch}: a CNN, not a decoder LM; the serve "
+                         "CLI has no requests for it (run "
+                         "examples/cnn_paper_repro_torch.py)")
     checks = [
-        (args.tp > 1 and args.arch in ARCHS
-         and get_config(args.arch).moe is not None,
+        (args.tp > 1 and get_config(args.arch).moe is not None,
          "--tp > 1 on an MoE model (the expert TP rules) is not ported yet: "
          "ROADMAP queue 1, item 11"),
         (args.tp > 1 and args.spec_draft_plan is not None,
          "--spec-draft-plan under --tp > 1 (the drafter's TP rules) is not "
          "ported yet: ROADMAP queue 1, item 11"),
-        (args.a_scale == "static", "--a-scale static (calibration) is not "
-         "ported yet: ROADMAP queue 1, item 2"),
-        (args.nonuniform, "--nonuniform (k-means codebooks) is not ported "
-         "yet: ROADMAP queue 1, item 2"),
-        (args.plan == "legacy", "--plan legacy (dequant-einsum leaves) is not "
-         "ported: pick a kernel-backed plan"),
     ]
     for bad, msg in checks:
         if bad:
@@ -237,19 +275,54 @@ def validate_args(args) -> None:
                                          and int(args.kv_splits) >= 1):
         raise ValueError(f"--kv-splits must be auto or an int >= 1, got "
                          f"{args.kv_splits!r}")
-    if args.plan is not None and args.plan not in PLANS:
+    if args.plan is not None and args.plan not in PLANS and args.plan != "legacy":
         raise ValueError(f"unknown --plan {args.plan!r} "
-                         f"({', '.join(sorted(PLANS))})")
+                         f"({', '.join(sorted(PLANS))}, legacy)")
+    if args.nonuniform:
+        if args.plan is None:
+            pols = [QuantPolicy(group_size=args.group_size)]
+        elif args.plan == "legacy":         # make_quant's policy takes no group
+            pols = []
+        else:
+            pols = [pol for _, pol in get_plan(args.plan).rules if pol is not None]
+        if any(pol.group_size is not None for pol in pols):
+            raise ValueError("--nonuniform is incompatible with group-wise scales "
+                             "(--group-size, or a grouped --plan): a k-means "
+                             "codebook takes unit scales")
+        if any(pol.kernel == "lut_gemm_bitsliced" for pol in pols):
+            raise ValueError("--nonuniform is incompatible with a bit-sliced plan: "
+                             "its weight planes are the uniform codebook")
 
 
 def make_quant(args):
-    """The plan the flags ask for, and a one-line description."""
+    """The plan the flags ask for, and a one-line description (reference
+    serve.py:377-399). ``--plan legacy`` is one kernel-less
+    ``QuantPolicy``. A preset's policies are retargeted: under ``--a-scale
+    static`` those that quantize activations take static scales (else the
+    calibration would run and its scales be dropped), under
+    ``--nonuniform`` every policy takes a k-means codebook."""
+    if args.plan == "legacy":
+        return (QuantPolicy(w_bits=args.w_bits, nonuniform=args.nonuniform),
+                f"legacy w{args.w_bits} (dequant-einsum)")
     if args.plan is not None:
-        return get_plan(args.plan), f"plan '{args.plan}'"
+        plan = get_plan(args.plan)
+
+        def retarget(pol):
+            if pol is None:
+                return None
+            if args.a_scale == "static" and pol.a_bits is not None:
+                pol = dataclasses.replace(pol, a_scale="static")
+            return dataclasses.replace(pol, nonuniform=True) if args.nonuniform else pol
+
+        return (dataclasses.replace(plan, rules=tuple((pat, retarget(pol))
+                                                      for pat, pol in plan.rules)),
+                f"plan '{args.plan}'")
     a = f"a{args.a_bits}" if args.a_bits else "a16"
     g = f" g{args.group_size}" if args.group_size else ""
-    return (make_plan(args.w_bits, args.a_bits, args.group_size),
-            f"plan w{args.w_bits}{a}{g}")
+    s = " static-a" if args.a_scale == "static" else ""
+    return (make_plan(args.w_bits, args.a_bits, args.group_size,
+                      nonuniform=args.nonuniform, a_scale=args.a_scale),
+            f"plan w{args.w_bits}{a}{g}{s}")
 
 
 def make_requests(cfg, args) -> list[Request]:
@@ -450,17 +523,51 @@ def config_for(args):
     return dataclasses.replace(cfg, quant=quant), desc
 
 
-def pack_params(cfg, args, desc: str, tp: int = 1, rank: int = 0):
+def calibration_batches(cfg, args, device) -> list[dict]:
+    """``--calib-batches`` batches of ``--batch`` x ``--prompt-len`` tokens
+    for the calibration pass, from a CPU ``torch.Generator`` seeded from
+    ``--seed`` (the reference folds its PRNG key instead, so the two
+    packages calibrate on other tokens)."""
+    gen = torch.Generator().manual_seed(1000 + args.seed)
+    return [{"tokens": torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                                     generator=gen).to(device)}
+            for _ in range(args.calib_batches)]
+
+
+def pack_params(cfg, args, desc: str, tp: int = 1, rank: int = 0, *,
+                calibrate: bool = False, info: dict | None = None):
     """``cfg``'s weights drawn from ``args.seed`` and packed under its plan
     on ``args.device``; with ``tp`` > 1, rank ``rank``'s slice of them.
     The target and the drafter both come from here, so the drafter's
-    weights are the target's, drawn in the same order."""
+    weights are the target's, drawn in the same order. With ``calibrate``
+    (the target under ``--a-scale static``) the plain weights are drawn
+    whole, the calibration pass runs over them (its seconds and layer
+    classes go into ``info`` where given), then they are packed with the
+    static scales; otherwise each layer is packed as it is drawn."""
     device = resolve_device(args.device)
-    print(f"[serve] {cfg.name} on {device}: packing weights under {desc}")
+    plan = cfg.quant
+    kmeans = any(pol is not None and pol.nonuniform
+                 for pol in ([plan] if isinstance(plan, QuantPolicy)
+                             else [pol for _, pol in plan.rules]))
+    print(f"[serve] {cfg.name} on {device}: packing weights under {desc} "
+          f"({'k-means' if kmeans else 'uniform'} codebook)")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     t0 = time.perf_counter()
-    params = lm.init_params(cfg, gen, device, pack=True, tp=tp,
-                            rank=rank)                   # layer by layer
+    if calibrate:
+        params = lm.init_params(cfg, gen, device)
+        tc = time.perf_counter()
+        act_scales = lm.calibrate_act_scales(params, cfg,
+                                             calibration_batches(cfg, args, device))
+        calib_s = time.perf_counter() - tc
+        print(f"  calibrated {len(act_scales)} layer classes over "
+              f"{args.calib_batches} batches in {calib_s:.2f}s")
+        if info is not None:
+            info.update(calib_s=calib_s, act_scales=act_scales)
+        params = lm.shard_tree(lm.quantize_tree(params, cfg, tp=tp,
+                                                act_scales=act_scales), rank, tp)
+    else:
+        params = lm.init_params(cfg, gen, device, pack=True, tp=tp,
+                                rank=rank)                   # layer by layer
     _sync(device)
     print(f"  initialised and packed in {time.perf_counter() - t0:.2f}s"
           + (f" (rank {rank}'s slice of {tp})" if tp > 1 else ""))
@@ -471,7 +578,8 @@ def prepare(args, tp: int = 1, rank: int = 0):
     """Config, plan and packed parameters for ``args`` on its device; with
     ``tp`` > 1, rank ``rank``'s slice of them."""
     cfg, desc = config_for(args)
-    return cfg, pack_params(cfg, args, desc, tp, rank)
+    return cfg, pack_params(cfg, args, desc, tp, rank,
+                            calibrate=args.a_scale == "static")
 
 
 def prepare_drafter(args, cfg):

@@ -1,7 +1,8 @@
 """Transformer building blocks of the dense and MoE families, in torch.
 
-The port's counterpart of ``repro/models/layers.py``: ``dense`` (plain or
-packed-serving dispatch), RMSNorm, RoPE, the attention math (the same
+The port's counterpart of ``repro/models/layers.py``: ``dense`` (plain,
+legacy dequant-einsum or packed-serving dispatch, tagged by layer class
+for the calibration pass), RMSNorm, RoPE, the attention math (the same
 masked softmax as the reference: an online softmax over key chunks for
 prefill, a dense masked softmax for one-token decode), the int8 and int4
 KV codecs, the attention layer's no-cache prefill branch, its dense slot
@@ -59,8 +60,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import packing, quant
-from repro_torch.core.qlinear import QuantizedWeight, dense_serve
+from repro_torch.core import calibrate, packing, quant
+from repro_torch.core.qlinear import QuantizedWeight, dense_serve, dequant_weight
 from repro_torch.core.qplan import plan_backend
 from repro_torch.kernels import registry
 from repro_torch.kernels.paged_attention import merge_splitkv_partials, split_partition
@@ -68,18 +69,22 @@ from repro_torch.kernels.paged_attention import merge_splitkv_partials, split_pa
 _NEG = -1e30
 
 
-def dense(p: dict, x: torch.Tensor, *, policy) -> torch.Tensor:
-    """x: (..., in) -> (..., out). A packed leaf ({"qw": QuantizedWeight})
-    runs through its plan's kernel route; a plain leaf ({"w": (in, out)})
-    is a matmul in x's dtype."""
+def dense(p: dict, x: torch.Tensor, *, tag: str = "", policy) -> torch.Tensor:
+    """x: (..., in) -> (..., out). A planned packed leaf ({"qw":
+    QuantizedWeight} with a ``kernel``) runs through its plan's kernel
+    route; a legacy one (``kernel`` None) is the reference's dequant-einsum
+    form, a plain product of x with the dequantized weight in x's dtype,
+    computed outside any kernel there too; a plain leaf ({"w": (in, out)})
+    is a matmul in x's dtype. ``tag`` names the layer class ("attn.wq",
+    "mlp.w_up", ...) for the calibration pass (``calibrate.observe``)."""
+    calibrate.observe(tag, x)          # nothing outside a calibration pass
     if "qw" in p:
         qw: QuantizedWeight = p["qw"]
-        if qw.kernel is None:
-            raise NotImplementedError(
-                "legacy (kernel=None) dequant-einsum leaves are not ported; "
-                "pack under a QuantPlan")
-        return dense_serve(qw, x, bias=p.get("b"), backend=plan_backend(policy))
-    y = x @ p["w"].to(x.dtype)
+        if qw.kernel is not None:
+            return dense_serve(qw, x, bias=p.get("b"), backend=plan_backend(policy))
+        y = x @ dequant_weight(qw).to(x.dtype)
+    else:
+        y = x @ p["w"].to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -392,9 +397,9 @@ def attn_apply(p: dict, x: torch.Tensor, *, cfg, layer_type: str = "global",
     G = H // KV
     pol = cfg.quant
     window = cfg.window if layer_type == "local" else None
-    q = dense(p["wq"], x, policy=pol).reshape(B, S, KV, G, hd)
-    k = dense(p["wk"], x, policy=pol).reshape(B, S, KV, hd)
-    v = dense(p["wv"], x, policy=pol).reshape(B, S, KV, hd)
+    q = dense(p["wq"], x, tag="attn.wq", policy=pol).reshape(B, S, KV, G, hd)
+    k = dense(p["wk"], x, tag="attn.wk", policy=pol).reshape(B, S, KV, hd)
+    v = dense(p["wv"], x, tag="attn.wv", policy=pol).reshape(B, S, KV, hd)
     ar = torch.arange(S, device=x.device)
     positions = ar[None, :] if pos is None else pos[:, None] + ar[None, :]
     q = apply_rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta
@@ -490,19 +495,20 @@ def attn_apply(p: dict, x: torch.Tensor, *, cfg, layer_type: str = "global",
                                  for b in range(B)])
             scatter()
     out = out.reshape(B, S, H * hd)
-    return dense(p["wo"], out, policy=pol)
+    return dense(p["wo"], out, tag="attn.wo", policy=pol)
 
 
-def mlp_apply(p: dict, x: torch.Tensor, *, cfg) -> torch.Tensor:
+def mlp_apply(p: dict, x: torch.Tensor, *, cfg, tag: str = "mlp") -> torch.Tensor:
     """The gated MLP: w_down(act(w_gate x) * w_up x), act silu (swiglu) or
-    the tanh-approximated gelu (geglu)."""
+    the tanh-approximated gelu (geglu); ``tag`` is the layer class of its
+    projections ("mlp", or "moe.shared" for a shared expert)."""
     if cfg.mlp not in ("swiglu", "geglu"):
         raise NotImplementedError(f"mlp {cfg.mlp!r} is not ported yet")
     pol = cfg.quant
-    up = dense(p["w_up"], x, policy=pol)
-    g = dense(p["w_gate"], x, policy=pol)
+    up = dense(p["w_up"], x, tag=f"{tag}.w_up", policy=pol)
+    g = dense(p["w_gate"], x, tag=f"{tag}.w_gate", policy=pol)
     h = _silu_mul(g, up) if cfg.mlp == "swiglu" else _gelu_tanh(g) * up
-    return dense(p["w_down"], h, policy=pol)
+    return dense(p["w_down"], h, tag=f"{tag}.w_down", policy=pol)
 
 
 def _gelu_tanh(g: torch.Tensor) -> torch.Tensor:
@@ -629,11 +635,9 @@ def moe_apply(p: dict, x: torch.Tensor, *, cfg) -> torch.Tensor:
     def proj(name, xin):                                        # -> (E, M, N)
         leaf = p[name]
         if isinstance(leaf, QuantizedWeight):
-            if leaf.kernel is None:
-                raise NotImplementedError(
-                    "legacy (kernel=None) dequant-einsum leaves are not ported; "
-                    "pack under a QuantPlan")
-            return _expert_matmul(leaf, xin.to(x.dtype), be, active)  # f32
+            if leaf.kernel is not None:
+                return _expert_matmul(leaf, xin.to(x.dtype), be, active)  # f32
+            leaf = dequant_weight(leaf)          # legacy: (E, in, out) f32
         return xin.to(x.dtype) @ leaf.to(x.dtype)
 
     h = _silu_mul(proj("we_gate", xe), proj("we_up", xe))
@@ -643,5 +647,5 @@ def moe_apply(p: dict, x: torch.Tensor, *, cfg) -> torch.Tensor:
     out = (eo[slot] * gates[..., None]).reshape(Gn, K, gs, D).sum(dim=1)
     out = out.reshape(B, S, D).to(x.dtype)
     if "shared" in p:
-        out = out + mlp_apply(p["shared"], x, cfg=cfg)
+        out = out + mlp_apply(p["shared"], x, cfg=cfg, tag="moe.shared")
     return out

@@ -31,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import qlinear
+from repro_torch.core import calibrate, qlinear
 from repro_torch.device import resolve_device
 from repro_torch.dist.sharding import TP_ROLES
 from . import layers as L
@@ -277,13 +277,18 @@ def forward(params: dict, cfg, tokens: torch.Tensor, *,
 def logits_fn(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
     """(B, S, D) -> (B, S, V) f32 logits against the tied embedding or the
     untied ``lm_head``: a plain f32 product outside any kernel, as the
-    reference's einsum with an f32 accumulator."""
+    reference's einsum with an f32 accumulator. A legacy plan packs the
+    head too (its skip list does not name it): the product then takes its
+    dequantized weight in the hidden states' dtype, as the reference's."""
     if cfg.tie_embeddings:
         return torch.matmul(hidden.float(), params["tok_embed"].float().T)
-    return torch.matmul(hidden.float(), params["lm_head"]["w"].float())
+    head = params["lm_head"]
+    w = qlinear.dequant_weight(head["qw"]).to(hidden.dtype) if "qw" in head else head["w"]
+    return torch.matmul(hidden.float(), w.float())
 
 
-def quantize_tree(tree, cfg, path: str = "", *, tp: int = 1):
+def quantize_tree(tree, cfg, path: str = "", *, tp: int = 1,
+                  act_scales: Optional[dict] = None):
     """Replace every plan-covered dense ``{"w": ...}`` with ``{"qw":
     QuantizedWeight}`` and every plan-covered expert stack (``we_gate``,
     ``we_up``, ``we_down``) with a ``QuantizedWeight`` (the paper's offline
@@ -298,24 +303,43 @@ def quantize_tree(tree, cfg, path: str = "", *, tp: int = 1):
     padded so every shard holds whole packed bytes and scale groups, and a
     column leaf whose N does not divide stays replicated (no role). The
     leaves stay whole; ``shard_tree`` keeps one rank's slice. Expert TP
-    roles are not ported (ROADMAP queue 1, item 11)."""
+    roles are not ported (ROADMAP queue 1, item 11). A legacy leaf
+    (``kernel`` None) takes no role: its plain product runs whole on every
+    rank.
+
+    ``cfg.quant`` is a ``QuantPlan`` or, for the legacy config, a single
+    ``QuantPolicy`` (its ``skip`` list keeps layer classes bf16; a policy
+    without ``w_bits`` leaves the tree as it is). ``act_scales`` (from
+    ``calibrate_act_scales``) gives each layer class its activation amax: a
+    policy with ``a_scale`` 'static' stamps ``amax / qmax`` on a
+    ``lut_gemm`` leaf (``a_sc``), as the reference's ``static_for`` does;
+    bit-sliced leaves and uncalibrated tags stay dynamic."""
     plan = cfg.quant
+    if isinstance(plan, qlinear.QuantPolicy) and plan.w_bits is None:
+        return tree
     if isinstance(tree, list):
-        return [quantize_tree(v, cfg, f"{path}.{i}", tp=tp)
+        return [quantize_tree(v, cfg, f"{path}.{i}", tp=tp, act_scales=act_scales)
                 for i, v in enumerate(tree)]
     if not isinstance(tree, dict):
         return tree
 
-    def role_for(name: str, out_dim: int):
-        role = TP_ROLES.get(name) if tp > 1 else None
+    def role_for(name: str, out_dim: int, lp):
+        role = TP_ROLES.get(name) if tp > 1 and lp.kernel is not None else None
         return None if role == "col" and out_dim % tp else role
+
+    def static_for(tag: str, lp) -> Optional[float]:
+        if (lp.a_scale != "static" or lp.a_bits is None
+                or lp.resolved_kernel() != "lut_gemm"):
+            return None
+        amax = calibrate.lookup(act_scales, tag)
+        return None if amax is None else calibrate.static_scale(amax, lp.a_bits)
 
     out = {}
     for k, v in tree.items():
         tag = f"{path}.{k}" if path else k
         if k in ("we_gate", "we_up", "we_down"):
             lp = plan.policy_for(f"{path}.experts.{k}" if path else f"experts.{k}")
-            if lp is not None and v.ndim == 3 and role_for(k, v.shape[-1]):
+            if lp is not None and v.ndim == 3 and role_for(k, v.shape[-1], lp):
                 raise NotImplementedError(
                     f"{tag}: tensor-parallel expert leaves are not ported "
                     "yet: ROADMAP queue 1, item 11")
@@ -324,21 +348,27 @@ def quantize_tree(tree, cfg, path: str = "", *, tp: int = 1):
             continue
         lp = plan.policy_for(tag)
         if isinstance(v, dict) and "w" in v and v["w"].ndim == 2 and lp is not None:
-            # When calibration is ported, keep the reference's rule
-            # (lm.py:588-590 there): a static scale is stamped only on
-            # lut_gemm leaves; bit-sliced leaves stay dynamic.
-            if lp.a_scale == "static":
-                raise NotImplementedError(
-                    "static activation scales need the calibration pass, "
-                    "which is not ported yet (ROADMAP queue 1, item 2)")
-            q = {"qw": qlinear.quantize_weight(v["w"], lp, tp_shards=tp,
-                                               tp_role=role_for(k, v["w"].shape[-1]))}
+            q = {"qw": qlinear.quantize_weight(
+                v["w"], lp, tp_shards=tp, tp_role=role_for(k, v["w"].shape[-1], lp),
+                a_static=static_for(tag, lp))}
             if "b" in v:
                 q["b"] = v["b"]
             out[k] = q
         else:
-            out[k] = quantize_tree(v, cfg, tag, tp=tp)
+            out[k] = quantize_tree(v, cfg, tag, tp=tp, act_scales=act_scales)
     return out
+
+
+def calibrate_act_scales(params: dict, cfg, batches) -> dict:
+    """The offline calibration pass for static activation scales: the plain
+    (unpacked) forward over ``batches`` (dicts with "tokens" (B, S)) inside
+    ``calibrate.collect_act_stats``; returns the per-layer-class amax dict
+    ("attn.wq", "mlp.w_up", "moe.shared.w_down", ...) for
+    ``quantize_tree(..., act_scales=...)``."""
+    with torch.inference_mode(), calibrate.collect_act_stats() as stats:
+        for batch in batches:
+            forward(params, cfg, batch["tokens"])
+    return dict(stats)
 
 
 def shard_tree(tree, rank: int, world: int):

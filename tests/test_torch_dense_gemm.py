@@ -1,9 +1,9 @@
 """The tiling and the rounding order of the two packed-weight GEMM kernels
 (csrc/lut_gemm.cu, csrc/dequant_matmul.cu, csrc/dense_common.cuh) on the
 CPU: ``dense_partition`` covers K exactly once within the kernels' limits,
-and the dequant kernel's plain version (``ref.py::tile_order_matmul``)
-equals the reference oracle within f32 rounding and a scalar emulation of
-the kernel's schedule bit for bit. The kernels against their plain versions
+and the plain versions of both kernels (``ref.py::tile_order_matmul``,
+``ref.py::tile_order_lut_gemm``) equal the reference oracle within f32
+rounding and a scalar emulation of the kernel's schedule bit for bit. The kernels against their plain versions
 on the card are in test_torch_kernels_gpu.py.
 
 Tolerances: the tile-order sum rounds in another order than the oracle's
@@ -209,6 +209,78 @@ def test_tile_order_equals_scalar_emulation_of_the_kernel(M, K, N, bits, group, 
                                ranks=ranks, cols=cols)
     levels = tref._dequant(wp, cb, sc, bits, None)
     want = _scalar_kernel_order(a, levels, sc, C, kpr, 32 // bits, group)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def _scalar_lut_order(a_idx, w_idx, table, w_bits, a_bits, ranks, kpr):
+    """The CUDA LUT kernel's per-channel schedule (csrc/dense_lut.cuh), one
+    f32 operation at a time in numpy: units are codes, or at w2a2 pairs of
+    neighbouring codes whose entry is the pair table's LUT[w0, a0] +
+    LUT[w1, a1]; a word holds 32 / unit-bits units; rank c takes windows c,
+    c + ranks, ... of kpr codes, k-lane j the words j, j + 8, ... of a
+    window; each block of 8 units is summed entry by entry (units past the
+    window skipped) and added into the lane's sum; the lanes meet in a
+    pairwise tree, the ranks in rank order."""
+    f32 = np.float32
+    lut = table.numpy().astype(np.float32).reshape(2 ** w_bits, 2 ** a_bits)
+    a, w = a_idx.numpy().astype(np.int64), w_idx.numpy().astype(np.int64)
+    if (w_bits, a_bits) == (2, 2):
+        def entry(m, n, u):
+            return f32(lut[w[n, 2 * u], a[m, 2 * u]] + lut[w[n, 2 * u + 1], a[m, 2 * u + 1]])
+        K, kpr, word = a.shape[1] // 2, kpr // 2, 8
+    else:
+        def entry(m, n, u):
+            return lut[w[n, u], a[m, u]]
+        K, word = a.shape[1], 32 // w_bits
+    M, N = a.shape[0], w.shape[0]
+    rounds = -(-K // (ranks * kpr))
+    out = np.zeros((M, N), dtype=np.float32)
+    for m in range(M):
+        for n in range(N):
+            total = f32(0)
+            for c in range(ranks):
+                lanes = [f32(0)] * 8
+                for t in range(rounds):
+                    lo = min(K, (t * ranks + c) * kpr)
+                    hi = min(K, lo + kpr)
+                    for j in range(8):
+                        for wi in range(j, -(-(hi - lo) // word), 8):
+                            for b in range(0, word, 8):
+                                part = f32(0)
+                                for q in range(b, b + 8):
+                                    if lo + wi * word + q < hi:
+                                        part = f32(part + entry(m, n, lo + wi * word + q))
+                                lanes[j] = f32(lanes[j] + part)
+                while len(lanes) > 1:
+                    lanes = [f32(lanes[i] + lanes[i + 1]) for i in range(0, len(lanes), 2)]
+                total = lanes[0] if c == 0 else f32(total + lanes[0])
+            out[m, n] = total
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("M,K,N,w_bits,a_bits,ranks,cols", [
+    (2, 256, 5, 2, 2, None, None),
+    (3, 700, 4, 2, 2, 3, 64),        # K off the word, 3 ranks
+    (2, 28, 3, 2, 2, None, 128),     # K below one word (the CNN's stem)
+    (1, 384, 6, 4, 4, 1, 128),       # one rank over several words
+    (2, 1100, 3, 2, 8, None, 64),
+    (3, 4200, 2, 4, 8, 1, 128),      # several rounds
+])
+def test_lut_gemm_plain_equals_scalar_emulation_of_the_kernel(M, K, N, w_bits, a_bits,
+                                                              ranks, cols):
+    """A float product table (k-means-like levels) per channel: the plain
+    version sums in the kernel's order, bit for bit."""
+    from repro_torch.core.lut import product_lut
+    from repro_torch.kernels.lut_gemm import lut_gemm_plain
+    g = torch.Generator().manual_seed(M * K + N)
+    a = torch.randint(0, 2 ** a_bits, (M, K), generator=g, dtype=torch.uint8)
+    w = torch.randint(0, 2 ** w_bits, (N, K), generator=g, dtype=torch.uint8)
+    table = product_lut(torch.randn(2 ** w_bits, generator=g),
+                        quant.uniform_codebook(a_bits).levels).table
+    _, _, C, kpr = dense_partition(M, N, K, w_bits, a_bits, None, ranks=ranks, cols=cols)
+    got = lut_gemm_plain(packing.pack(a, a_bits), packing.pack(w, w_bits), table,
+                         w_bits=w_bits, a_bits=a_bits, ranks=ranks, cols=cols)
+    want = _scalar_lut_order(a, w, table, w_bits, a_bits, C, kpr)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 

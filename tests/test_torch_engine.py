@@ -185,13 +185,25 @@ def test_serve_cli_feature_smoke_on_cpu(flags):
 
 @pytest.mark.parametrize("flags", [
     ["--tp", "2", "--arch", "moonshot-v1-16b-a3b"],
-    ["--a-scale", "static"], ["--nonuniform"],
-    ["--plan", "legacy"], ["--tp", "2", "--spec-draft-plan", "w2a2"]])
+    ["--tp", "2", "--spec-draft-plan", "w2a2"]])
 def test_serve_rejects_unported_flags_loudly(flags):
     args = serve.build_parser().parse_args(
         ["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu", "--paged", *flags])
     with pytest.raises(ValueError, match="not ported|ROADMAP"):
         serve.validate_args(args)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--plan", "w2a2", "--a-scale", "static"], ["--a-bits", "2", "--a-scale", "static",
+                                                "--calib-batches", "2"],
+    ["--nonuniform"], ["--plan", "w2a2", "--nonuniform"],
+    ["--plan", "legacy"], ["--plan", "legacy", "--nonuniform"]])
+def test_serve_accepts_the_quantization_front_end_flags(flags):
+    """--a-scale static, --nonuniform and --plan legacy are ported: the
+    flag rules take them (their runs: tests/test_torch_quant_front.py)."""
+    args = serve.build_parser().parse_args(
+        ["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu", "--paged", *flags])
+    serve.validate_args(args)
 
 
 @pytest.mark.parametrize("flags,msg", [
@@ -211,8 +223,24 @@ def test_serve_rejects_unported_flags_loudly(flags):
     (["--paged", "--ring", "--prefix-cache", "--arch", "gemma3-12b"],
      "--ring is incompatible with --prefix-cache"),
     (["--ring", "--arch", "gemma3-12b"], "--ring requires --paged"),
-    (["--trace-out", "t.json"], "--trace-out requires --paged")])
+    (["--trace-out", "t.json"], "--trace-out requires --paged"),
+    (["--a-scale", "static"], "requires an activation-quantized plan"),
+    (["--plan", "legacy", "--a-scale", "static"], "incompatible with --plan legacy")])
 def test_serve_rejects_the_references_incompatible_combinations(flags, msg):
+    args = serve.build_parser().parse_args(
+        ["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu", *flags])
+    with pytest.raises(ValueError, match=msg):
+        serve.validate_args(args)
+
+
+@pytest.mark.parametrize("flags,msg", [
+    (["--nonuniform", "--plan", "w2a8_bs"], "incompatible with a bit-sliced plan"),
+    (["--nonuniform", "--group-size", "64"], "incompatible with group-wise scales"),
+    (["--nonuniform", "--plan", "mixed_attn4_mlp2"], "incompatible with group-wise"),
+    (["--arch", "deepgemm-cnn"], "not a decoder LM")])
+def test_serve_rejects_the_ports_own_combinations(flags, msg):
+    """The port's own rules: --nonuniform reaches a preset's policies, so
+    it refuses the presets it cannot serve; the CNN is not served here."""
     args = serve.build_parser().parse_args(
         ["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu", *flags])
     with pytest.raises(ValueError, match=msg):

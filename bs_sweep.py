@@ -222,8 +222,8 @@ def dense(torch, dev, graph_ms, hbm_bytes_per_s, sweep: bool) -> None:
                 sc.numel() * 4 + M * N * 4
         got = fn(*args_, **kw, **tile)
         torch.cuda.synchronize()
-        # the plain versions replay the kernel's tiling (lut_gemm's per channel)
-        want = want_fn(*args_, **kw, **tile)
+        # the dequant plain version replays the kernel's tiling
+        want = want_fn(*args_, **kw, **(tile if op == "dequant_matmul" else {}))
         err = (got - want).abs().max().item()
         ms = graph_ms(torch, lambda: fn(*args_, **kw, **tile))
         lib = graph_ms(torch, lambda: torch.matmul(x, w_deq.T))

@@ -259,29 +259,33 @@ Phases, each printing its lines:
   17 cnn      the paper's deepgemm-cnn at full width (the stem and 8 stage
               convs, 3x3, widths 64-512; batch 8 of 32x32x3, M 8192 a
               conv) under w2a2, w4a4 and k-means w2a2 through
-              models/cnn.py: each conv's lut_gemm call on the forward's
-              own operands against its plain version (exact: the plain
-              version replays the walk's order, so a k-means float table
-              agrees bit for bit too) with its tiling, its time beside the plain
+              models/cnn.py: each conv's lut_gemm call (its operands
+              taken from the registry as conv2d_serve runs) against its
+              plain version, exactly (a k-means float table's plain
+              version replays the walk's order), and a k-means call also
+              against the order-free ref_lut_gemm within TOL_LUT_FLOAT of
+              max|plain|; its tiling, its time beside the plain
               version's, torch.matmul of the bf16 patches against the
               bf16 dequantized filters, F.conv2d (f32, no TF32) and the
-              bound; then one forward with exactly 9 launches, its time,
-              the plain-backend stack bit for bit (uniform), and the
-              feature cosine to the fp32 stack above 0.3
+              bound; then one forward with exactly 9 launches, the
+              plain-backend stack bit for bit, the feature cosine to the
+              fp32 stack above 0.3, and the forward's time (CUDA events
+              over CNN_FORWARD_REPS forwards)
   18 quant    the quantization front end on qwen1.5-0.5b at full width, cut
               to its first QF_LAYERS of 24 layers, through the paged
               engine's 12 requests (exact launches): --nonuniform under
               w2a2 (row 1 on a float table) and w2a16 (row 2 on a float
               codebook), each with its tied plain-GEMM re-run of the first
-              4 requests bit for bit, and with rows 1-2
-              at M 4 and 128 on the served w_up leaf; --plan w2a2
+              4 requests bit for bit, and with rows 1-2 at M 4 and 128 on
+              the served w_up leaf (exact against the tied plain version;
+              row 1 also within TOL_LUT_FLOAT of the order-free
+              ref_lut_gemm); --plan w2a2
               --a-scale static (the calibration's seconds, a_sc on every
               lut_gemm leaf, the plain re-run bit for bit); --plan w2a8_bs
               --a-scale static (no a_sc, the dynamic run's bits); --plan
               legacy (no launch of rows 1-4)
 Each phase prints when it starts, and the run prints every phase's seconds
-at its end. ``python3 chip_smoke.py --phases 17,18`` runs the build and
-phases 17 and 18 alone (no kernels' record, no result line).
+at its end.
 
 Any failure exits nonzero. The line before the last is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}. Without a CUDA
@@ -464,6 +468,11 @@ FIXED_RUNS = (("qwen1.5-0.5b", "w2a2", "lut_gemm"),
 CNN_BATCH = 8
 CNN_PLANS = (("w2a2", 2, 2, False), ("w4a4", 4, 4, False), ("kmeans w2a2", 2, 2, True))
 CNN_MIN_COSINE = 0.3          # examples/cnn_paper_repro.py's assertion
+CNN_FORWARD_REPS = 5          # forwards timed between CUDA events (after 3 warm-ups)
+# a float (k-means) table's lut_gemm call against the order-free
+# ref_lut_gemm, of max|plain|: the sums round in another order (the tied
+# plain version is the exact gate)
+TOL_LUT_FLOAT = 1e-5
 # phase 18: qwen1.5-0.5b at full width, cut to this depth, through the
 # paged engine under the quantization front end's flags: (label, flags,
 # the dense GEMM op); the k-means and static runs are held bit for bit
@@ -2351,20 +2360,25 @@ def phase_local_model(torch, serve, wrappers: dict, gemms: dict, smi: str,
 def phase_cnn(torch, dev, smi: str, rows: dict) -> dict:
     """Phase 17 (see the module docstring): deepgemm-cnn at full width,
     batch CNN_BATCH of 32x32x3 inputs, under each of CNN_PLANS. Per layer:
-    the lut_gemm call on the forward's own operands against its plain
-    version (exact: the plain version replays the walk), its tiling, and its time beside the plain version's, torch.matmul of
-    the bf16 patches against the bf16 dequantized filters, F.conv2d (f32,
-    no TF32) on the layer's input, and the byte / operation bound. Per
-    plan: one forward through the kernels with exactly 9 launches, its
-    time, the plain-backend stack bit for bit (uniform tables), and the
-    feature cosine against the fp32 stack above CNN_MIN_COSINE."""
+    the lut_gemm call conv2d_serve makes (its operands taken from the
+    registry as the call runs) against its plain version, exactly, and a
+    k-means layer also against the order-free ``ref_lut_gemm`` within
+    TOL_LUT_FLOAT of max|plain|; its tiling, and its time beside the plain
+    version's, torch.matmul of the bf16 patches against the bf16
+    dequantized filters, F.conv2d (f32, no TF32) on the layer's input, and
+    the byte / operation bound. Per plan: one forward through the kernels
+    with exactly 9 launches, the plain-backend stack bit for bit, the
+    feature cosine against the fp32 stack above CNN_MIN_COSINE, and the
+    forward's time."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
-    from repro_torch.core import conv, packing, quant
-    from repro_torch.core.lut import product_lut
+    from repro_torch.core import conv
+    from repro_torch.core.lut import ProductLUT
     from repro_torch.core.qlinear import QuantPolicy, dequant_weight
+    from repro_torch.kernels import registry
     from repro_torch.kernels.lut_gemm import lut_gemm_cuda, lut_gemm_plain
+    from repro_torch.kernels.ref import ref_lut_gemm
     from repro_torch.models import cnn
 
     cfg = get_config("deepgemm-cnn")
@@ -2373,29 +2387,10 @@ def phase_cnn(torch, dev, smi: str, rows: dict) -> dict:
     x = torch.randn((CNN_BATCH, cfg.img_hw, cfg.img_hw, cfg.in_ch), generator=gen,
                     device=dev)
     n_conv = len(params)
-
-    def forward_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        y = fn()
-        torch.cuda.synchronize()
-        return y, 1e3 * (time.perf_counter() - t0)
-
-    def event_ms(fn):
-        """One call between CUDA events (the plain versions: too large for
-        a graph of many calls)."""
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        end.synchronize()
-        return out, start.elapsed_time(end)
-
     out = {}
     with torch.inference_mode():
-        y_fp, fp_ms = forward_ms(lambda: cnn.forward_plain(params, x))
+        y_fp = cnn.forward_plain(params, x)
+        fp_ms = loop_ms(torch, lambda: cnn.forward_plain(params, x), reps=CNN_FORWARD_REPS)
         print(f"[17 cnn] {cfg.name}: {n_conv} convs 3x3 (widths "
               f"{cnn.channels(cfg)}), batch {CNN_BATCH} x {cfg.img_hw}x{cfg.img_hw}x"
               f"{cfg.in_ch}; fp32 forward {fp_ms:.3f} ms on {smi}", flush=True)
@@ -2404,72 +2399,79 @@ def phase_cnn(torch, dev, smi: str, rows: dict) -> dict:
             layers = []
             h = x
             for i, (p, qw) in enumerate(zip(params, qws)):
-                patches, _ = conv.im2col(h, 3, 3)
-                M, K, N = patches.shape[0], qw.k_padded, qw.out_features
-                xm = F.pad(patches, (0, K - patches.shape[1]))
-                a_scale, _ = quant.compute_scale_zero_point(xm, ab, signed=True, axis=0)
-                a_idx = quant.to_index(quant.quantize(xm, a_scale, bits=ab), ab)
-                ap = packing.pack(a_idx, ab)
-                table = product_lut(qw.codebook, quant.uniform_codebook(
-                    ab, device=dev).levels).table
-                kw = dict(w_bits=wb, a_bits=ab)
-                got = lut_gemm_cuda(ap, qw.packed, table, None, **kw)
-                want, p_ms = event_ms(lambda: lut_gemm_plain(ap, qw.packed, table, None,
-                                                             **kw))
+                calls = []
+                with registry.watched(("lut_gemm",), lambda op, arrays, static, y:
+                                      calls.append((arrays, static, y))):
+                    h_next = torch.relu(conv.conv2d_serve(qw, h, 3, 3, a_bits=ab))
+                if len(calls) != 1:
+                    fail(f"cnn {label} layer {i}: {len(calls)} lut_gemm calls, want 1")
+                (ap, wp, table, _), kw, got = calls[0]
+                M, K, N = ap.shape[0], qw.k_padded, qw.out_features
+                want = lut_gemm_plain(ap, wp, table, None, **kw)
                 err = (got - want).abs().max().item()
-                rel = err / max(want.abs().max().item(), 1e-30)
+                peak = max(want.abs().max().item(), 1e-30)
                 if err != 0.0:
                     fail(f"cnn {label} layer {i}: lut_gemm differs from its plain "
-                         f"version by {err} ({rel} of max|plain|)")
-                k_ms = graph_ms(torch, lambda: lut_gemm_cuda(ap, qw.packed, table, None,
-                                                             **kw))
+                         f"version by {err} ({err / peak} of max|plain|)")
+                free = None
+                if kmeans:        # the order-free oracle, not tied to the walk
+                    free = (got - ref_lut_gemm(ap, wp, ProductLUT(table, wb, ab))
+                            ).abs().max().item() / peak
+                    if not free <= TOL_LUT_FLOAT:
+                        fail(f"cnn {label} layer {i}: lut_gemm against ref_lut_gemm "
+                             f"{free} of max|plain| > {TOL_LUT_FLOAT}")
+                k_ms = graph_ms(torch, lambda: lut_gemm_cuda(ap, wp, table, None, **kw))
+                p_ms = loop_ms(torch, lambda: lut_gemm_plain(ap, wp, table, None, **kw),
+                               reps=1)
                 w_deq = dequant_weight(qw)                          # (fan_in, cout)
+                patches, _ = conv.im2col(h, 3, 3)
                 pb, wbf = patches.to(torch.bfloat16), w_deq.to(torch.bfloat16)
                 l_ms = graph_ms(torch, lambda: torch.matmul(pb, wbf))
                 h_nchw = h.permute(0, 3, 1, 2).contiguous()
                 w4 = w_deq.reshape(p["cin"], 3, 3, N).permute(3, 0, 1, 2).contiguous()
                 c_ms = loop_ms(torch, lambda: F.conv2d(h_nchw, w4, padding=1))
-                b, by = bound_ms(nbytes(ap, qw.packed, table) + M * N * 4,
-                                 2 * M * N * K, INT8_TC_OPS)
+                b, by = bound_ms(nbytes(ap, wp, table) + M * N * 4, 2 * M * N * K,
+                                 INT8_TC_OPS)
                 tiling = dense_tiling("lut_gemm", M, N, K, wb, ab, None)
                 row = {"kernel": "lut_gemm", "cfg": f"cnn {label} conv{i}", "M": M,
-                       "K": K, "N": N, "max_abs_err": err, "rel_err": rel, "ms": k_ms,
-                       "plain_ms": p_ms, "library_ms": l_ms, "conv2d_ms": c_ms,
-                       "bound_ms": b, "bound_by": by, **tiling}
+                       "K": K, "N": N, "max_abs_err": err, "rel_err": err / peak,
+                       "order_free_rel_err": free, "ms": k_ms, "plain_ms": p_ms,
+                       "library_ms": l_ms, "conv2d_ms": c_ms, "bound_ms": b,
+                       "bound_by": by, **tiling}
                 rows["lut_gemm"].append(row)
                 layers.append(row)
-                print(f"[17 cnn] {label} conv{i} M={M} K={K} N={N}: err {err:.3g} "
-                      f"({rel:.3g} rel) | lut_gemm {1e3 * k_ms:.2f} us, plain "
-                      f"{1e3 * p_ms:.1f} us, torch.matmul bf16 {1e3 * l_ms:.2f} us, "
-                      f"F.conv2d f32 {1e3 * c_ms:.2f} us, bound {1e3 * b:.2f} us ({by})"
-                      f"; {bs_tiling_text(tiling)}", flush=True)
-                h = torch.relu(conv.conv2d_serve(qw, h, 3, 3, a_bits=ab))
+                print(f"[17 cnn] {label} conv{i} M={M} K={K} N={N}: err {err:.3g}"
+                      + (f", against ref_lut_gemm {free:.3g} of max|plain| (tolerance "
+                         f"{TOL_LUT_FLOAT})" if kmeans else "")
+                      + f" | lut_gemm {1e3 * k_ms:.2f} us, plain {1e3 * p_ms:.1f} us, "
+                      f"torch.matmul bf16 {1e3 * l_ms:.2f} us, F.conv2d f32 "
+                      f"{1e3 * c_ms:.2f} us, bound {1e3 * b:.2f} us ({by}); "
+                      f"{bs_tiling_text(tiling)}", flush=True)
+                h = h_next
             lut_gemm_cuda.launches = 0
-            y, q_ms = forward_ms(lambda: cnn.forward_lut(qws, x, a_bits=ab))
-            if lut_gemm_cuda.launches != 2 * n_conv:        # the warm-up and the timed one
-                fail(f"cnn {label}: {lut_gemm_cuda.launches} lut_gemm launches over two "
-                     f"forwards, expected {2 * n_conv}")
+            y = cnn.forward_lut(qws, x, a_bits=ab)
+            if lut_gemm_cuda.launches != n_conv:
+                fail(f"cnn {label}: {lut_gemm_cuda.launches} lut_gemm launches in one "
+                     f"forward, expected {n_conv}")
             if not torch.equal(y, h.mean((1, 2))):
                 fail(f"cnn {label}: the forward differs from its layer-by-layer run")
-            same = None
-            if not kmeans:
-                y_p = cnn.forward_lut(qws, x, a_bits=ab, backend="ref")
-                if lut_gemm_cuda.launches != 2 * n_conv:
-                    fail(f"cnn {label}: the plain-backend stack launched lut_gemm")
-                same = torch.equal(y, y_p)
-                if not same:
-                    fail(f"cnn {label}: the kernel stack differs from the plain-backend "
-                         f"stack by {(y - y_p).abs().max().item()}")
+            y_p = cnn.forward_lut(qws, x, a_bits=ab, backend="ref")
+            if lut_gemm_cuda.launches != n_conv:
+                fail(f"cnn {label}: the plain-backend stack launched lut_gemm")
+            if not torch.equal(y, y_p):
+                fail(f"cnn {label}: the kernel stack differs from the plain-backend "
+                     f"stack by {(y - y_p).abs().max().item()}")
+            q_ms = loop_ms(torch, lambda: cnn.forward_lut(qws, x, a_bits=ab),
+                           reps=CNN_FORWARD_REPS)
             cos = float((y_fp * y).sum() / (y_fp.norm() * y.norm() + 1e-9))
             print(f"[17 cnn] {label}: forward {q_ms:.3f} ms ({n_conv} lut_gemm launches, "
                   f"layers {sum(r['ms'] for r in layers):.4f} ms of lut_gemm) against "
-                  f"fp32 {fp_ms:.3f} ms; plain-backend stack bit for bit: {same}; "
-                  f"feature cosine {cos:.4f} on {smi}", flush=True)
+                  f"fp32 {fp_ms:.3f} ms; plain-backend stack bit for bit; feature "
+                  f"cosine {cos:.4f} on {smi}", flush=True)
             if not cos > CNN_MIN_COSINE:
                 fail(f"cnn {label}: feature cosine {cos} <= {CNN_MIN_COSINE}")
             out[label] = {"forward_ms": q_ms, "fp32_forward_ms": fp_ms, "cosine": cos,
-                          "launches": n_conv, "plain_stack_identical": same,
-                          "layers": layers}
+                          "launches": n_conv, "layers": layers}
             del qws
     return out
 
@@ -2603,14 +2605,18 @@ def phase_quant_front(torch, dev, serve, wrappers: dict, gemms: dict, smi: str,
 
 def kernel_rows(torch, dev, qw, op: str, rows: dict, label: str) -> dict:
     """Rows 1-2 on a k-means leaf of the served model at QF_KERNEL_ROWS:
-    lut_gemm with its float product table, or dequant_matmul with its float codebook (the separately rounded branch
-    of csrc/dense_dequant.cuh), each exact against its tied replay; each with
-    its plain, library (bf16 torch.matmul) and bound times."""
+    lut_gemm with its float product table, or dequant_matmul with its float
+    codebook (the separately rounded branch of csrc/dense_dequant.cuh), each
+    exact against its tied replay, and lut_gemm also within TOL_LUT_FLOAT of
+    max|plain| against the order-free ref_lut_gemm; each with its plain,
+    library (bf16 torch.matmul) and bound times."""
     from repro_torch.core import packing
     from repro_torch.core.qlinear import dequant_weight
     from repro_torch.kernels.lut_dequant_matmul import (dequant_matmul_cuda,
                                                         dequant_matmul_plain)
+    from repro_torch.core.lut import ProductLUT
     from repro_torch.kernels.lut_gemm import lut_gemm_cuda, lut_gemm_plain
+    from repro_torch.kernels.ref import ref_lut_gemm
 
     gen = torch.Generator(device=dev).manual_seed(27)
     K, N = qw.k_padded, qw.out_features
@@ -2622,8 +2628,10 @@ def kernel_rows(torch, dev, qw, op: str, rows: dict, label: str) -> dict:
             a_idx = torch.randint(0, 2 ** qw.a_bits, (M, K), generator=gen, device=dev,
                                   dtype=torch.uint8)
             ap = packing.pack(a_idx, qw.a_bits)
-            kw = dict(w_bits=qw.bits, a_bits=qw.a_bits)
+            kw = dict(w_bits=qw.bits, a_bits=qw.a_bits, float_table=qw.nonuniform)
             call = (lambda: lut_gemm_cuda(ap, qw.packed, qw.plut, None, **kw))
+            order_free = (lambda: ref_lut_gemm(ap, qw.packed,
+                                               ProductLUT(qw.plut, qw.bits, qw.a_bits)))
             plain = (lambda: lut_gemm_plain(ap, qw.packed, qw.plut, None, **kw))
             b, by = bound_ms(nbytes(ap, qw.packed, qw.plut) + M * N * 4, 2 * M * N * K,
                              INT8_TC_OPS)
@@ -2636,38 +2644,40 @@ def kernel_rows(torch, dev, qw, op: str, rows: dict, label: str) -> dict:
             b, by = bound_ms(nbytes(x, qw.packed, qw.codebook, qw.scales) + M * N * 4,
                              2 * M * N * K, BF16_TC_FLOPS)
             tiling = dense_tiling("dequant_matmul", M, N, K, qw.bits, 16, None)
+            order_free = None
         got = call()
         torch.cuda.synchronize()
         want = plain()
         err = (got - want).abs().max().item()
-        rel = err / max(want.abs().max().item(), 1e-30)
+        peak = max(want.abs().max().item(), 1e-30)
+        rel = err / peak
+        free = None
+        if order_free is not None:
+            free = (got - order_free()).abs().max().item() / peak
         k_ms = graph_ms(torch, call)
         p_ms = graph_ms(torch, plain, reps=3, replays=3)
         l_ms = graph_ms(torch, lambda: torch.matmul(x, w_deq))
         row = {"kernel": op, "cfg": f"{label} (qwen w_up)", "M": M, "K": K, "N": N,
-               "max_abs_err": err, "rel_err": rel, "ms": k_ms, "plain_ms": p_ms,
-               "library_ms": l_ms, "bound_ms": b, "bound_by": by, **tiling}
+               "max_abs_err": err, "rel_err": rel, "order_free_rel_err": free,
+               "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b,
+               "bound_by": by, **tiling}
         rows[op].append(row)
         rec[f"kernel_M{M}"] = row
         print(f"[18 quant] {op} {label} M={M} K={K} N={N}: err {err:.3g} ({rel:.3g} "
-              f"rel) | kernel {1e3 * k_ms:.2f} us, plain {1e3 * p_ms:.1f} us, "
+              f"rel)" + (f", against ref_lut_gemm {free:.3g} of max|plain| (tolerance "
+                         f"{TOL_LUT_FLOAT})" if free is not None else "")
+              + f" | kernel {1e3 * k_ms:.2f} us, plain {1e3 * p_ms:.1f} us, "
               f"library {1e3 * l_ms:.2f} us, bound {1e3 * b:.2f} us ({by}); "
               f"{bs_tiling_text(tiling)}", flush=True)
         if err != 0.0:
             fail(f"{op} {label} M={M}: kernel against plain {err} ({rel} of max|plain|)")
+        if free is not None and not free <= TOL_LUT_FLOAT:
+            fail(f"{op} {label} M={M}: kernel against ref_lut_gemm {free} of "
+                 f"max|plain| > {TOL_LUT_FLOAT}")
     return rec
 
 
-def main(argv=None) -> int:
-    import argparse
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=None,
-                    help="comma-separated subset of the phases 17,18 to run alone "
-                         "after the build (no kernels' record, no result line)")
-    only = ap.parse_args(argv).phases
-    only = tuple(only.split(",")) if only else ()
-    if any(p not in ("17", "18") for p in only):
-        fail(f"--phases takes 17 and 18, got {only}")
+def main() -> int:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a card")
@@ -2725,45 +2735,6 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}", flush=True)
 
-    gemms = {"lut_gemm": lut_gemm_cuda, "dequant_matmul": dequant_matmul_cuda,
-             "lut_gemm_bs_fused": lut_gemm_bs_fused_cuda,
-             "lut_gemm_bitsliced": lut_gemm_bitsliced_cuda,
-             "expert_dequant_matmul": expert_dequant_matmul_cuda,
-             "expert_lut_gemm": expert_lut_gemm_cuda}
-    attns = {"paged_attention": paged_attention_cuda,
-             "paged_attention_splitkv": paged_attention_splitkv_cuda,
-             "kv_cache_attention": kv_cache_attention_cuda}
-    wrappers = {**gemms, **attns}
-    def reset_launches():
-        for w in wrappers.values():
-            w.launches = 0
-
-    def expect_launches(what, launches, counts: dict):
-        """The named wrappers launched exactly ``counts``, the others 0."""
-        want = {name: counts.get(name, 0) for name in wrappers}
-        if launches != want:
-            fail(f"{what}: launches {launches}, expected {want}")
-
-    if only:              # --phases: the named new phases alone, no result line
-        rows = {"lut_gemm": [], "dequant_matmul": []}
-        got = {}
-        if "17" in only:
-            mark("17 cnn")
-            got["cnn"] = phase_cnn(torch, dev, smi, rows)
-        if "18" in only:
-            mark("18 quant")
-            got["quant"] = phase_quant_front(torch, dev, serve, wrappers, gemms, smi,
-                                             expect_launches, rows)
-        mark("done")
-        names = list(starts)
-        print("[phases] seconds: " + ", ".join(
-            f"{a} {starts[b] - starts[a]:.1f}" for a, b in zip(names, names[1:])),
-            flush=True)
-        print("[results] " + json.dumps(got, default=str), flush=True)
-        print(f"[done] --phases {','.join(only)} passed; the full run prints the "
-              "kernels' record and the result line", flush=True)
-        return 0
-
     mark("4 kernels")
     print("[4 kernels] kernel vs plain at the serving shapes "
           f"(tolerances: lut_gemm exact / grouped {TOL_LUT_GROUPED} rel, "
@@ -2785,8 +2756,27 @@ def main(argv=None) -> int:
         rows[name] += more
     print(f"[4 kernels] done at {time.perf_counter() - t_start:.1f}s", flush=True)
 
+    gemms = {"lut_gemm": lut_gemm_cuda, "dequant_matmul": dequant_matmul_cuda,
+             "lut_gemm_bs_fused": lut_gemm_bs_fused_cuda,
+             "lut_gemm_bitsliced": lut_gemm_bitsliced_cuda,
+             "expert_dequant_matmul": expert_dequant_matmul_cuda,
+             "expert_lut_gemm": expert_lut_gemm_cuda}
+    attns = {"paged_attention": paged_attention_cuda,
+             "paged_attention_splitkv": paged_attention_splitkv_cuda,
+             "kv_cache_attention": kv_cache_attention_cuda}
+    wrappers = {**gemms, **attns}
     plan_op = {"w2a2": "lut_gemm", "w2a16": "dequant_matmul",
                "w2a8_bs": "lut_gemm_bs_fused"}
+
+    def reset_launches():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def expect_launches(what, launches, counts: dict):
+        """The named wrappers launched exactly ``counts``, the others 0."""
+        want = {name: counts.get(name, 0) for name in wrappers}
+        if launches != want:
+            fail(f"{what}: launches {launches}, expected {want}")
 
     results = {}
     mark("5-7 engine, plain, profile")

@@ -20,27 +20,23 @@ from repro_torch.configs import get_config
 from repro_torch.core.qlinear import QuantPolicy
 from repro_torch.models import cnn
 
+BATCH, SEED = 4, 0
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--smoke", action="store_true",
                     help="widths 8-16 and 8x8 images, for the CPU")
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--nonuniform", action="store_true",
-                    help="k-means codebooks instead of uniform levels")
     args = ap.parse_args(argv)
     cfg = get_config("deepgemm-cnn")
     if args.smoke:
         cfg = cnn.reduce_for_smoke(cfg)
     dev = torch.device(args.device)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
     params = cnn.init_params(cfg, gen, dev)
-    x = torch.randn((args.batch, cfg.img_hw, cfg.img_hw, cfg.in_ch), generator=gen,
-                    device=dev)
-    qws = cnn.quantize(params, QuantPolicy(w_bits=2, a_bits=2,
-                                           nonuniform=args.nonuniform))
+    x = torch.randn((BATCH, cfg.img_hw, cfg.img_hw, cfg.in_ch), generator=gen, device=dev)
+    qws = cnn.quantize(params, QuantPolicy(w_bits=2, a_bits=2))
     packed = sum(q.packed.numel() for q in qws)
     f32 = sum(p["w"].numel() * 4 for p in params)
     print(f"conv weights: {f32 / 1e6:.2f} MB f32 -> {packed / 1e6:.2f} MB packed "
@@ -62,7 +58,7 @@ def main(argv=None) -> int:
     cos = float((y_fp * y_q).sum() / (y_fp.norm() * y_q.norm() + 1e-9))
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"fp32 fwd {t_fp * 1e3:.1f} ms | w2a2 LUT fwd {t_q * 1e3:.1f} ms "
-          f"| feature cosine {cos:.3f} ({where}, batch {args.batch})")
+          f"| feature cosine {cos:.3f} ({where}, batch {BATCH})")
     if cos <= 0.3:
         raise SystemExit("2-bit features should correlate with fp32")
     print("OK")

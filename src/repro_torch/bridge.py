@@ -25,7 +25,8 @@ neither ``jax`` nor ``repro``:
                     f32 router and shared expert like any other array / dense
                     leaf
                     k-means leaves keep their float ``codebook`` and
-                    ``plut``, and legacy leaves their ``kernel`` None
+                    ``plut`` (and come out ``nonuniform``), and legacy
+                    leaves their ``kernel`` None
   qweight_from_jax  one ``QuantizedWeight`` of ``repro.core.qlinear.
                     quantize_weight`` (a conv layer's, say)
   conv_params_from_jax  a conv layer's params from ``repro.core.conv.
@@ -81,11 +82,16 @@ def _qw_from(leaf, index, device, tp_rank: int = 0,
             arrays[name] = to_torch(v[index] if index is not None else v, device)
         else:
             arrays[name] = None
+    # the reference's leaf does not say whether its codebook is k-means:
+    # its levels do (a uniform codebook's are integers), read here on the
+    # host as the leaf is converted
+    cb = np.asarray(leaf.codebook)
     qw = QuantizedWeight(
         bits=int(leaf.bits), in_features=int(leaf.in_features),
         out_features=int(leaf.out_features), group_size=leaf.group_size,
         a_bits=leaf.a_bits, scheme=leaf.scheme, kernel=leaf.kernel,
-        tp=getattr(leaf, "tp", None), **arrays)
+        tp=getattr(leaf, "tp", None), nonuniform=bool((cb != np.round(cb)).any()),
+        **arrays)
     return shard_weight(qw, tp_rank, tp_size)
 
 

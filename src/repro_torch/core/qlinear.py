@@ -125,7 +125,10 @@ class QuantizedWeight:
     'bs') hold (bits, out, in_pad/4) planes in ``packed`` and no ``plut``.
     ``tp`` is the leaf's tensor-parallel role ('col', 'row' or None) and
     ``tp_shards`` the number of ranks its arrays are cut over (1: whole);
-    ``in_features`` / ``out_features`` stay the whole layer's."""
+    ``in_features`` / ``out_features`` stay the whole layer's.
+    ``nonuniform`` (the port's own field) marks a k-means codebook: its
+    float product table rounds its sums, so ``lut_gemm``'s plain version
+    replays the kernel's order for it."""
     packed: torch.Tensor
     codebook: torch.Tensor
     scales: torch.Tensor
@@ -141,6 +144,7 @@ class QuantizedWeight:
     a_sc: Optional[torch.Tensor] = None
     tp: Optional[str] = None
     tp_shards: int = 1
+    nonuniform: bool = False
 
     @property
     def k_padded(self) -> int:
@@ -255,7 +259,8 @@ def quantize_weight(w: torch.Tensor, policy: QuantPolicy, *,
         packed=packed, codebook=levels, scales=scales, bits=bits,
         in_features=w.shape[0], out_features=w.shape[1], group_size=G,
         a_bits=policy.a_bits, scheme=scheme, kernel=kern,
-        a_levels=a_levels, plut=plut, a_sc=a_sc, tp=tp_role)
+        a_levels=a_levels, plut=plut, a_sc=a_sc, tp=tp_role,
+        nonuniform=policy.nonuniform)
 
 
 def _tp_op(qw: QuantizedWeight) -> tuple[str, tuple]:
@@ -436,7 +441,8 @@ def dense_serve(qw: QuantizedWeight, x: torch.Tensor, *,
                                   qw.packed, table,
                                   qw.scales if G is not None else None,
                                   w_bits=qw.bits, a_bits=a_bits, group_size=G,
-                                  backend=backend, tp=qw.tp)
+                                  float_table=qw.nonuniform, backend=backend,
+                                  tp=qw.tp)
             y = y * a_scale if G is not None else y * qw.scales[None, :] * a_scale
     y = y[:n_rows]
     if bias is not None:

@@ -8,10 +8,10 @@ Weights may be packed under scheme 'a', 'c' or 'd' (the same bytes).
 
 Callers go through ``kernels/registry.py``, which takes the plain version
 for CPU tensors and the kernel (``lut_gemm_cuda``, which launches or
-raises) for CUDA tensors. Per channel the plain version replays the
-kernel's walk (``ref.py::tile_order_lut_gemm``): with a float table
-(k-means levels) the two agree bit for bit, as an integer table's sums
-do in any order.
+raises) for CUDA tensors. With a float table (k-means levels) the plain
+version replays the kernel's walk per channel
+(``ref.py::tile_order_lut_gemm``), so the two agree bit for bit, as an
+integer table's sums do in any order.
 
 ``dense_partition`` is the one place that chooses how this kernel and
 ``dequant_matmul``'s (``csrc/dense_common.cuh``) cut a call: MT rows x NT
@@ -174,18 +174,17 @@ def dense_active_clusters(op: str, M: int, N: int, K: int, w_bits: int, a_bits: 
 
 def lut_gemm_plain(a_packed, w_packed, lut_table, w_scales=None, *,
                    w_bits: int, a_bits: int, group_size=None, ranks=None,
-                   cols=None) -> torch.Tensor:
-    """The plain PyTorch version (any device). Per channel it sums in the
-    kernel's walk order on the kernel's tiling (``ranks`` and ``cols`` as
-    the kernel takes them; ``ref.py::tile_order_lut_gemm``), so the two
-    agree bit for bit for any f32 table: a float one (k-means levels) too,
-    whose sums round in that order. An integer table (every uniform
-    codebook's) sums exactly in any order, so on the CPU, where the check
-    costs no device sync, it takes ``ref_lut_gemm``'s fewer, larger ops
-    for the same bits. Grouped, the kernel scales each partial in a fused
-    multiply-add; that path is ``ref_lut_gemm``, held to a tolerance."""
-    if w_scales is not None or (lut_table.device.type == "cpu"
-                                and bool((lut_table == lut_table.round()).all())):
+                   cols=None, float_table: bool = False) -> torch.Tensor:
+    """The plain PyTorch version (any device). An integer table (every
+    uniform codebook's) sums exactly in any order: ``ref_lut_gemm``.
+    ``float_table`` (a k-means leaf's table, ``QuantizedWeight.nonuniform``)
+    rounds its sums, so then it sums per channel in the kernel's walk order
+    on the kernel's tiling (``ranks`` and ``cols`` as the kernel takes
+    them; ``ref.py::tile_order_lut_gemm``), and the two agree bit for bit.
+    Grouped, the kernel scales each partial in a fused multiply-add; that
+    path is ``ref_lut_gemm``, held to a tolerance (a k-means leaf has no
+    groups)."""
+    if not float_table or w_scales is not None:
         return ref_lut_gemm(a_packed, w_packed, ProductLUT(lut_table, w_bits, a_bits),
                             w_scales=w_scales, group_size=group_size)
     M, N = a_packed.shape[-2], w_packed.shape[-2]
@@ -232,10 +231,11 @@ def _check(a_packed, w_packed, lut_table, w_scales, w_bits, a_bits,
 
 def lut_gemm_cuda(a_packed, w_packed, lut_table, w_scales=None, *,
                   w_bits: int, a_bits: int, group_size=None, ranks=None,
-                  cols=None) -> torch.Tensor:
+                  cols=None, float_table: bool = False) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (CUDA tensors only), on
     the tiling of ``dense_partition`` (``ranks`` and ``cols`` passed on: the
-    sweep of ``bs_sweep.py`` and the tests)."""
+    sweep of ``bs_sweep.py`` and the tests). ``float_table`` tells the plain
+    version how to sum; the kernel walks any table alike."""
     M, N, K = _check(a_packed, w_packed, lut_table, w_scales, w_bits, a_bits,
                      group_size)
     out = torch.empty((M, N), dtype=torch.float32, device=a_packed.device)

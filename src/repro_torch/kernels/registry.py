@@ -158,29 +158,39 @@ def tp_split(name: str, role: str, static: dict, shapes: tuple,
 
 
 @contextlib.contextmanager
+def watched(names, on_call):
+    """While active, every call the registry sends to the kernel of an op
+    in ``names`` runs as before and is then passed to ``on_call(op, arrays,
+    static, out)``: the operands a served step gives a kernel, without
+    rebuilding them."""
+    saved = {name: get(name) for name in names}
+
+    def watching(op):
+        def kernel(*arrays, **static):
+            out = op.kernel(*arrays, **static)
+            on_call(op, arrays, static, out)
+            return out
+        return kernel
+
+    for name, op in saved.items():
+        _REGISTRY[name] = dataclasses.replace(op, kernel=watching(op))
+    try:
+        yield
+    finally:
+        _REGISTRY.update(saved)
+
+
 def checked_against_plain(names, errs: list):
     """While active, every call the registry sends to the kernel of an op
     in ``names`` is also run through the op's plain version on the same
     inputs (no launch), and max|kernel - plain| / max|plain| of each call
     is appended to ``errs``: how ``chip_smoke.py`` and the card's tests hold
     a kernel against its plain version inside a served step."""
-    saved = {name: get(name) for name in names}
-
-    def checking(op):
-        def kernel(*arrays, **static):
-            out = op.kernel(*arrays, **static)
-            want = op.plain(*arrays, **static)
-            den = want.abs().max().clamp_min(torch.finfo(torch.float32).tiny)
-            errs.append(((out - want).abs().max() / den).item())
-            return out
-        return kernel
-
-    for name, op in saved.items():
-        _REGISTRY[name] = dataclasses.replace(op, kernel=checking(op))
-    try:
-        yield
-    finally:
-        _REGISTRY.update(saved)
+    def check(op, arrays, static, out):
+        want = op.plain(*arrays, **static)
+        den = want.abs().max().clamp_min(torch.finfo(torch.float32).tiny)
+        errs.append(((out - want).abs().max() / den).item())
+    return watched(names, check)
 
 
 # TP rules: the reference's (kernels/registry.py:175-274 there), over the

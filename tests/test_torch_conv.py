@@ -90,6 +90,7 @@ def test_conv2d_serve_matches_reference(w_bits, a_bits, nonuniform):
     jq = jqlinear.quantize_weight(jp["w"], jqlinear.QuantPolicy(**pol))
     carried = bridge.qweight_from_jax(jax.tree.map(np.asarray, jq), device="cpu")
     mine = qlinear.quantize_weight(tp["w"], qlinear.QuantPolicy(**pol))
+    assert carried.nonuniform == mine.nonuniform == nonuniform
     x = _x(2, (2, 7, 5, 5))
     want = np.asarray(jconv.conv2d_serve(jq, jnp.asarray(x), 3, 3, a_bits=a_bits,
                                          backend="ref"))

@@ -269,7 +269,8 @@ def _scalar_lut_order(a_idx, w_idx, table, w_bits, a_bits, ranks, kpr):
 def test_lut_gemm_plain_equals_scalar_emulation_of_the_kernel(M, K, N, w_bits, a_bits,
                                                               ranks, cols):
     """A float product table (k-means-like levels) per channel: the plain
-    version sums in the kernel's order, bit for bit."""
+    version sums in the kernel's order, bit for bit; an integer table gives
+    the same bits by either route."""
     from repro_torch.core.lut import product_lut
     from repro_torch.kernels.lut_gemm import lut_gemm_plain
     g = torch.Generator().manual_seed(M * K + N)
@@ -278,10 +279,16 @@ def test_lut_gemm_plain_equals_scalar_emulation_of_the_kernel(M, K, N, w_bits, a
     table = product_lut(torch.randn(2 ** w_bits, generator=g),
                         quant.uniform_codebook(a_bits).levels).table
     _, _, C, kpr = dense_partition(M, N, K, w_bits, a_bits, None, ranks=ranks, cols=cols)
-    got = lut_gemm_plain(packing.pack(a, a_bits), packing.pack(w, w_bits), table,
-                         w_bits=w_bits, a_bits=a_bits, ranks=ranks, cols=cols)
+    ap, wp = packing.pack(a, a_bits), packing.pack(w, w_bits)
+    got = lut_gemm_plain(ap, wp, table, w_bits=w_bits, a_bits=a_bits, ranks=ranks,
+                         cols=cols, float_table=True)
     want = _scalar_lut_order(a, w, table, w_bits, a_bits, C, kpr)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+    ints = product_lut(quant.uniform_codebook(w_bits).levels,
+                       quant.uniform_codebook(a_bits).levels).table
+    kw = dict(w_bits=w_bits, a_bits=a_bits, ranks=ranks, cols=cols)
+    np.testing.assert_array_equal(lut_gemm_plain(ap, wp, ints, **kw).numpy(),
+                                  lut_gemm_plain(ap, wp, ints, float_table=True, **kw).numpy())
 
 
 _TILE_CASES = [(M, K, N, b, g, dt, r)

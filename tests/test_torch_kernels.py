@@ -194,6 +194,37 @@ def test_registry_dispatch_backends_and_counter():
         registry.dispatch("lut65k_gemm", *t)
 
 
+def test_watched_sees_each_kernel_call_and_checks_it_against_plain(monkeypatch):
+    """``watched`` hands on_call the operands and output of each call the
+    registry sends to a kernel (a stand-in kernel on CPU tensors here, one
+    row off its plain version), and ``checked_against_plain`` built on it
+    records that call's max|kernel - plain| / max|plain|; both restore the
+    op on exit."""
+    ap, wp, lut, _ = _lut_operands(5, 4, 64, 16, 2, 2)
+    t = [torch.from_numpy(x) for x in (ap, wp, lut)]
+
+    def kernel(*arrays, **static):
+        out = lut_gemm_plain(*arrays, **static)
+        out[0] += 1.0
+        return out
+
+    op = registry.get("lut_gemm")
+    monkeypatch.setitem(registry._REGISTRY, "lut_gemm",
+                        registry.KernelOp("lut_gemm", plain=op.plain, kernel=kernel))
+    calls, errs = [], []
+    with registry.watched(("lut_gemm",), lambda o, arrays, static, y:
+                          calls.append((arrays, static, y))):
+        y = registry.dispatch("lut_gemm", *t, None, w_bits=2, a_bits=2, backend="cuda")
+    (arrays, static, seen), = calls
+    assert arrays[0] is t[0] and arrays[3] is None and seen is y
+    assert static == dict(w_bits=2, a_bits=2)
+    with registry.checked_against_plain(("lut_gemm",), errs):
+        registry.dispatch("lut_gemm", *t, None, w_bits=2, a_bits=2, backend="cuda")
+    want = lut_gemm_plain(*t, w_bits=2, a_bits=2)
+    assert errs == [pytest.approx(1.0 / want.abs().max().item())]
+    assert registry.get("lut_gemm").kernel is kernel
+
+
 @pytest.mark.parametrize("plan", ["w2a2", "w2a2g64", "w4a8", "w2a16",
                                   "w2a16g128", "w4a16", "w2a8_bs",
                                   "w2a8_bs_g64", "w4a8_bs"])
@@ -216,9 +247,9 @@ def test_serving_operands_pass_the_kernel_checks(monkeypatch, plan, dtype):
         return fn
 
     monkeypatch.setitem(registry._REGISTRY, "lut_gemm", registry.KernelOp(
-        "lut_gemm", plain=spy(lambda ap, wp, t, sc, *, w_bits, a_bits,
-                              group_size: lg._check(ap, wp, t, sc, w_bits, a_bits,
-                                                    group_size),
+        "lut_gemm", plain=spy(lambda ap, wp, t, sc, *, w_bits, a_bits, group_size,
+                              float_table: lg._check(ap, wp, t, sc, w_bits, a_bits,
+                                                     group_size),
                               lut_gemm_plain), kernel=None))
     monkeypatch.setitem(registry._REGISTRY, "dequant_matmul", registry.KernelOp(
         "dequant_matmul", plain=spy(lambda a, wp, cb, sc, *, bits, group_size:

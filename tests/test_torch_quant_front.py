@@ -113,6 +113,7 @@ def test_kmeans_leaves_serve_like_the_reference(plan_kw):
     x = np.random.default_rng(5).standard_normal((13, w.shape[0])).astype(np.float32)
     want = _np(jqlinear.dense_serve(jq, jnp.asarray(x), backend="ref"))
     carried = bridge.qweight_from_jax(jax.tree.map(np.asarray, jq), device="cpu")
+    assert tq.nonuniform and carried.nonuniform
     got = qlinear.dense_serve(carried, torch.from_numpy(x), backend="ref").numpy()
     assert np.abs(got - want).max() <= SERVE_REL * np.abs(want).max()
     mine = qlinear.dense_serve(tq, torch.from_numpy(x), backend="ref").numpy()

@@ -80,7 +80,8 @@ def test_lut_gemm_float_table(cuda, M):
     ap = packing.pack(a, 2)
     got = LG.lut_gemm_cuda(ap, qw.packed, qw.plut, None, w_bits=2, a_bits=2)
     torch.cuda.synchronize()
-    want = LG.lut_gemm_plain(ap, qw.packed, qw.plut, None, w_bits=2, a_bits=2)
+    want = LG.lut_gemm_plain(ap, qw.packed, qw.plut, None, w_bits=2, a_bits=2,
+                             float_table=qw.nonuniform)
     assert torch.equal(got, want)
 
 

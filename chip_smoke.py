@@ -85,7 +85,18 @@ Phases, each printing its lines:
               at once, C 1-8, against the table `cluster_ranks` reads
               (kernels/paged_attention.py::WIDE_RESIDENT);
               kv_cache_attention at both heads over a wrapped ring (W
-              1024, and 4096 for danube) and a filling one, bit for bit
+              1024, and 4096 for danube) and a filling one, bit for bit.
+              Then the recurrent slice's shapes: lut_gemm (w2a2) and
+              lut_gemm_bs_fused (w2a8_bs) at recurrentgemma-9b's
+              projections (4096x4096, 4096x256, 4096x12288, 12288x4096),
+              dequant_matmul (w2a16) and lut_gemm (w2a2) at rwkv6-1.6b's
+              (2048x2048, 2048x7168, 7168x2048), M 1, 4, 32, each
+              bit-identical to its plain version; paged_attention at
+              recurrentgemma's head (KV 1, G 16, hd 256; one launch a
+              layer), window 2048, B 4, 8k and 32k of context, with SDPA
+              over the window's rows and the window's byte bound; and
+              kv_cache_attention at that head over its ring of 2048 rows,
+              full and filling, bit for bit
   5 engine    qwen1.5-0.5b at full width with seeded random weights, packed
               under w2a2, w2a16 and w2a8_bs in turn, serving 12 requests
               through the paged engine via repro_torch.launch.serve; launch
@@ -284,6 +295,45 @@ Phases, each printing its lines:
               lut_gemm leaf, the plain re-run bit for bit); --plan w2a8_bs
               --a-scale static (no a_sc, the dynamic run's bits); --plan
               legacy (no launch of rows 1-4)
+  19 rgemma   recurrentgemma-9b at full width and depth (38 layers: 12 x
+              (RG-LRU, RG-LRU, local MQA of window 2048) + 2 RG-LRU; 16
+              query heads over one KV head of hd 256, so rows 5 and 9 run
+              at G 16; GeGLU d_ff 12288, vocab 256000 tied, int8 pool)
+              under w2a2, then w2a8_bs: phase 5's 12 requests through the
+              paged engine (launches exact: the plan's GEMM 26 x 6 + 12 x
+              7 = 240 per forward, paged_attention 12 per decode step, the
+              others 0; every attention call of the first decode step
+              within TOL_ATTN of its plain version); re-runs cut to the
+              first 4 requests and 8 tokens with the GEMMs on their plain
+              versions (tokens and first-step logits identical) and with
+              attention on its plain version (logits within TOL_LOGITS);
+              under w2a2 a profile splitting a step's device time into the
+              dense GEMM kernels, the attention kernels and the rest (the
+              RG-LRU's ATen ops among them); the peak device memory. Under
+              w2a2 the
+              fixed loop with 2 prompts of 2560 tokens (the local rings of
+              2048 rows wrap; the RG-LRU states carried across the
+              prefill), 16 generated, launches exact (kv_cache_attention
+              12 x 15), the first step's kv_cache_attention calls identical
+              to their plain version; the same prompts' prefill once more
+              with the first lut_gemm call at each of the model's four
+              (K, N) (M 5120, the long prefill's tiling) identical to its
+              plain version; then a kernel run, a plain-GEMM run
+              and an attention-plain run at 2 x RECURRENT_PLAIN_P (32)
+              tokens and 8 generated, identical tokens and first-step
+              logits
+  20 rwkv6    rwkv6-1.6b at full width and depth (24 RWKV6 layers of 32
+              heads of 64, d_ff 7168, vocab 65536 untied, layernorm, no
+              attention) under w2a16, then w2a2, the same way: launches
+              exact (the GEMM 24 x 8 = 192 per forward, no attention
+              launch), the plain-GEMM re-run of the cut identical, the
+              profile under w2a16; the engine's 32-row prefill chunks take
+              wkv_scan, the fixed
+              loop's 4 prompts of 128 tokens (w2a16) wkv_chunked, their
+              prefill's first dequant_matmul call at each (K, N) identical
+              to its plain version (M 512); the
+              engine's peak device memory at max_len 2048 and 16384
+              (equal: no pool, an O(1) state)
 Each phase prints when it starts, and the run prints every phase's seconds
 at its end.
 
@@ -297,6 +347,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import os
 import json
@@ -389,6 +440,12 @@ KV_CACHE_ROWS += (
     ("gemma3 global 8k", 2, 8, 2, 256, 8, 8208, (8193, 8193), "bf16"),
     ("danube ring W 1024", 4, 8, 4, 120, 8, 1024, (1024, 1024, 1024, 1024), "bf16"),
     ("danube ring W 4096", 2, 8, 4, 120, 8, 4096, (4096, 4096), "bf16"),
+    # the recurrent slice: row 9 at recurrentgemma-9b's head (KV 1, G 16, hd
+    # 256) over its local layers' ring of 2048 rows, full (any context from
+    # 2048 on: 8k, 32k) and filling
+    ("rgemma ring W 2048", 4, 1, 16, 256, 8, 2048, (2048, 2048, 2048, 2048), "bf16"),
+    ("rgemma ring W 2048, filling", 4, 1, 16, 256, 8, 2048, (2048, 1100, 2048, 9),
+     "bf16"),
 )
 # rows 1-3 at the local models' projection shapes (K, N): gemma3-12b's (wq,
 # wk/wv, wo, w_gate/w_up, w_down) under w2a2 (lut_gemm) and w2a8_bs
@@ -398,6 +455,19 @@ GEMMA3_SHAPES = ((3840, 4096), (3840, 2048), (4096, 3840), (3840, 15360),
                  (15360, 3840))
 DANUBE_SHAPES = ((3840, 3840), (3840, 960), (3840, 10240), (10240, 3840))
 LOCAL_ROWS = (1, 4, 32, 128)
+LOCAL_GEMM_RUNS = (("gemma3", GEMMA3_SHAPES, ("lut_gemm", "lut_gemm_bs_fused")),
+                   ("danube", DANUBE_SHAPES, ("dequant_matmul",)))
+# the recurrent slice: rows 1-3 at recurrentgemma-9b's projections (w_rnn_*
+# and wq/wo 4096x4096, wk/wv 4096x256, w_gate/w_up 4096x12288, w_down
+# 12288x4096) under w2a2 and w2a8_bs, and rwkv6-1.6b's (the time mix
+# 2048x2048, wc_k 2048x7168, wc_v 7168x2048) under w2a16 and w2a2, at the
+# engine's decode and chunk rows
+RECURRENT_GEMM_RUNS = (
+    ("rgemma", ((4096, 4096), (4096, 256), (4096, 12288), (12288, 4096)),
+     ("lut_gemm", "lut_gemm_bs_fused")),
+    ("rwkv6", ((2048, 2048), (2048, 7168), (7168, 2048)),
+     ("dequant_matmul", "lut_gemm")))
+RECURRENT_ROWS = (1, 4, 32)
 # rows 5 and 6 at those heads, int8: B 2 and 4 at every length, with no
 # window and windows 1024 and 4096 (the single pass; the split at 8k with
 # kv_splits 8 and at 32k with 24, what --kv-splits auto gives gemma3's
@@ -421,6 +491,33 @@ LOCAL_ATTN_EDGES = (
     ("chunks below lo", "gemma3", 2, 512, (32768, 20000), 1024, 24),
     ("ranks past a length", "danube", 2, 16, (5000, 90), 4096, 1),
 )
+# row 5 at recurrentgemma-9b's head (KV 1, G 16, hd 256; one launch a
+# layer), window 2048, B 4 at 8k and 32k of context (the single pass only:
+# --kv-splits is refused for a recurrent arch)
+RG_HEAD = {"rgemma": (1, 16, 256)}
+RG_CONTEXTS = (8192, 32768)
+RG_WINDOW = 2048
+# phases 19 and 20: the recurrent models at full width and depth: (tag,
+# arch, the engine's plans, the fixed loop's plan, batch and prompt).
+# recurrentgemma's fixed prompts pass the window (2048) and are a multiple
+# of 512, so the RG-LRU state is carried across a long prefill; rwkv6's
+# 128 rows are a multiple of 64, so its prefill takes wkv_chunked (the
+# engine's 32-row chunks take wkv_scan)
+RECURRENT_MODELS = (("19 rgemma", "recurrentgemma-9b", ("w2a2", "w2a8_bs"), "w2a2", 2, 2560),
+                    ("20 rwkv6", "rwkv6-1.6b", ("w2a16", "w2a2"), "w2a16", 4, 128))
+# the fixed loop's plain-GEMM pair (kernel and plain GEMMs on the same
+# prompts, cut to PLAIN_CUT_GEN tokens) at this prompt length: the plain
+# lut_gemm at recurrentgemma's 2 x 2560 prefill rows would take minutes
+# (at 2 x 128 its prefill alone took 29.4 s on an NVIDIA H100 80GB HBM3,
+# 700 W)
+RECURRENT_PLAIN_P = 32
+# rwkv6's engine at these max_len: no pool, so the same peak memory
+RWKV_MEM_LENS = (2048, 16384)
+# the GEMM launches of one forward, by layer type: a recurrent layer's
+# w_rnn_in, w_rnn_gate, w_rnn_out and its MLP's three; an attention
+# layer's four and three; an rwkv layer's five time-mix and three
+# channel-mix projections
+GEMMS_PER_LAYER = {"recurrent": 6, "local": 7, "global": 7, "rwkv": 8}
 # phases 15 and 16: the local models at full width and depth, int8 pool;
 # (arch, plans, the fixed loop's batch and prompt: past the window, its
 # length a multiple of 512 so the cacheless prefill takes 512-row chunks)
@@ -1232,12 +1329,56 @@ def run_engine(torch, serve, cfg, qparams, args, capture: dict, requests=None,
     return res
 
 
+def plain_gemms(c):
+    """``c`` with its plan's GEMMs on their plain versions (backend "ref")."""
+    return dataclasses.replace(c, quant=dataclasses.replace(c.quant, backend="ref"))
+
+
+def reset_counts(wrappers: dict) -> None:
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def launch_counts(wrappers: dict) -> dict:
+    return {name: w.launches for name, w in wrappers.items()}
+
+
+def forwards(res: dict) -> int:
+    """An engine run's forwards: its decode steps and prefill chunks."""
+    return res["metrics"]["decode_steps"] + res["metrics"]["prefill_chunks"]
+
+
+def counted_engine_run(torch, serve, wrappers: dict, qparams, head: str, smi: str,
+                       label: str, c, run_args, requests=None, check_first=None,
+                       **kw) -> dict:
+    """One engine run (``run_engine``; ``check_first`` as there) with the
+    launch counts of ``wrappers`` set to 0 just before and read just after,
+    kept with its first decode step's logits; prints a line headed
+    ``head``."""
+    cap: dict = {}
+    reset_counts(wrappers)
+    r = run_engine(torch, serve, c, qparams, run_args, cap, requests=requests,
+                   check_first=check_first, **kw)
+    r["launches"] = launch_counts(wrappers)
+    r["first_logits"] = cap["first_logits"]
+    m = r["metrics"]
+    print(f"{head} {label}: {len(r['requests'])} requests, {r['tokens']} tokens, "
+          f"{r['tok_per_s']:.1f} tok/s, decode-only step {r['decode_step_ms']:.3f} ms "
+          f"on {smi} | launches {r['launches']} over {forwards(r)} forwards, "
+          f"{m['decode_steps']} decode steps | {r['seconds']:.1f}s", flush=True)
+    return r
+
+
 def profile_steps(torch, step, steps: int, label: str) -> dict:
     """torch.profiler over ``steps`` calls of ``step``: wall and device-busy
     time per step (the idle share), kernels per step, device ms per step by
-    kernel name, and the top host ops."""
+    kernel name, the device ms of the kernels launched inside the recurrent
+    blocks' ``record_function`` ranges (``recurrent.RECURRENCE_RANGES``),
+    and the top host ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.recurrent import RECURRENCE_RANGES
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1246,8 +1387,17 @@ def profile_steps(torch, step, steps: int, label: str) -> dict:
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the device timeline's kernels and copies; a record_function range's
+    # own span on it (a user annotation) is no device work
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)
+           and e.name not in RECURRENCE_RANGES]
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / steps
+    # a range's host event sums the kernels launched inside it (its ops'
+    # and their children's)
+    rec_ms = {r: sum(getattr(e, "device_time_total", 0.0) for e in prof.events()
+                     if e.device_type == DeviceType.CPU and e.name == r) / 1e3 / steps
+              for r in RECURRENCE_RANGES}
     by_dev: dict = {}
     for e in dev:
         by_dev[e.name] = by_dev.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -1262,11 +1412,21 @@ def profile_steps(torch, step, steps: int, label: str) -> dict:
     attn_ms = {k: fam_ms[k] for k in ("paged_attn_", "merge_kernel",
                                       "kv_cache_attn_kernel")}
     expert_ms = fam_ms["expert_dequant_kernel"] + fam_ms["expert_lut_kernel"]
+    # the dense GEMM kernels (rows 1-4), and everything that is none of the
+    # port's kernels: ATen's elementwise, reduction and copy kernels (the
+    # RG-LRU and WKV recurrences, norms, activation quantizers, the head)
+    gemm_ms = sum(us for n, us in by_dev.items() if any(
+        k in n for k in ("lut_gemm_kernel", "dequant_matmul_kernel", "bs_fused_kernel",
+                         "bs_two_step_kernel"))) / 1e3 / steps
+    other_ms = busy_ms - gemm_ms - sum(attn_ms.values()) - expert_ms
     out = {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
            "idle_share": 1.0 - busy_ms / wall_ms,
            "kernels_per_step": len(dev) / steps,
            "attention_device_ms_per_step": attn_ms,
            "expert_device_ms_per_step": expert_ms,
+           "gemm_device_ms_per_step": gemm_ms,
+           "other_device_ms_per_step": other_ms,
+           "recurrence_device_ms_per_step": rec_ms,
            "top_device_ms_per_step": [(n[:60], us / 1e3 / steps) for n, us in top_dev],
            "top_host_self_ms_per_step": [(a.key[:60], a.self_cpu_time_total / 1e3 / steps)
                                          for a in top_cpu]}
@@ -1276,7 +1436,9 @@ def profile_steps(torch, step, steps: int, label: str) -> dict:
           f"{attn_ms['paged_attn_']:.3f} ms/step (+ merge "
           f"{attn_ms['merge_kernel']:.3f}; dense-cache "
           f"{attn_ms['kv_cache_attn_kernel']:.3f}), expert kernels "
-          f"{expert_ms:.3f} ms/step", flush=True)
+          f"{expert_ms:.3f}, dense GEMM kernels {gemm_ms:.3f}, other (ATen) "
+          f"{other_ms:.3f} ms/step, of which in the recurrences' ranges "
+          f"{sum(rec_ms.values()):.3f}", flush=True)
     print("  top device: " + "; ".join(f"{n} {ms:.3f}ms" for n, ms in
                                        out["top_device_ms_per_step"]), flush=True)
     print("  top host (self): " + "; ".join(f"{n} {ms:.3f}ms" for n, ms in
@@ -1346,6 +1508,23 @@ def checked_attention_calls(errs: list, ops: tuple = ATTN_OPS):
     is appended to ``errs``."""
     from repro_torch.kernels import registry
     return registry.checked_against_plain(ops, errs)
+
+
+def checked_first_calls(op: str, errs: dict):
+    """While active, the first call the registry sends to ``op``'s kernel
+    at each packed weight shape is also run through the op's plain version
+    on the same inputs (no launch): errs[weight shape] = (M, max|kernel -
+    plain| / max|plain|). The other calls run as before."""
+    from repro_torch.kernels import registry
+
+    def check(o, arrays, static, out):
+        key = tuple(arrays[1].shape)
+        if key not in errs:
+            want = o.plain(*arrays, **static)
+            den = want.abs().max().item()
+            err = (out - want).abs().max().item()
+            errs[key] = (arrays[0].shape[0], err / den if den else err)
+    return registry.watched((op,), check)
 
 
 def fixed_run(torch, serve, cfg, qparams, args, attn_backend: str = "auto",
@@ -1516,9 +1695,6 @@ def phase_features(torch, serve, wrappers: dict, gemms: dict, smi: str,
     prompts = [np.concatenate([prefix, r.prompt])
                for r in serve.make_requests(cfg, parse(FEAT_ARGS))]
     n = cfg.n_layers
-
-    def plain_gemms(c):
-        return dataclasses.replace(c, quant=dataclasses.replace(c.quant, backend="ref"))
 
     # a w2a2 drafter of the target's weights, or the target itself
     drafters = {"w2a2": (dcfg, dparams), "self": (cfg, qparams)}
@@ -1724,10 +1900,12 @@ def phase_tracer(torch, run, same, args, baseline, out: dict, smi: str) -> dict:
     return {"latency": lat, "phases": ph}
 
 
-def phase_local_gemms(torch, dev):
-    """Rows 1-3 at the local models' projection shapes (GEMMA3_SHAPES,
-    DANUBE_SHAPES) and M in LOCAL_ROWS, each bit-identical to its plain
-    version, with its tiling, library and bound times."""
+def phase_model_gemms(torch, dev, runs, m_rows) -> dict:
+    """Rows 1-3 at a model's projection shapes: for each (label, (K, N)
+    shapes, ops) of ``runs`` and M in ``m_rows``, ``lut_gemm`` (w2a2),
+    ``lut_gemm_bs_fused`` (w2a8_bs) and ``dequant_matmul`` (w2a16) where
+    ``ops`` names them, each bit-identical to its plain version, with its
+    tiling, library and bound times."""
     from repro_torch.core import packing, quant
     from repro_torch.core.lut import product_lut
     from repro_torch.kernels.lut_dequant_matmul import (dequant_matmul_cuda,
@@ -1762,44 +1940,44 @@ def phase_local_gemms(torch, dev):
             fail(f"{name} {cfg} M={M} K={K} N={N} is not bit-identical to its "
                  f"plain version: max_abs_err={err}")
 
-    for K, N in GEMMA3_SHAPES:
-        w2 = codes((N, K), 2)
-        wp, planes = packing.pack(w2, 2), packing.pack_bitplanes_signed(w2, 2)
-        sc = torch.rand((N,), generator=gen, device=dev) * 0.02 + 0.01
-        lut = product_lut(quant.uniform_codebook(2, device=dev),
-                          quant.uniform_codebook(2, device=dev)).table
-        w_lut = quant.uniform_codebook(2, device=dev).levels[w2.long()].to(torch.bfloat16)
-        w_bs = ((w2.float() - 2) * sc[:, None]).to(torch.bfloat16)
-        for M in LOCAL_ROWS:
-            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
-            ap = packing.pack(codes((M, K), 2), 2)
-            kw = dict(w_bits=2, a_bits=2, group_size=None)
-            check("lut_gemm", "w2a2 gemma3", M, K, N,
-                  lambda: lut_gemm_cuda(ap, wp, lut, None, **kw),
-                  lambda: lut_gemm_plain(ap, wp, lut, None, **kw),
-                  lambda: torch.matmul(x, w_lut.T), nbytes(ap, wp, lut), INT8_TC_OPS,
-                  dense_tiling("lut_gemm", M, N, K, 2, 2, None))
-            kb = dict(w_bits=2, a_bits=8, group_size=None)
-            check("lut_gemm_bs_fused", "w2a8_bs gemma3", M, K, N,
-                  lambda: lut_gemm_bs_fused_cuda(x, planes, sc, None, **kb),
-                  lambda: lut_gemm_bs_fused_plain(x, planes, sc, None, **kb),
-                  lambda: torch.matmul(x, w_bs.T), nbytes(x, planes, sc), INT8_TC_OPS,
-                  bs_tiling("lut_gemm_bs_fused", M, N, K, 2, None))
-        del w2, wp, planes, w_lut, w_bs
-    for K, N in DANUBE_SHAPES:
-        w2 = codes((N, K), 2)
-        wp = packing.pack(w2, 2)
-        cb = quant.uniform_codebook(2, device=dev).levels
-        sc = torch.rand((N,), generator=gen, device=dev) * 0.1 + 0.01
-        w_deq = (cb[w2.long()] * sc[:, None]).to(torch.bfloat16)
-        for M in LOCAL_ROWS:
-            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
-            check("dequant_matmul", "w2a16 danube", M, K, N,
-                  lambda: dequant_matmul_cuda(x, wp, cb, sc, bits=2, group_size=None),
-                  lambda: dequant_matmul_plain(x, wp, cb, sc, bits=2, group_size=None),
-                  lambda: torch.matmul(x, w_deq.T), nbytes(x, wp, cb, sc), BF16_TC_FLOPS,
-                  dense_tiling("dequant_matmul", M, N, K, 2, 16, None))
-        del w2, wp, w_deq
+    for label, shapes, ops in runs:
+        for K, N in shapes:
+            w2 = codes((N, K), 2)
+            wp = packing.pack(w2, 2)
+            cb = quant.uniform_codebook(2, device=dev).levels
+            sc = torch.rand((N,), generator=gen, device=dev) * 0.02 + 0.01
+            lut = product_lut(quant.uniform_codebook(2, device=dev),
+                              quant.uniform_codebook(2, device=dev)).table
+            planes = packing.pack_bitplanes_signed(w2, 2)
+            w_lut = cb[w2.long()].to(torch.bfloat16)
+            w_scaled = (cb[w2.long()] * sc[:, None]).to(torch.bfloat16)
+            for M in m_rows:
+                x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+                if "lut_gemm" in ops:
+                    ap = packing.pack(codes((M, K), 2), 2)
+                    kw = dict(w_bits=2, a_bits=2, group_size=None)
+                    check("lut_gemm", f"w2a2 {label}", M, K, N,
+                          lambda: lut_gemm_cuda(ap, wp, lut, None, **kw),
+                          lambda: lut_gemm_plain(ap, wp, lut, None, **kw),
+                          lambda: torch.matmul(x, w_lut.T), nbytes(ap, wp, lut),
+                          INT8_TC_OPS, dense_tiling("lut_gemm", M, N, K, 2, 2, None))
+                if "lut_gemm_bs_fused" in ops:
+                    kb = dict(w_bits=2, a_bits=8, group_size=None)
+                    check("lut_gemm_bs_fused", f"w2a8_bs {label}", M, K, N,
+                          lambda: lut_gemm_bs_fused_cuda(x, planes, sc, None, **kb),
+                          lambda: lut_gemm_bs_fused_plain(x, planes, sc, None, **kb),
+                          lambda: torch.matmul(x, w_scaled.T), nbytes(x, planes, sc),
+                          INT8_TC_OPS, bs_tiling("lut_gemm_bs_fused", M, N, K, 2, None))
+                if "dequant_matmul" in ops:
+                    check("dequant_matmul", f"w2a16 {label}", M, K, N,
+                          lambda: dequant_matmul_cuda(x, wp, cb, sc, bits=2,
+                                                      group_size=None),
+                          lambda: dequant_matmul_plain(x, wp, cb, sc, bits=2,
+                                                       group_size=None),
+                          lambda: torch.matmul(x, w_scaled.T), nbytes(x, wp, cb, sc),
+                          BF16_TC_FLOPS, dense_tiling("dequant_matmul", M, N, K, 2, 16,
+                                                      None))
+            del w2, wp, planes, w_lut, w_scaled
     return rows
 
 
@@ -1820,11 +1998,15 @@ def window_view(torch, pool, sc, tbl, lens, window, bits):
     return dequant_kv_tile(pool[blk, idx % bs], sc[blk, idx % bs], bits), valid
 
 
-def phase_local_attention(torch, dev):
-    """Rows 5 and 6 at the local models' heads (LOCAL_HEADS, int8), every
-    length, batch and window, and at the window's edges
-    (LOCAL_ATTN_EDGES), each within TOL_ATTN of its plain version; SDPA over
-    the window's rows, and a bound on the window's bytes."""
+def phase_local_attention(torch, dev, head_shapes=LOCAL_HEADS, batches=(2, 4),
+                          contexts=LOCAL_LENGTHS, windows=LOCAL_WINDOWS,
+                          splits=LOCAL_SPLITS, edges=LOCAL_ATTN_EDGES,
+                          check_resident: bool = True):
+    """Rows 5 and 6 at ``head_shapes`` (KV, G, hd; the local models' by
+    default, int8), every context length, batch and window, and at the window's
+    edges (``edges``), each within TOL_ATTN of its plain version; SDPA over
+    the window's rows, and a bound on the window's bytes. ``splits`` gives
+    the lengths that also run the split (row 6) and its kv_splits."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import build
@@ -1834,28 +2016,30 @@ def phase_local_attention(torch, dev):
     # against the table cluster_ranks reads (WIDE_RESIDENT): fewer would put
     # the single passes' clusters in a second wave
     lib = build.library("paged_attention")
-    resident = {C: lib.paged_attention_active_clusters(4, 8, 2, 256, 512, 4 * C, 8, 1,
-                                                       C, 4, 0)
-                for C in range(1, PA.WIDE_MAX_CLUSTER + 1)}
-    print(f"  hd 256 clusters of C ranks resident at once: {resident} (WIDE_RESIDENT "
-          f"{PA.WIDE_RESIDENT})", flush=True)
-    if any(resident[C] < PA.WIDE_RESIDENT[C - 1] for C in resident):
-        fail(f"the card holds fewer hd-256 clusters than WIDE_RESIDENT says: {resident}")
+    for G in (2, 16) if check_resident else ():
+        resident = {C: lib.paged_attention_active_clusters(4, 8, G, 256, 512, 4 * C, 8,
+                                                           1, C, 4, 0)
+                    for C in range(1, PA.WIDE_MAX_CLUSTER + 1)}
+        print(f"  hd 256, G {G}: clusters of C ranks resident at once: {resident} "
+              f"(WIDE_RESIDENT {PA.WIDE_RESIDENT})", flush=True)
+        if any(resident[C] < PA.WIDE_RESIDENT[C - 1] for C in resident):
+            fail(f"the card holds fewer hd-256 G-{G} clusters than WIDE_RESIDENT says: "
+                 f"{resident}")
 
     gen = torch.Generator(device=dev).manual_seed(7)
     rows = {"paged_attention": [], "paged_attention_splitkv": []}
     grid = []
-    for head in LOCAL_HEADS:
-        for B in (2, 4):
-            for n in LOCAL_LENGTHS:
+    for head in head_shapes:
+        for B in batches:
+            for n in contexts:
                 bs = 512 if n >= 8192 else 16
-                for w in LOCAL_WINDOWS:
+                for w in windows:
                     grid.append((f"{head} len {n}", head, B, bs, (n,) * B, w, 1))
-                    if n in LOCAL_SPLITS:
+                    if n in splits:
                         grid.append((f"{head} len {n}", head, B, bs, (n,) * B, w,
-                                     LOCAL_SPLITS[n]))
-    for label, head, B, bs, lengths, window, ks in grid + list(LOCAL_ATTN_EDGES):
-        KV, G, hd = LOCAL_HEADS[head]
+                                     splits[n]))
+    for label, head, B, bs, lengths, window, ks in grid + list(edges):
+        KV, G, hd = head_shapes[head]
         nb = -(-max(lengths) // bs)
         ops = attention_operands(torch, dev, gen, B=B, KV=KV, G=G, hd=hd, bits=8,
                                  bs=bs, lengths=lengths, nb=nb, q_dtype=torch.bfloat16)
@@ -2106,16 +2290,6 @@ def phase_local_model(torch, serve, wrappers: dict, gemms: dict, smi: str,
     parse = serve.build_parser().parse_args
     out: dict = {}
 
-    def reset():
-        for w in wrappers.values():
-            w.launches = 0
-
-    def launches():
-        return {name: w.launches for name, w in wrappers.items()}
-
-    def plain_gemms(c):
-        return dataclasses.replace(c, quant=dataclasses.replace(c.quant, backend="ref"))
-
     for i, plan in enumerate(plans):
         t_plan = time.perf_counter()
         op = plan_op[plan]
@@ -2127,25 +2301,8 @@ def phase_local_model(torch, serve, wrappers: dict, gemms: dict, smi: str,
         what = f"{arch} {plan}"
         res: dict = {}
 
-        def engine_run(label, c, run_args, requests=None, check_first=None, **kw):
-            """One engine run with launch counts reset just before and read just
-            after (``check_first``: run_engine's)."""
-            cap: dict = {}
-            reset()
-            r = run_engine(torch, serve, c, qparams, run_args, cap, requests=requests,
-                           check_first=check_first, **kw)
-            r["launches"] = launches()
-            r["first_logits"] = cap["first_logits"]
-            m = r["metrics"]
-            print(f"[{tag}] {what} {label}: {len(r['requests'])} requests, "
-                  f"{r['tokens']} tokens, {r['tok_per_s']:.1f} tok/s, decode-only step "
-                  f"{r['decode_step_ms']:.3f} ms on {smi} | launches {r['launches']} over "
-                  f"{m['decode_steps'] + m['prefill_chunks']} forwards, "
-                  f"{m['decode_steps']} decode steps | {r['seconds']:.1f}s", flush=True)
-            return r
-
-        def forwards(r):
-            return r["metrics"]["decode_steps"] + r["metrics"]["prefill_chunks"]
+        engine_run = functools.partial(counted_engine_run, torch, serve, wrappers,
+                                       qparams, f"[{tag}] {what}", smi)
 
         # the engine: phase 5's 12 requests, exact launch counts (the
         # attention-plain re-run takes the window-crossing prompts below)
@@ -2319,10 +2476,10 @@ def phase_local_model(torch, serve, wrappers: dict, gemms: dict, smi: str,
             fargs = parse(["--arch", arch, "--plan", plan, "--device", "cuda",
                            "--batch", str(fixed_b), "--prompt-len", str(fixed_p)])
             call_errs = []
-            reset()
+            reset_counts(wrappers)
             fx = fixed_run(torch, serve, cfg, qparams, fargs, call_errs=call_errs)
             gen = fargs.gen
-            expect_launches(f"{what} fixed", launches(),
+            expect_launches(f"{what} fixed", launch_counts(wrappers),
                             {op: 7 * n * gen, "kv_cache_attention": n * (gen - 1)})
             if len(call_errs) != n or max(call_errs) != 0.0:
                 fail(f"{what} fixed: {len(call_errs)} checked kv_cache_attention "
@@ -2351,7 +2508,210 @@ def phase_local_model(torch, serve, wrappers: dict, gemms: dict, smi: str,
             res["ring_planted"] = planted_ring_pair(torch, cfg, qparams, wrappers,
                                                     expect_launches, tag, what, op)
         out[plan] = res
-        del qparams, res_k, cut_k, cut_p
+        del qparams, engine_run, res_k, cut_k, cut_p
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_kernel_rows(torch, dev) -> dict:
+    """Phase 4's rows of the recurrent slice: rows 1-3 at the recurrent
+    models' projections (RECURRENT_GEMM_RUNS), row 5 at recurrentgemma's
+    head (RG_HEAD) with its window at RG_CONTEXTS, B 4."""
+    rows = phase_model_gemms(torch, dev, RECURRENT_GEMM_RUNS, RECURRENT_ROWS)
+    rows.update(phase_local_attention(torch, dev, head_shapes=RG_HEAD, batches=(4,),
+                                      contexts=RG_CONTEXTS, windows=(RG_WINDOW,),
+                                      splits={}, edges=(), check_resident=False))
+    return rows
+
+
+def phase_recurrent_model(torch, serve, wrappers: dict, gemms: dict, smi: str,
+                          expect_launches, tag: str, arch: str, plans: tuple,
+                          fixed_plan: str, fixed_b: int, fixed_p: int) -> dict:
+    """Phases 19 and 20 (see the module docstring): ``arch`` at full width
+    and depth through the engine under each of ``plans``, its fixed loop
+    under ``fixed_plan``; rwkv6's engine memory at RWKV_MEM_LENS."""
+    from repro_torch.serving import Engine
+
+    plan_op = {"w2a2": "lut_gemm", "w2a16": "dequant_matmul",
+               "w2a8_bs": "lut_gemm_bs_fused"}
+    parse = serve.build_parser().parse_args
+    out: dict = {}
+
+    for plan in plans:
+        t_plan = time.perf_counter()
+        op = plan_op[plan]
+        args = parse(["--arch", arch, "--paged", "--plan", plan, "--device", "cuda"])
+        torch.cuda.reset_peak_memory_stats()
+        cfg, qparams = serve.prepare(args)
+        packed_gb = torch.cuda.memory_allocated() / 1e9
+        per_fwd = sum(GEMMS_PER_LAYER[t] for t in cfg.layer_types())
+        n_attn = len(cfg.attention_layers())
+        what = f"{arch} {plan}"
+        res: dict = {}
+
+        engine_run = functools.partial(counted_engine_run, torch, serve, wrappers,
+                                       qparams, f"[{tag}] {what}", smi)
+
+        # the engine: phase 5's 12 requests; the first decode step's
+        # attention calls checked against their plain versions
+        errs: list = []
+        res_k = engine_run("engine, 12 requests", cfg, args, check_first=errs)
+        expect_launches(f"{what} engine", res_k["launches"],
+                        {op: per_fwd * forwards(res_k),
+                         "paged_attention": n_attn * res_k["metrics"]["decode_steps"]})
+        if len(errs) != n_attn or max(errs, default=0.0) > TOL_ATTN:
+            fail(f"{what} engine: {len(errs)} checked attention calls (want {n_attn}), "
+                 f"max rel err {max(errs, default=None)}")
+        # the GEMMs, then the attention, on their plain versions, cut to the
+        # first PLAIN_CUT_REQUESTS requests and PLAIN_CUT_GEN tokens
+        cut = parse(["--arch", arch, "--paged", "--plan", plan, "--device", "cuda",
+                     "--gen", str(PLAIN_CUT_GEN)])
+        cut_k = engine_run(f"cut to {PLAIN_CUT_REQUESTS} requests x {PLAIN_CUT_GEN} "
+                           "tokens", cfg, cut, requests=plain_cut_requests(serve, cfg, args))
+        cut_p = engine_run("the same cut, plain GEMMs", plain_gemms(cfg), cut,
+                           requests=plain_cut_requests(serve, cfg, args))
+        if any(cut_p["launches"][g] for g in gemms):
+            fail(f"{what}: the plain-GEMM run launched a GEMM kernel")
+        same = sum(a.out == b.out for a, b in zip(cut_k["requests"], cut_p["requests"]))
+        rel = rel_diff(cut_k["first_logits"], cut_p["first_logits"])
+        print(f"[{tag}] {what}: plain-GEMM re-run (cut: the first {PLAIN_CUT_REQUESTS} "
+              f"requests, {PLAIN_CUT_GEN} tokens, all {cfg.n_layers} layers): tokens "
+              f"identical for {same}/{PLAIN_CUT_REQUESTS} requests, first decode step "
+              f"logits max rel diff {rel:.3g}", flush=True)
+        if same != PLAIN_CUT_REQUESTS or rel != 0.0:
+            fail(f"{what}: kernel and plain-GEMM paths differ (tokens identical for "
+                 f"{same}/{PLAIN_CUT_REQUESTS} requests, first-step logits by {rel})")
+        res.update(launches=res_k["launches"], tok_per_s=res_k["tok_per_s"],
+                   decode_step_ms=res_k["decode_step_ms"],
+                   first_step_attention_call_max_rel_err=max(errs, default=None),
+                   plain_gemm_tokens_identical=same, plain_gemm_logits_rel_diff=rel,
+                   plain_gemm_decode_step_ms=cut_p["decode_step_ms"])
+        if n_attn:
+            cut_a = engine_run("the same cut, attention plain", cfg, cut,
+                               requests=plain_cut_requests(serve, cfg, args),
+                               attn_backend="ref")
+            if cut_a["launches"]["paged_attention"]:
+                fail(f"{what}: the attention-plain run launched paged_attention")
+            same_a = sum(a.out == b.out for a, b in zip(cut_k["requests"],
+                                                        cut_a["requests"]))
+            rel_a = rel_diff(cut_k["first_logits"], cut_a["first_logits"])
+            print(f"[{tag}] {what}: attention-plain re-run of the cut: tokens identical "
+                  f"for {same_a}/{PLAIN_CUT_REQUESTS}, first decode step logits max rel "
+                  f"diff {rel_a:.3g}", flush=True)
+            if rel_a > TOL_LOGITS:
+                fail(f"{what}: attention kernel and plain first-step logits differ by "
+                     f"{rel_a} > {TOL_LOGITS}")
+            res.update(attn_plain_tokens_identical=same_a, attn_plain_logits_rel_diff=rel_a)
+            del cut_a
+        if plan == plans[0]:
+            prof = phase_profile(torch, serve, cfg, qparams, args,
+                                 f"[{tag} profile] {what}")
+            res["profile"] = prof
+            rec = sum(prof["recurrence_device_ms_per_step"].values())
+            print(f"[{tag}] {what}: a profiled step's device ms: dense GEMM kernels "
+                  f"{prof['gemm_device_ms_per_step']:.3f}, attention kernels "
+                  f"{sum(prof['attention_device_ms_per_step'].values()):.3f}, the "
+                  f"recurrences' ATen ops {rec:.3f} "
+                  f"({prof['recurrence_device_ms_per_step']}), the rest (norms, "
+                  f"quantizers, head) {prof['other_device_ms_per_step'] - rec:.3f} of "
+                  f"{prof['device_busy_ms_per_step']:.3f} busy", flush=True)
+        if plan == fixed_plan:
+            # the fixed loop at fixed_b x fixed_p: every state carried from the
+            # prefill; the first decode step's kv_cache_attention calls bit
+            # for bit against their plain version (the replay)
+            fargs = parse(["--arch", arch, "--plan", plan, "--device", "cuda",
+                           "--batch", str(fixed_b), "--prompt-len", str(fixed_p)])
+            call_errs: list = []
+            reset_counts(wrappers)
+            fx = fixed_run(torch, serve, cfg, qparams, fargs, call_errs=call_errs)
+            gen = fargs.gen
+            expect_launches(f"{what} fixed", launch_counts(wrappers),
+                            {op: per_fwd * gen, "kv_cache_attention": n_attn * (gen - 1)})
+            if len(call_errs) != n_attn or max(call_errs, default=0.0) != 0.0:
+                fail(f"{what} fixed: {len(call_errs)} checked kv_cache_attention calls "
+                     f"(want {n_attn}), max rel err {max(call_errs, default=None)} "
+                     "(want 0)")
+            # the same prompts' prefill once more, the first GEMM call at each
+            # weight shape held against its plain version: the prefill's own
+            # rows (M = B x P) on the kernel's tiling for them (exact sums:
+            # an integer table's, or the tied replay's)
+            from repro_torch.launch import steps as St
+            tokens = torch.from_numpy(np.random.default_rng(fargs.seed).integers(
+                0, cfg.vocab_size, size=(fixed_b, fixed_p))).to("cuda")
+            pre_errs: dict = {}
+            with checked_first_calls(op, pre_errs):
+                St.make_prefill_step(cfg, max_len=fixed_p + gen)(qparams,
+                                                                 {"tokens": tokens})
+            torch.cuda.synchronize()
+            n_shapes = len(dict((t, s) for t, s, _ in RECURRENT_GEMM_RUNS)[tag.split()[1]])
+            print(f"[{tag}] {what} fixed loop: its prefill's first {op} call at each "
+                  f"packed weight shape against the plain version: (M, max rel err) "
+                  f"{pre_errs}", flush=True)
+            if len(pre_errs) != n_shapes or any(e != 0.0 for _, e in pre_errs.values()):
+                fail(f"{what} fixed: prefill {op} calls at {len(pre_errs)} weight shapes "
+                     f"(want {n_shapes}) differ from their plain version: {pre_errs}")
+            del tokens
+            # the plain-GEMM and plain-attention pairs at RECURRENT_PLAIN_P rows
+            pp = min(fixed_p, RECURRENT_PLAIN_P)
+            pargs = parse(["--arch", arch, "--plan", plan, "--device", "cuda",
+                           "--batch", str(fixed_b), "--prompt-len", str(pp),
+                           "--gen", str(PLAIN_CUT_GEN)])
+            fk = fixed_run(torch, serve, cfg, qparams, pargs)
+            reset_counts(wrappers)
+            fp = fixed_run(torch, serve, plain_gemms(cfg), qparams, pargs)
+            if any(launch_counts(wrappers)[g] for g in gemms):
+                fail(f"{what} fixed: the plain-GEMM run launched a GEMM kernel")
+            fa = fixed_run(torch, serve, cfg, qparams, pargs, attn_backend="ref")
+            same_f = [int((fk["tokens"] == r["tokens"]).all(axis=1).sum()) for r in (fp, fa)]
+            rel_f = [rel_diff(fk["first_logits"], r["first_logits"]) for r in (fp, fa)]
+            print(f"[{tag}] {what} fixed loop, B {fixed_b} x P {fixed_p}, gen {gen}: "
+                  f"prefill {fx['prefill_ms']:.1f} ms, decode {fx['tok_per_s']:.1f} tok/s, "
+                  f"decode-only step {fx['decode_step_ms']:.3f} ms on {smi}; the first "
+                  f"decode step's {len(call_errs)} kv_cache_attention calls identical to "
+                  f"their plain version; at P {pp}, {PLAIN_CUT_GEN} tokens: plain-GEMM "
+                  f"run tokens identical for {same_f[0]}/{fixed_b} rows, logits "
+                  f"{rel_f[0]:.3g}; attention-plain run {same_f[1]}/{fixed_b}, logits "
+                  f"{rel_f[1]:.3g}", flush=True)
+            if same_f != [fixed_b, fixed_b] or rel_f != [0.0, 0.0]:
+                fail(f"{what} fixed: the plain-GEMM / plain-attention runs differ "
+                     f"(tokens identical {same_f}, first-step logits {rel_f})")
+            res["fixed"] = {"prefill_ms": fx["prefill_ms"], "tok_per_s": fx["tok_per_s"],
+                            "decode_step_ms": fx["decode_step_ms"],
+                            "prefill_first_call_errs": {str(k): v for k, v in
+                                                        pre_errs.items()},
+                            "plain_gemm_logits_rel_diff": rel_f[0],
+                            "attn_plain_logits_rel_diff": rel_f[1]}
+            del fx, fk, fp, fa
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        res.update(packed_gb=packed_gb, peak_gb=peak_gb)
+        if not n_attn and plan == plans[0]:
+            # no pool: the engine's memory does not grow with max_len
+            peaks = {}
+            for max_len in RWKV_MEM_LENS:
+                gc.collect()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                eng = Engine(cfg, qparams, n_slots=args.batch, max_len=max_len,
+                             block_size=args.block_size)
+                for r in local_requests(cfg, 4, 32, args.batch, PLAIN_CUT_GEN, 23):
+                    eng.submit(r)
+                eng.run()
+                torch.cuda.synchronize()
+                peaks[max_len] = (torch.cuda.max_memory_allocated() - base) / 1e9
+                del eng
+            print(f"[{tag}] {what}: engine peak device memory above the weights, "
+                  f"{args.batch} slots, by max_len: {peaks} GB (no pool: the state is "
+                  "O(1))", flush=True)
+            if max(peaks.values()) - min(peaks.values()) > 1e-3:
+                fail(f"{what}: the engine's peak memory grows with max_len: {peaks}")
+            res["engine_peak_gb_by_max_len"] = peaks
+        res["seconds"] = time.perf_counter() - t_plan
+        print(f"[{tag}] {what}: packed weights {packed_gb:.2f} GB, peak device memory "
+              f"{peak_gb:.2f} GB; {res['seconds']:.1f}s", flush=True)
+        out[plan] = res
+        del qparams, engine_run, res_k, cut_k, cut_p
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -2488,9 +2848,6 @@ def phase_quant_front(torch, dev, serve, wrappers: dict, gemms: dict, smi: str,
     print(f"[18 quant] qwen1.5-0.5b at full width, cut to its first {n} of 24 layers",
           flush=True)
     out: dict = {}
-
-    def plain_gemms(c):
-        return dataclasses.replace(c, quant=dataclasses.replace(c.quant, backend="ref"))
 
     def run(label, cfg, qparams, args, op, *, requests=None, logits=None, check=None):
         for w in wrappers.values():
@@ -2751,8 +3108,14 @@ def main() -> int:
     print(f"[4 kernels] the local slice's shapes: rows 1-3 at gemma3-12b's and "
           f"h2o-danube-3-4b's projections, rows 5 and 6 with a window at hd 256 and "
           f"120 (done so far at {time.perf_counter() - t_start:.1f}s)", flush=True)
-    for name, more in {**phase_local_gemms(torch, dev),
+    for name, more in {**phase_model_gemms(torch, dev, LOCAL_GEMM_RUNS, LOCAL_ROWS),
                        **phase_local_attention(torch, dev)}.items():
+        rows[name] += more
+    print(f"[4 kernels] the recurrent slice's shapes: rows 1-3 at recurrentgemma-9b's "
+          f"and rwkv6-1.6b's projections, row 5 at recurrentgemma's head (KV 1, G 16, "
+          f"hd 256), window {RG_WINDOW} (row 9 there is in the kv_cache_attention rows "
+          f"above; done so far at {time.perf_counter() - t_start:.1f}s)", flush=True)
+    for name, more in recurrent_kernel_rows(torch, dev).items():
         rows[name] += more
     print(f"[4 kernels] done at {time.perf_counter() - t_start:.1f}s", flush=True)
 
@@ -2768,10 +3131,6 @@ def main() -> int:
     plan_op = {"w2a2": "lut_gemm", "w2a16": "dequant_matmul",
                "w2a8_bs": "lut_gemm_bs_fused"}
 
-    def reset_launches():
-        for w in wrappers.values():
-            w.launches = 0
-
     def expect_launches(what, launches, counts: dict):
         """The named wrappers launched exactly ``counts``, the others 0."""
         want = {name: counts.get(name, 0) for name in wrappers}
@@ -2786,7 +3145,7 @@ def main() -> int:
              "--device", "cuda"])
         cfg, qparams = serve.prepare(args)
         cap_k: dict = {}
-        reset_launches()
+        reset_counts(wrappers)
         res_k = run_engine(torch, serve, cfg, qparams, args, cap_k)
         launches = {name: w.launches for name, w in wrappers.items()}
         m = res_k["metrics"]
@@ -2819,7 +3178,7 @@ def main() -> int:
         res_c = run_engine(torch, serve, cfg, qparams, cut_args, cap_c,
                            requests=plain_cut_requests(serve, cfg, args))
         cap_p: dict = {}
-        reset_launches()
+        reset_counts(wrappers)
         res_p = run_engine(torch, serve, cfg_p, qparams, cut_args, cap_p,
                            requests=plain_cut_requests(serve, cfg, args))
         if any(gemms[name].launches for name in gemms):
@@ -2840,7 +3199,7 @@ def main() -> int:
 
         # 6: GEMM kernels on, attention on its plain version
         cap_a: dict = {}
-        reset_launches()
+        reset_counts(wrappers)
         res_a = run_engine(torch, serve, cfg, qparams, args, cap_a,
                            attn_backend="ref")
         ma = res_a["metrics"]
@@ -2956,7 +3315,7 @@ def main() -> int:
          "cuda"])
     cfg, qparams = serve.prepare(args)
     cap_k = {}
-    reset_launches()
+    reset_counts(wrappers)
     res_k = run_engine(torch, serve, cfg, qparams, args, cap_k)
     launches = {name: w.launches for name, w in wrappers.items()}
     m = res_k["metrics"]
@@ -2970,7 +3329,7 @@ def main() -> int:
                     {"lut_gemm_bs_fused": 7 * cfg.n_layers * forwards,
                      "paged_attention": cfg.n_layers * m["decode_steps"]})
     cap_a = {}
-    reset_launches()
+    reset_counts(wrappers)
     res_a = run_engine(torch, serve, cfg, qparams, args, cap_a, attn_backend="ref")
     ma = res_a["metrics"]
     expect_launches("codeqwen attention-plain run",
@@ -3015,7 +3374,7 @@ def main() -> int:
         pack_peak_gb = torch.cuda.max_memory_allocated() / 1e9
         n, E = cfg.n_layers, cfg.moe.n_experts
         cap_k = {}
-        reset_launches()
+        reset_counts(wrappers)
         res_k = run_engine(torch, serve, cfg, qparams, args, cap_k)
         launches = {name: w.launches for name, w in wrappers.items()}
         m = res_k["metrics"]
@@ -3034,7 +3393,7 @@ def main() -> int:
         cfg_p = dataclasses.replace(
             cfg, quant=dataclasses.replace(cfg.quant, backend="ref"))
         cap_p = {}
-        reset_launches()
+        reset_counts(wrappers)
         res_p = run_engine(torch, serve, cfg_p, qparams, args, cap_p)
         if any(gemms[name].launches for name in gemms):
             fail(f"moonshot {plan}: the plain-GEMM run launched a GEMM kernel")
@@ -3080,7 +3439,7 @@ def main() -> int:
         n, B, gen = cfg.n_layers, args.batch, args.gen
         what = f"{arch} {plan} ({cfg.kv_cache_dtype} cache, {n} of {full} layers)"
         call_errs: list = []
-        reset_launches()
+        reset_counts(wrappers)
         res_k = fixed_run(torch, serve, cfg, qparams, args, call_errs=call_errs)
         launches = {name: w.launches for name, w in wrappers.items()}
         print(f"[11 fixed] {what}, B {B} x P {args.prompt_len}, gen {gen}: prefill "
@@ -3094,13 +3453,13 @@ def main() -> int:
                  f"{n}), max rel err {max(call_errs, default=None)} (want 0)")
         cfg_p = dataclasses.replace(
             cfg, quant=dataclasses.replace(cfg.quant, backend="ref"))
-        reset_launches()
+        reset_counts(wrappers)
         res_p = fixed_run(torch, serve, cfg_p, qparams, args)
         if any(gemms[name].launches for name in gemms):
             fail(f"fixed {what}: the plain-GEMM run launched a GEMM kernel")
         same = int((res_k["tokens"] == res_p["tokens"]).all(axis=1).sum())
         rel = rel_diff(res_k["first_logits"], res_p["first_logits"])
-        reset_launches()
+        reset_counts(wrappers)
         res_a = fixed_run(torch, serve, cfg, qparams, args, attn_backend="ref")
         expect_launches(f"fixed {what} attention-plain run",
                         {name: w.launches for name, w in wrappers.items()},
@@ -3145,7 +3504,7 @@ def main() -> int:
     cfg = dataclasses.replace(cfg, n_layers=MOE_FIXED_LAYERS)   # the first layers
     qparams = serve.pack_params(cfg, args, desc)
     n, B, gen = cfg.n_layers, args.batch, args.gen
-    reset_launches()
+    reset_counts(wrappers)
     res_k = fixed_run(torch, serve, cfg, qparams, args)
     launches = {name: w.launches for name, w in wrappers.items()}
     print(f"[12 moe g64] {cfg.name} w2a2g64, B {B} x P {args.prompt_len}, gen {gen}: "
@@ -3156,7 +3515,7 @@ def main() -> int:
                     {"expert_lut_gemm": 3 * n * gen, "lut_gemm": 7 * n * gen,
                      "kv_cache_attention": n * (gen - 1)})
     cfg_p = dataclasses.replace(cfg, quant=dataclasses.replace(cfg.quant, backend="ref"))
-    reset_launches()
+    reset_counts(wrappers)
     res_p = fixed_run(torch, serve, cfg_p, qparams, args)
     if any(gemms[name].launches for name in gemms):
         fail("moonshot w2a2g64: the plain-GEMM run launched a GEMM kernel")
@@ -3304,6 +3663,12 @@ def main() -> int:
     mark("18 quant")
     results["quant"] = phase_quant_front(torch, dev, serve, wrappers, gemms, smi,
                                          expect_launches, rows)
+    # 19 and 20: the recurrent models at full width and depth
+    for tag, arch, plans, fixed_plan, fixed_b, fixed_p in RECURRENT_MODELS:
+        mark(tag)
+        results[arch] = phase_recurrent_model(torch, serve, wrappers, gemms, smi,
+                                              expect_launches, tag, arch, plans,
+                                              fixed_plan, fixed_b, fixed_p)
     mark("done")
     names = list(starts)
     print("[phases] seconds: " + ", ".join(

@@ -26,7 +26,9 @@ neither ``jax`` nor ``repro``:
                     leaf
                     k-means leaves keep their float ``codebook`` and
                     ``plut`` (and come out ``nonuniform``), and legacy
-                    leaves their ``kernel`` None
+                    leaves their ``kernel`` None; a recurrent layer's
+                    ``rnn`` / ``rwkv`` subtree comes along like any other
+                    (float leaves as tensors, dense leaves as above)
   qweight_from_jax  one ``QuantizedWeight`` of ``repro.core.qlinear.
                     quantize_weight`` (a conv layer's, say)
   conv_params_from_jax  a conv layer's params from ``repro.core.conv.
@@ -37,13 +39,16 @@ neither ``jax`` nor ``repro``:
                     ({"blocks": {"l<j>": {"attn": {k, v[, k_sc, v_sc]}}},
                     "rem": {"r<i>": ...}}, the blocks stacked over
                     superblocks) -> the port's flat list with one
-                    {k, v[, k_sc, v_sc]} dict per layer
+                    {k, v[, k_sc, v_sc]} dict per attention layer and the
+                    per-sequence state of a recurrent one ({"rnn": {h,
+                    conv}} or {"rwkv": {s, shift_t, shift_c}})
 
 The reference stacks the superblock scan axis first (``blocks``: every
 array carries a leading ``n_superblocks`` axis, one entry per repeat of the
 layer pattern) and keeps remainder layers under ``rem``; the port keeps a
 flat ``layers`` list, in forward order (all superblocks, then the
-remainder). bfloat16 arrays (numpy dtype named 'bfloat16') are carried
+remainder), each layer's type being ``cfg.layer_type(i)``, as the
+reference's superblocks and their pattern prefix give it. bfloat16 arrays (numpy dtype named 'bfloat16') are carried
 bit for bit through a 16-bit integer view.
 """
 
@@ -174,5 +179,7 @@ def conv_params_from_jax(np_tree: dict, *, device) -> dict:
 def cache_from_jax(np_tree: dict, cfg, *, device) -> list:
     """The reference's dense decode cache (numpy leaves) -> the port's
     per-layer list, in forward order, bit for bit (int8 / u8 codes, f32
-    scales, or k/v in the model dtype)."""
-    return [layer["attn"] for layer in _layers(np_tree, cfg, device)]
+    scales, or k/v in the model dtype; a recurrent layer's state as it
+    is)."""
+    return [layer["attn"] if "attn" in layer else layer
+            for layer in _layers(np_tree, cfg, device)]

@@ -3,10 +3,13 @@ embeddings, int8 pool) and codeqwen1.5-7b (untied embeddings, int4 pool),
 its local-attention members gemma3-12b (5 local layers of window 1024 to 1
 global, GeGLU, hd 256) and h2o-danube-3-4b (every layer local, window
 4096, hd 120), both int8 pools, and the MoE family's moonshot-v1-16b-a3b
-(64 experts, top-6, two shared experts, int8 pool). ``deepgemm-cnn`` is
-the paper's CNN (``CNNConfig``; not one of the decoder LMs in ``ARCHS``).
-The reference's other architectures come with their families (ROADMAP
-queue 1, item 9)."""
+(64 experts, top-6, two shared experts, int8 pool), the hybrid family's
+recurrentgemma-9b (12 superblocks of two RG-LRU layers and one local
+multi-query attention layer, then two RG-LRU layers; int8 pool) and the
+ssm family's rwkv6-1.6b (24 RWKV6 layers, no attention). ``deepgemm-cnn``
+is the paper's CNN (``CNNConfig``; not one of the decoder LMs in
+``ARCHS``). The reference's encoder-decoder and vision architectures come
+with their families (ROADMAP queue 1, item 9)."""
 
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ _MODULES = {
     "gemma3-12b": "gemma3_12b",
     "h2o-danube-3-4b": "h2o_danube3_4b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "rwkv6-1.6b": "rwkv6_16b",
 }
 ARCHS = tuple(_MODULES)          # the decoder LMs
 _MODULES["deepgemm-cnn"] = "deepgemm_cnn"

@@ -85,7 +85,12 @@
 // outputs are never written. q, out and the codes in device memory are
 // HDR wide (rows of HDR * BITS / 8 bytes, a multiple of 8); in shared
 // memory a row is HD wide. G is at most kMaxG; GT is the number of query
-// rows compiled in: 1, or kMaxG for any G up to it.
+// rows compiled in: 1, kGroupG for any G up to 8, or kWideG for any G up to
+// 16, which only hd 256 compiles (recurrentgemma-9b's local layers: 16
+// query heads over one KV head). At GT 16 and hd 256 the block's shared
+// memory grows to 156 KB (q 18 KB, scores 8 KB, the 130 KB ring), still
+// one block an SM, so the cluster sizes of WIDE_RESIDENT hold; the split
+// keeps to G <= kGroupG.
 
 #pragma once
 
@@ -102,7 +107,10 @@ namespace {
 constexpr int kThreads = 256;                 // 8 warps per block
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 128;                    // tokens per tile
-constexpr int kMaxG = 8;                      // query rows per KV head
+constexpr int kMaxG = 16;                     // query rows per KV head, at most
+constexpr int kGroupG = 8;                    // GT for 1 < G <= 8 (every head dim)
+constexpr int kWideG = 16;                    // GT for 8 < G <= 16 (hd kWideHD only)
+constexpr int kWideHD = 256;
 constexpr float kNeg = -1e30f;
 constexpr int kStages = 2;                    // ring stages
 constexpr int kMaxCluster = 16;               // ranks a cluster (above 8: non-portable)

@@ -48,7 +48,8 @@
 // The kernel takes hd 16, 32, 64, 128 and 256, and 120 for int8 (run as
 // 128 with 8 zero dims, attn_common.cuh; an int4 row of 120 dims is 60
 // bytes, which the 8-byte copies cannot take), G up to 8 (compiled for G
-// == 1 and for any G up to 8), q bf16 or f32, and bits 8 or 4. A local
+// == 1 and for any G up to 8) and at hd 256 up to 16 (recurrentgemma-9b's
+// multi-query local layers), q bf16 or f32, and bits 8 or 4. A local
 // layer's cache is a ring of W = min(max_len, window) rows (the fixed
 // loop writes row pos at pos % W) whose first min(pos + 1, W) rows are
 // live, so its lengths say all the kernel needs: it takes no window.
@@ -72,7 +73,8 @@ struct DenseArgs {
 };
 
 // grid (C * KV, B), clusters of C along x: block x is rank x % C of KV
-// head x / C. GT as in attend_rows_cluster: 1 (G == 1) or kMaxG.
+// head x / C. GT as in attend_rows_cluster: 1 (G == 1), kGroupG or, at hd
+// kWideHD, kWideG.
 template <int BITS, int HD, int HDR, typename TQ, int GT>
 __global__ void __launch_bounds__(kThreads) kv_cache_attn_kernel(const DenseArgs a) {
     const int rank = blockIdx.x % a.C, e = blockIdx.x / a.C, b = blockIdx.y;
@@ -98,8 +100,13 @@ cudaError_t run_hd(const DenseArgs& a, int B, cudaStream_t stream, int* clusters
     if (a.G == 1)
         return launch_cluster(kv_cache_attn_kernel<BITS, HD, HDR, TQ, 1>, grid, kThreads, a.C,
                               smem, stream, clusters, a);
-    return launch_cluster(kv_cache_attn_kernel<BITS, HD, HDR, TQ, kMaxG>, grid, kThreads,
-                          a.C, smem, stream, clusters, a);
+    if (a.G <= kGroupG)
+        return launch_cluster(kv_cache_attn_kernel<BITS, HD, HDR, TQ, kGroupG>, grid, kThreads,
+                              a.C, smem, stream, clusters, a);
+    if constexpr (HD == kWideHD && HDR == kWideHD)
+        return launch_cluster(kv_cache_attn_kernel<BITS, HD, HDR, TQ, kWideG>, grid, kThreads,
+                              a.C, smem, stream, clusters, a);
+    return cudaErrorInvalidValue;
 }
 
 template <int BITS, typename TQ>

@@ -71,7 +71,9 @@
 // The kernels take hd 16, 32, 64, 128 and 256, and 120 for int8 (run as
 // 128 with 8 zero dims, attn_common.cuh; an int4 row of 120 dims is 60
 // bytes, which the 8-byte copies cannot take), G up to 8 (compiled for G
-// == 1 and for any G up to 8), and a block size that is a power of two.
+// == 1 and for any G up to 8) and, in the single pass at hd 256, up to 16
+// (recurrentgemma-9b's multi-query local layers; the split keeps to 8),
+// and a block size that is a power of two.
 //
 // Build without --use_fast_math: expf stays accurate.
 
@@ -150,7 +152,8 @@ __device__ __forceinline__ void walk_chunk(const PagedArgs& a, int b, int e, int
 // The single pass, and the split up to kMaxCluster chunks: grid (C * KV,
 // B), clusters of C along x; block x is rank x % C of KV head x / C and
 // walks chunk rank. out (B, KV, G, hd). GT is the number of query rows
-// compiled in: 1 (G == 1, the dense models' MHA) or kMaxG (any G up to it).
+// compiled in: 1 (G == 1, the dense models' MHA), kGroupG (any G up to it)
+// or, at hd kWideHD, kWideG.
 template <int BITS, int HD, int HDR, typename TQ, int GT>
 __global__ void __launch_bounds__(kThreads) paged_attn_cluster_kernel(const PagedArgs a) {
     const int rank = blockIdx.x % a.C, e = blockIdx.x / a.C, b = blockIdx.y;
@@ -201,22 +204,27 @@ __global__ void merge_kernel(const float* __restrict__ acc, const float* __restr
     }
 }
 
+template <int BITS, int HD, int HDR, typename TQ, int GT, typename Args>
+cudaError_t launch_gt(const Args& a, dim3 grid, int smem, cudaStream_t stream, int* clusters) {
+    if constexpr (std::is_same<Args, SplitArgs>::value)
+        return launch_cluster(paged_attn_split_kernel<BITS, HD, HDR, TQ, GT>, grid, kThreads,
+                              a.C, smem, stream, clusters, a);
+    else
+        return launch_cluster(paged_attn_cluster_kernel<BITS, HD, HDR, TQ, GT>, grid, kThreads,
+                              a.C, smem, stream, clusters, a);
+}
+
+// The kernel compiled for ``a.G``'s query rows: GT 1, kGroupG, or at hd
+// kWideHD (the single pass only) kWideG.
 template <int BITS, int HD, int HDR, typename TQ, typename Args>
 cudaError_t run_hd(const Args& a, dim3 grid, cudaStream_t stream, int* clusters) {
     const int smem = walk_smem(a.G, HD, HD * BITS / 8).total;
-    if constexpr (std::is_same<Args, SplitArgs>::value) {
-        if (a.G == 1)
-            return launch_cluster(paged_attn_split_kernel<BITS, HD, HDR, TQ, 1>, grid,
-                                  kThreads, a.C, smem, stream, clusters, a);
-        return launch_cluster(paged_attn_split_kernel<BITS, HD, HDR, TQ, kMaxG>, grid,
-                              kThreads, a.C, smem, stream, clusters, a);
-    } else {
-        if (a.G == 1)
-            return launch_cluster(paged_attn_cluster_kernel<BITS, HD, HDR, TQ, 1>, grid,
-                                  kThreads, a.C, smem, stream, clusters, a);
-        return launch_cluster(paged_attn_cluster_kernel<BITS, HD, HDR, TQ, kMaxG>, grid,
-                              kThreads, a.C, smem, stream, clusters, a);
-    }
+    if (a.G == 1) return launch_gt<BITS, HD, HDR, TQ, 1>(a, grid, smem, stream, clusters);
+    if (a.G <= kGroupG)
+        return launch_gt<BITS, HD, HDR, TQ, kGroupG>(a, grid, smem, stream, clusters);
+    if constexpr (HD == kWideHD && HDR == kWideHD && !std::is_same<Args, SplitArgs>::value)
+        return launch_gt<BITS, HD, HDR, TQ, kWideG>(a, grid, smem, stream, clusters);
+    return cudaErrorInvalidValue;
 }
 
 template <int BITS, typename TQ, typename Args>
@@ -300,7 +308,8 @@ cudaError_t split(const void* q, const void* kp, const void* ksc, const void* vp
                   float* m, float* l, float* out, int B, int KV, int G, int hd, int bs, int nb,
                   int bits, int q_bf16, int ns, int nbc, int K, int C, int window,
                   cudaStream_t stream, int* clusters) {
-    if (ns < 1 || K < 1 || static_cast<int64_t>(ns) * nbc < nb || C != (ns + K - 1) / K ||
+    if (ns < 1 || K < 1 || G > kGroupG || static_cast<int64_t>(ns) * nbc < nb ||
+        C != (ns + K - 1) / K ||
         (K > 1 && !clusters && !(acc && m && l)))
         return cudaErrorInvalidValue;
     PagedArgs a;

@@ -74,7 +74,13 @@ KERNEL_TILE = 128
 # what the CUDA source takes (and block sizes that are powers of two); 120
 # runs as 128 with zero padding dims, for int8 only (``check_operands``)
 KERNEL_HEAD_DIMS = (16, 32, 64, 120, 128, 256)
+# query rows a KV head (csrc/attn_common.cuh kGroupG / kWideG): up to 8 at
+# every head dim, up to 16 at KERNEL_WIDE_G_HD in the single passes (rows 5
+# and 9: recurrentgemma-9b's 16 query heads over one KV head); the split
+# keeps to 8 (G 16 there is future work, ROADMAP queue 2)
 KERNEL_MAX_G = 8
+KERNEL_WIDE_G = 16
+KERNEL_WIDE_G_HD = 256
 POOL_DTYPE = {8: torch.int8, 4: torch.uint8}
 # the single-pass kernels' cluster split (over device.CARD_SMS SMs): the
 # largest cluster (csrc/attn_common.cuh kMaxCluster; above 8 a non-portable
@@ -312,11 +318,19 @@ def paged_attention_walk(q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths,
     return merge_splitkv_partials(*(torch.stack(x, dim=1) for x in zip(*parts)))
 
 
+def kernel_max_g(hd: int, split: bool = False) -> int:
+    """The most query rows a KV head the kernels compile at head dim
+    ``hd``: KERNEL_WIDE_G at KERNEL_WIDE_G_HD in the single passes, else
+    KERNEL_MAX_G."""
+    return KERNEL_WIDE_G if hd == KERNEL_WIDE_G_HD and not split else KERNEL_MAX_G
+
+
 def check_operands(what: str, tensors, q, k_codes, v_codes,
-                   bits: int) -> tuple[int, int, int, int]:
+                   bits: int, split: bool = False) -> tuple[int, int, int, int]:
     """The checks every decode-attention kernel shares, on the operands
     ``tensors``: bits, one CUDA device, contiguity, q's type and shape,
-    hd and G, and the code dtype. Returns (B, KV, G, hd)."""
+    hd and G (``kernel_max_g``; ``split``: the split's), and the code
+    dtype. Returns (B, KV, G, hd)."""
     if bits not in POOL_DTYPE:
         raise NotImplementedError(f"{what}: bits={bits} (the kernels take 8 "
                                   "and 4)")
@@ -328,9 +342,12 @@ def check_operands(what: str, tensors, q, k_codes, v_codes,
         raise TypeError(f"{what}: q must be bf16 or f32 (B, KV, G, hd), got "
                         f"{q.dtype} {tuple(q.shape)}")
     B, KV, G, hd = q.shape
-    if hd not in KERNEL_HEAD_DIMS or not 1 <= G <= KERNEL_MAX_G:
-        raise NotImplementedError(f"{what}: hd={hd}, G={G} (the kernels take "
-                                  f"hd in {KERNEL_HEAD_DIMS}, G 1..{KERNEL_MAX_G})")
+    if hd not in KERNEL_HEAD_DIMS or not 1 <= G <= kernel_max_g(hd, split):
+        raise NotImplementedError(
+            f"{what}: hd={hd}, G={G} (the kernels take hd in {KERNEL_HEAD_DIMS}, "
+            f"G 1..{KERNEL_MAX_G}, and G up to {KERNEL_WIDE_G} at hd "
+            f"{KERNEL_WIDE_G_HD} in the single passes; G {KERNEL_WIDE_G} in the "
+            "split is future work, ROADMAP queue 2)")
     if (hd * bits // 8) % 8:
         raise NotImplementedError(f"{what}: hd={hd} at {bits} bits is a "
                                   f"{hd * bits // 8}-byte row, which the kernels' "
@@ -365,11 +382,11 @@ def check_wide_rows(what: str, k_codes, v_codes, row_bytes: int) -> None:
 
 
 def _check(q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths,
-           bits) -> tuple[int, ...]:
-    what = "paged_attention kernel"
+           bits, split: bool = False) -> tuple[int, ...]:
+    what = f"paged_attention{'_splitkv' if split else ''} kernel"
     B, KV, G, hd = check_operands(
         what, (q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths), q, k_pool,
-        v_pool, bits)
+        v_pool, bits, split)
     n_blocks, bs = k_pool.shape[:2]
     if bs < 1 or bs & (bs - 1):
         raise NotImplementedError(f"{what}: block size {bs} (the kernels take "
@@ -453,7 +470,7 @@ def paged_attention_splitkv_cuda(q, k_pool, k_sc, v_pool, v_sc, block_tables,
     chunks wholly below the window read nothing. Block ids as for
     ``paged_attention_cuda``."""
     ops = (q, k_pool, k_sc, v_pool, v_sc, block_tables, lengths)
-    B, KV, G, hd, bs, nb = _check(*ops, bits)
+    B, KV, G, hd, bs, nb = _check(*ops, bits, split=True)
     check_wide_rows("paged_attention_splitkv kernel", k_pool, v_pool, hd * bits // 8)
     win = _window_arg("paged_attention_splitkv kernel", window)
     if int(kv_splits) < 1:

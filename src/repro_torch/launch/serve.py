@@ -109,9 +109,20 @@ here: ``examples/cnn_paper_repro_torch.py`` runs it. ``--ring`` under
 ``--tp`` runs: the rings are host-side, and every rank holds the whole
 pool. Prompts come from
 numpy's ``default_rng(seed)``; the reference draws them with JAX's
-threefry, whose numbers are not reproduced. The enc-dec and vision inputs
-of the reference's fixed loop come with their families (ROADMAP queue 1,
-item 9).
+threefry, whose numbers are not reproduced.
+
+The recurrent archs (recurrentgemma-9b: RG-LRU layers beside local
+multi-query attention; rwkv6-1.6b: RWKV6 layers, no attention) serve
+through both loops, their per-sequence state carried from the prefill
+into the decode steps (per slot in the engine), and take the reference's
+rules: ``--prefix-cache``, ``--spec-draft-plan`` and an explicit
+``--kv-splits`` are refused for them, and so is ``--tp`` > 1 (the
+recurrent layers' TP rules, ROADMAP queue 1, item 11):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \
+      --paged --plan w2a2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+      --smoke --paged --device cpu --plan w2a16
 """
 
 from __future__ import annotations
@@ -185,6 +196,8 @@ def build_parser() -> argparse.ArgumentParser:
 def validate_args(args) -> None:
     """Reject incoherent flag combinations (the reference's rules), then
     flags of features the port does not carry yet, loudly."""
+    cfg = get_config(args.arch) if args.arch in ARCHS else None
+    recurrent = cfg is not None and cfg.has_state
     if not args.paged:
         needs_paged = [
             (args.prefix_cache, "--prefix-cache", "the radix cache shares "
@@ -211,6 +224,11 @@ def validate_args(args) -> None:
             if bad:
                 raise ValueError(f"{flag} requires --paged: {why}; the "
                                  "fixed-batch loop has none")
+    if args.prefix_cache and recurrent:
+        raise ValueError(f"--prefix-cache is incompatible with recurrent arch "
+                         f"'{cfg.name}': per-slot recurrent state has no block "
+                         "boundary to share at (attention-only archs support "
+                         "prefix sharing)")
     if args.prefix_cache and args.prefill == "whole":
         raise ValueError("--prefix-cache is incompatible with --prefill whole: "
                          "whole-prompt admission recomputes from scratch and "
@@ -220,6 +238,10 @@ def validate_args(args) -> None:
             raise ValueError("--spec-draft-plan is incompatible with --prefill "
                              "whole: the drafter's catch-up prefill replays the "
                              "fed-token stream in chunks; use --prefill chunked")
+        if recurrent:
+            raise ValueError(f"--spec-draft-plan is incompatible with recurrent arch "
+                             f"'{cfg.name}': the drafter cannot rewind per-slot scan "
+                             "state past rejected tokens (attention-only archs only)")
         if args.spec_draft_plan not in PLANS:
             raise ValueError(f"--spec-draft-plan {args.spec_draft_plan!r} is not "
                              f"a known plan ({', '.join(sorted(PLANS))})")
@@ -234,8 +256,11 @@ def validate_args(args) -> None:
         raise ValueError(f"--top-k must be >= 0 (0 = off), got {args.top_k}")
     if args.prefill_batch < 1:
         raise ValueError(f"--prefill-batch must be >= 1, got {args.prefill_batch}")
-    if args.ring and args.arch in ARCHS:
-        cfg = get_config(args.arch)
+    if args.kv_splits != "auto" and recurrent:
+        raise ValueError(f"--kv-splits is incompatible with recurrent arch "
+                         f"'{cfg.name}': per-slot scan state has no KV axis to "
+                         "partition (attention-only archs support split-KV decode)")
+    if args.ring and cfg is not None:
         if "local" not in cfg.layer_types() or not cfg.window:
             raise ValueError(f"--ring requires a sliding-window arch: '{cfg.name}' "
                              "has no local attention layers to ring-page")
@@ -259,9 +284,12 @@ def validate_args(args) -> None:
                          "CLI has no requests for it (run "
                          "examples/cnn_paper_repro_torch.py)")
     checks = [
-        (args.tp > 1 and get_config(args.arch).moe is not None,
+        (args.tp > 1 and cfg.moe is not None,
          "--tp > 1 on an MoE model (the expert TP rules) is not ported yet: "
          "ROADMAP queue 1, item 11"),
+        (args.tp > 1 and recurrent,
+         f"--tp > 1 on recurrent arch '{cfg.name}' (the recurrent layers' TP "
+         "rules) is not ported yet: ROADMAP queue 1, item 11"),
         (args.tp > 1 and args.spec_draft_plan is not None,
          "--spec-draft-plan under --tp > 1 (the drafter's TP rules) is not "
          "ported yet: ROADMAP queue 1, item 11"),

@@ -91,11 +91,17 @@ def dense(p: dict, x: torch.Tensor, *, tag: str = "", policy) -> torch.Tensor:
 
 
 def norm_apply(p: dict, x: torch.Tensor, kind: str, eps: float = 1e-6) -> torch.Tensor:
-    if kind != "rmsnorm":
+    """RMSNorm, or LayerNorm (mean-centred, with the ``bias`` beside the
+    ``scale``), in f32, as the reference's ``norm_apply``."""
+    if kind not in ("rmsnorm", "layernorm"):
         raise NotImplementedError(f"norm {kind!r} is not ported yet")
     xf = x.float()
+    if kind == "layernorm":
+        xf = xf - xf.mean(-1, keepdim=True)
     var = (xf * xf).mean(-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    if "bias" in p:
+        y = y + p["bias"].float()
     return y.to(x.dtype)
 
 

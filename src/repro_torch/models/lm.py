@@ -1,4 +1,5 @@
-"""Decoder-only LM assembly (dense and MoE families) for the port.
+"""Decoder-only LM assembly (dense, MoE and recurrent families) for the
+port.
 
 The port's counterpart of ``repro/models/lm.py``. Parameters are a plain
 dict: the input embedding (V, D), ``tok_embed`` when the head is tied to
@@ -7,9 +8,13 @@ plan keeps bf16 (``qplan.KEEP_BF16``); ``final_norm``; and ``layers``, a
 list with one dict per layer (``ln1``, ``attn`` {wq, wk, wv, wo},
 ``ln2``, and ``mlp`` {w_gate, w_up, w_down} or, on the layers
 ``cfg.moe_flags()`` marks, ``moe`` {w_router (D, E) f32, we_gate/we_up
-(E, D, F), we_down (E, F, D), shared {w_gate, w_up, w_down}}); weights
-keep the reference's (in, out) layout. The reference's ``lax.scan`` over
-stacked superblocks is a Python loop over ``layers`` here.
+(E, D, F), we_down (E, F, D), shared {w_gate, w_up, w_down}}); a
+``recurrent`` layer holds ``rnn`` (models/recurrent.py: w_rnn_in,
+w_rnn_gate, w_rnn_out, conv_w, conv_b, lru_*) in place of ``attn``, and
+an ``rwkv`` layer only ``rwkv`` (its own two layernorms, time and channel
+mix); weights keep the reference's (in, out) layout. The reference's
+``lax.scan`` over stacked superblocks is a Python loop over ``layers``
+here.
 
 Caches are a flat list with one dict per layer, in ``layers`` order,
 updated in place: the paged engine's block pools (serving/cache.py), or
@@ -17,12 +22,16 @@ the fixed-batch loop's dense slot caches (``init_cache``,
 ``prefill_to_cache``), one (B, S) slot per sequence; a local layer's slot
 is a ring of S = min(max_len, window) rows. Both lay a layer out as
 ``_layer_cache`` does: k/v codes with f32 scales for an int8 or int4
-cache, k/v in the model dtype otherwise.
+cache, k/v in the model dtype otherwise. A recurrent layer's entry is its
+state, one row per sequence (per slot in the engine), keyed as the
+reference's: {"rnn": {"h", "conv"}} or {"rwkv": {"s", "shift_t",
+"shift_c"}}; a forward with caches advances it in place (only the rows
+``active`` marks, where given).
 
-Each layer's attention type ("global" or "local", ``cfg.layer_types()``)
-comes from the config's pattern, as the reference's superblocks give it;
-a local layer attends over the last ``cfg.window`` rows
-(``layers.attn_apply``).
+Each layer's type ("global", "local", "recurrent" or "rwkv",
+``cfg.layer_types()``) comes from the config's pattern, as the
+reference's superblocks give it; a local layer attends over the last
+``cfg.window`` rows (``layers.attn_apply``).
 """
 
 from __future__ import annotations
@@ -31,10 +40,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch.configs.base import STATE_TYPES
 from repro_torch.core import calibrate, qlinear
 from repro_torch.device import resolve_device
 from repro_torch.dist.sharding import TP_ROLES
 from . import layers as L
+from . import recurrent as R
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -43,13 +54,15 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+LAYER_TYPES = ("global", "local", "recurrent", "rwkv")
+
+
 def _check_supported(cfg) -> None:
-    if cfg.family not in ("dense", "moe") or any(t not in ("global", "local")
-                                                 for t in cfg.pattern):
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm") or any(
+            t not in LAYER_TYPES for t in cfg.pattern):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and MoE families with global and "
-            "local attention are ported; other layer types follow ROADMAP "
-            "queue 1, item 9")
+            f"{cfg.name}: only the dense, MoE and recurrent (hybrid, ssm) "
+            "families are ported; the others follow ROADMAP queue 1, item 9")
     if cfg.pos_embed != "rope":
         raise NotImplementedError(f"{cfg.name}: learned positions are not "
                                   "ported yet")
@@ -65,8 +78,12 @@ def init_params(cfg, generator: torch.Generator, device="cuda", *,
     """Random parameters from ``generator`` (which must live on ``device``):
     the reference's distributions (normal * fan_in^-0.5 dense and expert
     weights, an f32 router, zero biases, normal * 0.02 embeddings, unit
-    norm scales), not its bits. Layers are MoE where ``cfg.moe_flags()``
-    says so. With ``pack`` each layer goes through the plan's packer right
+    norm scales; the recurrent leaves as ``rglru_init`` / ``rwkv_init``
+    draw them: ``conv_w`` normal * 0.1, ``lru_a`` linspace 2-6, the LoRA
+    mixes normal * 0.01, ``mix_x`` uniform, ``decay_w`` linspace -6 to -1,
+    ``bonus_u`` normal * 0.1), not its bits. Layers are MoE where
+    ``cfg.moe_flags()`` says so, recurrent where ``cfg.layer_types()``
+    does. With ``pack`` each layer goes through the plan's packer right
     after it is drawn, so the dense tree of a full-width model never exists
     at once (moonshot-v1-16b-a3b's bf16 experts alone are ~53 GB); the
     generator is drawn in the same order, so the result equals
@@ -91,8 +108,40 @@ def init_params(cfg, generator: torch.Generator, device="cuda", *,
             p["b"] = torch.zeros((dout,), dtype=dtype, device=dev)
         return p
 
-    def norm():
-        return {"scale": torch.ones((D,), dtype=dtype, device=dev)}
+    def const(*shape, value=0.0):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    def linspace(lo, hi, n):
+        return torch.linspace(lo, hi, n, dtype=torch.float32, device=dev).to(dtype)
+
+    def norm(kind=cfg.norm):
+        p = {"scale": const(D, value=1.0)}
+        if kind == "layernorm":
+            p["bias"] = const(D)
+        return p
+
+    def rnn():
+        Rw, cw = cfg.d_rnn or D, cfg.conv_width
+        return {"w_rnn_in": dense(D, Rw), "w_rnn_gate": dense(D, Rw),
+                "w_rnn_out": dense(Rw, D), "conv_w": normal(cw, Rw, std=0.1),
+                "conv_b": const(Rw), "lru_a": linspace(2.0, 6.0, Rw),
+                "lru_in_w": const(Rw, value=1.0), "lru_in_b": const(Rw),
+                "lru_rec_w": const(Rw, value=1.0), "lru_rec_b": const(Rw)}
+
+    def rwkv():
+        Ld = R.RWKV_LORA
+        return {"w_r": dense(D, D), "w_k": dense(D, D), "w_v": dense(D, D),
+                "w_g": dense(D, D), "w_out": dense(D, D),
+                "mix_x": torch.rand((5, D), generator=generator, device=dev,
+                                    dtype=torch.float32).to(dtype),
+                "mix_lora_a": normal(D, Ld, std=0.01),
+                "mix_lora_b": normal(5, Ld, D, std=0.01),
+                "decay_w": linspace(-6.0, -1.0, D),
+                "decay_lora_a": normal(D, 2 * Ld, std=0.01),
+                "decay_lora_b": normal(2 * Ld, D, std=0.01),
+                "bonus_u": normal(D, std=0.1), "ln_scale": const(D, value=1.0),
+                "wc_k": dense(D, F), "wc_v": dense(F, D), "wc_r": dense(D, D),
+                "ln1": norm("layernorm"), "ln2": norm("layernorm")}
 
     def mlp(d_ff):
         return {"w_gate": dense(D, d_ff), "w_up": dense(D, d_ff),
@@ -110,17 +159,20 @@ def init_params(cfg, generator: torch.Generator, device="cuda", *,
         return p
 
     layers = []
-    for i, is_moe in enumerate(cfg.moe_flags()):
-        lp = {"ln1": norm(),
-              "attn": {"wq": dense(D, H * hd, cfg.qkv_bias),
-                       "wk": dense(D, KV * hd, cfg.qkv_bias),
-                       "wv": dense(D, KV * hd, cfg.qkv_bias),
-                       "wo": dense(H * hd, D)},
-              "ln2": norm()}
-        if is_moe:
-            lp["moe"] = moe()
+    for i, (t, is_moe) in enumerate(zip(cfg.layer_types(), cfg.moe_flags())):
+        if t == "rwkv":
+            lp = {"rwkv": rwkv()}
         else:
-            lp["mlp"] = mlp(F)
+            mixer = {"rnn": rnn()} if t == "recurrent" else \
+                {"attn": {"wq": dense(D, H * hd, cfg.qkv_bias),
+                          "wk": dense(D, KV * hd, cfg.qkv_bias),
+                          "wv": dense(D, KV * hd, cfg.qkv_bias),
+                          "wo": dense(H * hd, D)}}
+            lp = {"ln1": norm(), **mixer, "ln2": norm()}
+            if is_moe:
+                lp["moe"] = moe()
+            else:
+                lp["mlp"] = mlp(F)
         if pack:
             lp = shard_tree(quantize_tree(lp, cfg, f"layers.{i}", tp=tp), rank, tp)
         layers.append(lp)
@@ -165,11 +217,14 @@ def slot_rows(cfg, layer_type: str, max_len: int) -> int:
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda") -> list:
     """The fixed-batch loop's decode cache, zeroed: one dense slot cache per
-    sequence for every layer, of ``slot_rows`` rows (a local layer's ring);
-    an unquantized cache holds the model dtype."""
+    sequence for every attention layer, of ``slot_rows`` rows (a local
+    layer's ring), and a zero state per sequence for every recurrent one;
+    an unquantized cache and the states' conv and shift rows hold the model
+    dtype."""
     _check_supported(cfg)
-    return [_layer_cache(cfg, batch, slot_rows(cfg, t, max_len),
-                         torch_dtype(cfg.dtype), resolve_device(device))
+    dev, dtype = resolve_device(device), torch_dtype(cfg.dtype)
+    return [R.state_init(cfg, t, batch, dtype, dev) if t in STATE_TYPES
+            else _layer_cache(cfg, batch, slot_rows(cfg, t, max_len), dtype, dev)
             for t in cfg.layer_types()]
 
 
@@ -190,10 +245,14 @@ def prefill_to_cache(cfg, prefill_caches: list, prefill_len: int,
     zero-padded to ``max_len`` rows, a local layer's folded into its ring of
     W = min(max_len, window) rows (slot t % W); then, for an int8 or int4
     cache, quantized through ``layers.KV_QUANT`` (a zero row gets scale
-    1e-8 and code 0, as in the reference)."""
+    1e-8 and code 0, as in the reference). A recurrent layer's entry, the
+    prompt's final state, passes through."""
     out = []
     for i, kv in enumerate(prefill_caches):
         layer_type = cfg.layer_type(i)
+        if layer_type in STATE_TYPES:
+            out.append(kv)             # the prompt's final state, as it is
+            continue
         if kv["k"].shape[1] != prefill_len:
             raise ValueError(f"prefill K/V hold {kv['k'].shape[1]} rows, "
                              f"expected {prefill_len}")
@@ -219,20 +278,53 @@ def apply_layer(p: dict, x: torch.Tensor, *, cfg, layer_type: str = "global",
                 ring_tables: Optional[torch.Tensor] = None,
                 ring_abs: Optional[torch.Tensor] = None,
                 kv_splits: int = 1, attn_backend: str = "auto",
-                collect: Optional[list] = None) -> torch.Tensor:
-    """One pre-norm decoder layer: x + attn(ln1(x)), then + mlp(ln2(.)) or
-    + moe(ln2(.)). ``collect`` receives the layer's K/V (see
-    ``layers.attn_apply``)."""
+                collect: Optional[list] = None,
+                active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One pre-norm decoder layer: x + mixer(ln1(x)), then + mlp(ln2(.)) or
+    + moe(ln2(.)); the mixer is attention, or the RG-LRU on a
+    ``recurrent`` layer. An ``rwkv`` layer is the whole RWKV6 block, which
+    owns both residuals. ``collect`` receives the layer's K/V (see
+    ``layers.attn_apply``), or a recurrent layer's final state; with a
+    cache a recurrent layer reads its state and writes the new one in
+    place (``active``: only those rows)."""
+    if layer_type == "rwkv":
+        st = None if cache is None else cache["rwkv"]
+        y, new = R.rwkv_apply(p["rwkv"], x, cfg=cfg, state=st)
+        _keep_state(st, new, "rwkv", collect, active)
+        return y
     h = L.norm_apply(p["ln1"], x, cfg.norm)
-    x = x + L.attn_apply(p["attn"], h, cfg=cfg, layer_type=layer_type,
-                         cache=cache, pos=pos,
-                         block_tables=block_tables, ring_tables=ring_tables,
-                         ring_abs=ring_abs, kv_splits=kv_splits,
-                         attn_backend=attn_backend, collect=collect)
+    if layer_type == "recurrent":
+        st = None if cache is None else cache["rnn"]
+        y, new = R.rglru_apply(p["rnn"], h, cfg=cfg, state=st)
+        _keep_state(st, new, "rnn", collect, active)
+        x = x + y
+    else:
+        x = x + L.attn_apply(p["attn"], h, cfg=cfg, layer_type=layer_type,
+                             cache=cache, pos=pos,
+                             block_tables=block_tables, ring_tables=ring_tables,
+                             ring_abs=ring_abs, kv_splits=kv_splits,
+                             attn_backend=attn_backend, collect=collect)
     h2 = L.norm_apply(p["ln2"], x, cfg.norm)
     if "moe" in p:
         return x + L.moe_apply(p["moe"], h2, cfg=cfg)
     return x + L.mlp_apply(p["mlp"], h2, cfg=cfg)
+
+
+def _keep_state(state: Optional[dict], new: dict, key: str,
+                collect: Optional[list], active: Optional[torch.Tensor]) -> None:
+    """A recurrent layer's new state: written into ``state`` in place (in
+    its dtypes; where ``active`` (B,) is given, only its rows: the others
+    keep theirs, as the reference's ``select_slots``), or without a state
+    appended to ``collect`` as {key: new}."""
+    if state is None:
+        if collect is not None:
+            collect.append({key: new})
+        return
+    for name, cur in state.items():
+        val = new[name].to(cur.dtype)
+        if active is not None:
+            val = torch.where(active.view(-1, *(1,) * (cur.ndim - 1)), val, cur)
+        cur.copy_(val)
 
 
 def forward(params: dict, cfg, tokens: torch.Tensor, *,
@@ -240,13 +332,14 @@ def forward(params: dict, cfg, tokens: torch.Tensor, *,
             block_tables: Optional[torch.Tensor] = None,
             ring_tables: Optional[torch.Tensor] = None,
             ring_abs: Optional[torch.Tensor] = None, kv_splits=1,
-            attn_backend: str = "auto", collect_cache: bool = False):
+            attn_backend: str = "auto", collect_cache: bool = False,
+            active: Optional[torch.Tensor] = None):
     """Token ids (B, S) -> (final hidden states (B, S, D), caches).
 
     Without caches: a causal forward over the whole sequence; with
     ``collect_cache`` the returned caches are each layer's post-RoPE,
-    unquantized K/V ({"k", "v"}, (B, S, KV, hd)) for ``prefill_to_cache``,
-    else None. With paged caches and block tables (B, nb): S == 1 is a
+    unquantized K/V ({"k", "v"}, (B, S, KV, hd)) for ``prefill_to_cache``
+    (a recurrent layer's entry its final state), else None. With paged caches and block tables (B, nb): S == 1 is a
     batched decode step, S > 1 a chunk with per-row start positions
     ``pos`` (B,). With dense slot caches and no tables: a one-token decode
     step at positions ``pos`` (B,). Caches are updated in place and
@@ -257,7 +350,11 @@ def forward(params: dict, cfg, tokens: torch.Tensor, *,
     ``cfg.layer_types()`` says. ``ring_tables`` (B, ring_len) ring-page
     the local layers (their pools are the engine's ring pool, the
     reference's lm.py:185-239); a one-token step also takes ``ring_abs``
-    (B, nb), the same rings as absolute tables (``layers.attn_apply``)."""
+    (B, nb), the same rings as absolute tables (``layers.attn_apply``).
+    Recurrent layers read and advance their states in the caches (dense or
+    paged alike: one row per batch row); ``active`` (B,) bool limits the
+    advance to its rows (the engine's decode step: idle and prefilling
+    slots keep their state)."""
     _check_supported(cfg)
     collected = [] if collect_cache and caches is None else None
     n = len(params["layers"])
@@ -269,7 +366,7 @@ def forward(params: dict, cfg, tokens: torch.Tensor, *,
                         pos=pos, block_tables=block_tables,
                         ring_tables=ring_tables, ring_abs=ring_abs,
                         kv_splits=splits[i], attn_backend=attn_backend,
-                        collect=collected)
+                        collect=collected, active=active)
     h = L.norm_apply(params["final_norm"], x, cfg.norm)
     return h, caches if collected is None else collected
 

@@ -30,10 +30,23 @@ offset t % block_size (``ring_abs_row`` spells the ring out as a table of
 absolute block entries). ``write_prompt_rows`` scatters a whole prompt's
 last min(P, ring rows) rows of a local layer into its ring.
 
+Recurrent layers (RG-LRU, RWKV6) hold no block: their O(1) state stays
+per slot, a leading ``n_slots`` axis, as in ``lm.init_cache`` ({"rnn": ...}
+or {"rwkv": ...}; the reference's cache.py:64 and :227-306). A model with
+no attention layer (rwkv6) holds no device pool at all, while the engine
+keeps its block bookkeeping as the reference's does. ``slot_view`` narrows
+the states to one slot for a prefill chunk or a whole prompt (views, so
+the forward's in-place update, or ``write_prompt_rows``'s, lands in the
+slot), and ``reset_slot`` zeroes a slot's state at admission.
+A decode step keeps the state of idle and prefilling slots through the
+forward's ``active`` mask (the reference's ``select_slots``).
+
 Differences from the reference: the forward scatters into these tensors in
 place (the reference donates and returns new pools); and an unquantized
 pool takes the model's dtype, where the reference always allocates bf16
-(with an f32 model its scatter then refuses the f32 rows).
+(with an f32 model its scatter then refuses the f32 rows). The states'
+conv and shift rows stay bf16 as the reference's do (a prefill chunk's
+new rows round to bf16 even under an f32 model).
 """
 
 from __future__ import annotations
@@ -44,7 +57,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.configs.base import STATE_TYPES
 from repro_torch.models import layers as L, lm
+from repro_torch.models import recurrent as R
 
 NULL_BLOCK = 0
 
@@ -114,14 +129,49 @@ def ring_abs_row(ring: list, width: int) -> np.ndarray:
     return np.asarray(ring, np.int64)[np.arange(width) % len(ring)]
 
 
+_PER_SLOT_KEYS = ("rnn", "rwkv")
+
+
 def init_paged_cache(cfg, n_blocks: int, block_size: int, dtype, device,
-                     ring_blocks: Optional[int] = None) -> list:
-    """One pool dict per layer, laid out by ``lm._layer_cache``: a global
-    layer's of ``n_blocks`` blocks, a local layer's of ``ring_blocks``
-    where given (ring-paged), else ``n_blocks``."""
-    return [lm._layer_cache(cfg, ring_blocks if ring_blocks and t == "local"
-                            else n_blocks, block_size, dtype, device)
+                     ring_blocks: Optional[int] = None, n_slots: int = 1) -> list:
+    """One dict per layer: an attention layer's pool, laid out by
+    ``lm._layer_cache`` (a global layer's of ``n_blocks`` blocks, a local
+    layer's of ``ring_blocks`` where given (ring-paged), else
+    ``n_blocks``); a recurrent layer's zero state for ``n_slots`` slots,
+    its conv and shift rows in bf16 as the reference's engine holds them
+    (h and the WKV state f32)."""
+    return [R.state_init(cfg, t, n_slots, torch.bfloat16, device)
+            if t in STATE_TYPES
+            else lm._layer_cache(cfg, ring_blocks if ring_blocks and t == "local"
+                                 else n_blocks, block_size, dtype, device)
             for t in cfg.layer_types()]
+
+
+def _states(layer: dict):
+    """A layer's per-slot state tensors, by (key, name)."""
+    return [(k, name, t) for k in _PER_SLOT_KEYS if k in layer
+            for name, t in layer[k].items()]
+
+
+def slot_view(caches: list, slot: int) -> list:
+    """The tree with every per-slot state narrowed to ``slot`` (batch 1,
+    views: an in-place update writes the slot's rows); pools pass through
+    whole."""
+    out = []
+    for layer in caches:
+        if any(k in layer for k in _PER_SLOT_KEYS):
+            layer = {k: {n: t[slot:slot + 1] for n, t in v.items()}
+                     for k, v in layer.items()}
+        out.append(layer)
+    return out
+
+
+def reset_slot(caches: list, slot: int) -> None:
+    """In place: zero ``slot``'s recurrent state (a newly admitted
+    request's fresh state). No-op for attention-only models."""
+    for layer in caches:
+        for _, _, t in _states(layer):
+            t[slot].zero_()
 
 
 def _quantized_parts(k: torch.Tensor, v: torch.Tensor, kv_dtype: str) -> dict:
@@ -145,8 +195,14 @@ def write_prompt_rows(caches: list, rows: list, blocks: list,
     ``layer_types`` take only the last min(P, R) rows, R = len(ring) *
     block_size, each at its ring row t % R (the reference's
     ``_scatter_ring_rows``): older rows lie outside every later query's
-    window, and only real rows are written."""
+    window, and only real rows are written. A recurrent layer's entry,
+    the prompt's final state (batch 1), lands in the states' first row:
+    pass ``slot_view(caches, slot)``."""
     for i, (pool, kv) in enumerate(zip(caches, rows)):
+        if any(k in pool for k in _PER_SLOT_KEYS):
+            for key, name, t in _states(pool):
+                t[0] = kv[key][name][0].to(t.dtype)
+            continue
         if ring is not None and layer_types[i] == "local":
             P = kv["k"].shape[1]
             n = min(P, len(ring) * block_size)

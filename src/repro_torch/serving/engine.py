@@ -101,6 +101,17 @@ scattered into the ring from the host side. ``ring`` needs local layers and
 a window, and refuses ``prefix_cache`` (a radix hit would skip writing the
 matched rows into the ring), in the reference's words.
 
+Recurrent models (recurrentgemma's RG-LRU layers, rwkv6's RWKV6 layers;
+the reference's engine.py:419-463, :934-937 and :1001-1004): their O(1)
+state stays per slot beside the pools (serving/cache.py). A slot's state
+is zeroed at admission, so a preempted request re-prefills from a zero
+state; a prefill chunk runs on the slot's state alone (``prefill_batch``
+is forced to 1) and its last chunk is exact-length, since a pad row would
+advance the state; a decode step advances only the decoding slots' states
+(idle and prefilling slots keep theirs); the radix cache is off (a state
+has no block boundary to share at) and spec mode is refused (the drafter
+cannot rewind a scan state past rejected tokens).
+
 Tracing (``tracer``, obs/trace.py; ``attach_tracer``): the host loop calls
 the tracer's hooks where the reference's engine does: submit and reject,
 admit, each prefill chunk, each emitted token, preempt and finish, and the
@@ -126,6 +137,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.configs.base import STATE_TYPES
 from repro_torch.dist import sharding
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention import auto_kv_splits
@@ -253,9 +265,12 @@ class Engine:
                 raise ValueError(f"kv_splits must be >= 1: {kv_splits!r}")
 
         def layer_splits(c) -> tuple:
+            """Each layer's kv_splits; a recurrent layer reads no K/V: 1."""
             if kv_splits != "auto":
-                return (self.kv_splits,) * c.n_layers
-            return tuple(auto_kv_splits(n_slots, c.n_kv_heads, max_len,
+                return tuple(1 if t in STATE_TYPES else self.kv_splits
+                             for t in c.layer_types())
+            return tuple(1 if t in STATE_TYPES else
+                         auto_kv_splits(n_slots, c.n_kv_heads, max_len,
                                         c.window if t == "local" else None)
                          for t in c.layer_types())
         if attn_backend not in ("auto", "ref"):
@@ -314,7 +329,7 @@ class Engine:
         self.sampler = sampler if sampler is not None else S.SamplerConfig()
         dtype = lm.torch_dtype(cfg.dtype)
         self.caches = C.init_paged_cache(cfg, self.n_blocks, block_size, dtype,
-                                         self.device, self.n_ring_blocks)
+                                         self.device, self.n_ring_blocks, n_slots)
         self.pool = C.BlockPool(self.n_blocks)
         # the ring pool: its own ids and null block, one ring a slot (and a
         # drafter ring), so allocating a ring never fails or preempts
@@ -324,16 +339,22 @@ class Engine:
         self.layer_kv_splits = layer_splits(cfg)
         self.draft_layer_kv_splits = None
         if self.spec:
+            if cfg.has_state:
+                raise NotImplementedError(
+                    "spec decoding: recurrent per-slot state (the drafter "
+                    "cannot rewind a scan state past rejected tokens)")
             self.draft_params = spec_draft_params
             self.draft_cfg = spec_draft_cfg if spec_draft_cfg is not None else cfg
             self.draft_caches = C.init_paged_cache(
                 self.draft_cfg, self.n_blocks, block_size, dtype, self.device,
                 self.n_ring_blocks)
             self.draft_layer_kv_splits = layer_splits(self.draft_cfg)
-        self.prefill_batch = 1 if prefill == "whole" \
+        # a pad row would advance a recurrent state: one request a chunk
+        self.prefill_batch = 1 if cfg.has_state or prefill == "whole" \
             else max(1, min(prefill_batch, n_slots))
+        # a per-slot state has no block boundary to share a prefix at
         self.radix = RadixCache(self.pool, block_size) \
-            if prefix_cache and prefill == "chunked" else None
+            if prefix_cache and prefill == "chunked" and not cfg.has_state else None
         self.slots = [_Slot() for _ in range(n_slots)]
         self.queue: deque[Request] = deque()
         self.obs = MetricsRegistry()
@@ -409,17 +430,24 @@ class Engine:
             if tr is not None:
                 tr.add_slice(f"compile:{name}", t0, t1)
 
-    def _forward(self, draft: bool, tokens, pos, tables, rings=None) -> torch.Tensor:
+    def _forward(self, draft: bool, tokens, pos, tables, rings=None,
+                 slot: Optional[int] = None, active=None) -> torch.Tensor:
         """Final hidden states (B, S, D) of the target's (or the drafter's)
-        forward over its paged pool; ``rings`` is ``_ring_tables``'s pair."""
+        forward over its paged pool; ``rings`` is ``_ring_tables``'s pair.
+        Recurrent state: ``slot`` runs a one-row forward on that slot's
+        state alone; ``active`` (n_slots,) bool limits a batched step's
+        state advance to its rows."""
         params, cfg, caches, splits = (
             self.draft_params, self.draft_cfg, self.draft_caches,
             self.draft_layer_kv_splits) if draft else \
             (self.params, self.cfg, self.caches, self.layer_kv_splits)
+        if slot is not None:
+            caches = C.slot_view(caches, slot)
         ring, ring_abs = rings if rings is not None else (None, None)
         h, _ = lm.forward(params, cfg, tokens, caches=caches, pos=pos,
                           block_tables=tables, ring_tables=ring, ring_abs=ring_abs,
-                          kv_splits=splits, attn_backend=self.attn_backend)
+                          kv_splits=splits, attn_backend=self.attn_backend,
+                          active=active)
         return h
 
     def _logits(self, draft: bool, h) -> torch.Tensor:
@@ -428,34 +456,41 @@ class Engine:
         return lm.logits_fn(params, cfg, h)
 
     @torch.inference_mode()
-    def _decode_fn(self, tables, tokens, pos, rings=None) -> torch.Tensor:
+    def _decode_fn(self, tables, tokens, pos, rings=None, active=None) -> torch.Tensor:
         """One token for every slot: tokens (n_slots, 1), pos (n_slots,),
         tables (n_slots, nb_max), ``rings`` the ring tables of a ring
-        engine. Returns (n_slots, V) f32 logits."""
+        engine, ``active`` (n_slots,) the decoding slots of a recurrent
+        model (the others keep their state). Returns (n_slots, V) f32
+        logits."""
         with self._run("decode"):
-            h = self._forward(False, tokens, pos, tables, rings)
+            h = self._forward(False, tokens, pos, tables, rings, active=active)
         return self._logits(False, h[:, -1:])[:, -1]
 
     @torch.inference_mode()
     def _prefill_fn(self, tables, tokens, starts, draft: bool = False,
-                    rings=None) -> None:
+                    rings=None, slot: Optional[int] = None) -> None:
         """One chunk for up to prefill_batch requests: tokens (Bp,
         chunk_size) (pad rows zero), starts (Bp,) first row indices, tables
         (Bp, width) (a pad row all null, its ring too); the drafter's tree
-        with ``draft``."""
+        with ``draft``. A recurrent model's chunk is one request's, of its
+        exact length, on ``slot``'s state."""
         with self._run("draft_prefill" if draft else "prefill"):
-            self._forward(draft, tokens, starts, tables, rings)
+            self._forward(draft, tokens, starts, tables, rings, slot=slot)
 
     @torch.inference_mode()
-    def _prefill_whole_fn(self, blocks: list, prompt, ring=None) -> None:
+    def _prefill_whole_fn(self, ix: int, prompt) -> None:
         """One whole-prompt forward (1, P) without a cache, its per-layer
-        K/V scattered into ``blocks`` (a local layer's into ``ring`` on a
-        ring engine)."""
+        K/V scattered into slot ``ix``'s blocks (a local layer's into its
+        ring on a ring engine) and its final recurrent states into the
+        slot's."""
+        s = self.slots[ix]
         with self._run("prefill_whole"):
             _, rows = lm.forward(self.params, self.cfg, prompt,
                                  collect_cache=True)
-        C.write_prompt_rows(self.caches, rows, blocks, self.block_size,
-                            self.cfg.kv_cache_dtype, self.cfg.layer_types(), ring)
+        C.write_prompt_rows(C.slot_view(self.caches, ix), rows, s.blocks,
+                            self.block_size, self.cfg.kv_cache_dtype,
+                            self.cfg.layer_types(),
+                            s.ring_blocks if self.ring_len else None)
 
     @torch.inference_mode()
     def _verify_fn(self, tables, tokens, pos, rings=None) -> torch.Tensor:
@@ -697,6 +732,8 @@ class Engine:
             self.slots[ix] = slot
             if self.tracer is not None:
                 self.tracer.on_admit(req.uid, shared_tokens=m)
+            if self.cfg.has_state:
+                C.reset_slot(self.caches, ix)
             if P == 0:
                 slot.state = _DECODE         # zero-block request
             elif m >= P:
@@ -736,8 +773,7 @@ class Engine:
             self._note_blocks("target", len(s.blocks))
         tr = self.tracer
         t0 = tr.now() if tr is not None else 0.0
-        self._prefill_whole_fn(s.blocks, self._tensor(s.prompt)[None],
-                               s.ring_blocks if self.ring_len else None)
+        self._prefill_whole_fn(ix, self._tensor(s.prompt)[None])
         if tr is not None:
             tr.on_prefill_chunk(s.req.uid, start=0, rows=P, t0=t0, t1=tr.now())
         self.prefill_tokens_computed += P
@@ -749,10 +785,12 @@ class Engine:
     def _prep_chunk(self, ix: int):
         """Host half of a chunk: bounds, blocks (possibly preempting), the
         padded token row. Returns (tokens (chunk_size,), start, real), or
-        None if the slot was evicted while making room."""
+        None if the slot was evicted while making room. A recurrent model's
+        row is exactly the real rows: its state must see the prompt alone."""
         s = self.slots[ix]
         start = s.prefill_done
         real = min(self.chunk_size, len(s.prompt) - start)
+        length = real if self.cfg.has_state else self.chunk_size
         # blocks cover real rows only: pad-row writes past the allocated
         # table entries fall into the null block
         need = -(-(start + real) // self.block_size) - len(s.blocks)
@@ -761,7 +799,7 @@ class Engine:
                 return None
             s.blocks += self.pool.alloc(need)
             self._note_blocks("target", len(s.blocks))
-        chunk = np.zeros((self.chunk_size,), np.int64)
+        chunk = np.zeros((length,), np.int64)
         chunk[:real] = s.prompt[start:start + real]
         return chunk, start, real
 
@@ -799,7 +837,7 @@ class Engine:
         if not live:
             return
         Bp = self.prefill_batch
-        tokens = np.zeros((Bp, self.chunk_size), np.int64)
+        tokens = np.zeros((Bp, len(live[0][1][0])), np.int64)
         starts = np.zeros((Bp,), np.int64)
         tables = np.full((Bp, self.nb_max), C.NULL_BLOCK, np.int64)
         for j, (ix, (chunk, start, _)) in enumerate(live):
@@ -808,10 +846,15 @@ class Engine:
             tables[j] = self._table_row(self.slots[ix])
         tr = self.tracer
         t0 = tr.now() if tr is not None else 0.0
+        # a recurrent model's exact-length last chunk may be one row, which
+        # attends as a decode step does: on a ring, through its absolute table
+        one_row = tokens.shape[1] == 1
         self._prefill_fn(self._tensor(tables), self._tensor(tokens),
                          self._tensor(starts),
                          rings=self._ring_tables([(j, ix) for j, (ix, _) in
-                                                  enumerate(live)], Bp))
+                                                  enumerate(live)], Bp,
+                                                 width=self.nb_max if one_row else None),
+                         slot=live[0][0] if self.cfg.has_state else None)
         if tr is not None:
             t1 = tr.now()
             for ix, (_, start, real) in live:
@@ -871,10 +914,13 @@ class Engine:
         tables = np.zeros((self.n_slots, self.nb_max), np.int64)
         for i in active:
             tables[i] = self._table_row(self.slots[i])
+        mask = torch.as_tensor([s.state == _DECODE for s in self.slots],
+                               device=self.device) if self.cfg.has_state else None
         logits = self._decode_fn(self._tensor(tables), self._tensor(tokens),
                                  self._tensor(pos),
                                  self._ring_tables([(i, i) for i in active],
-                                                   self.n_slots, width=self.nb_max))
+                                                   self.n_slots, width=self.nb_max),
+                                 mask)
         uids, sidx, temp, topp = self._sampler_rows()
         nxt = S.sample(logits, self.sampler, uids, sidx, temp, topp).tolist()
         self.decode_steps += 1
